@@ -13,7 +13,10 @@ import pytest
 import torch
 
 from whisper_burn_tpu_torch.ops import _build
+from whisper_burn_tpu_torch.ops.cache import write_cache_slot, write_cache_slot_plain
 from whisper_burn_tpu_torch.ops.decode_attention import (
+    decode_attention_layer,
+    decode_attention_layer_plain,
     decode_cross_attention,
     decode_cross_attention_plain,
     decode_self_attention,
@@ -38,7 +41,8 @@ def _rel_err(out, ref):
     return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
-@pytest.mark.parametrize("m,k,n,gelu", [(1, 256, 768, None), (37, 1280, 1284, "tanh"), (300, 512, 256, "erf")])
+# M = 40: beam search's decode rows (8 utterances x 5 beams), five 8-row blocks
+@pytest.mark.parametrize("m,k,n,gelu", [(1, 256, 768, None), (37, 1280, 1284, "tanh"), (40, 1280, 1280, None), (300, 512, 256, "erf")])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 def test_q4_matmul_kernel(gen, m, k, n, gelu, dtype, tol):
     qw = torch.randint(-8, 8, (3, k, n), generator=gen, device="cuda", dtype=torch.int8)
@@ -70,13 +74,41 @@ def test_self_attention_kernel_and_store(gen, pos):
         assert torch.equal(a, r)
 
 
-def test_cross_attention_kernel(gen):
+@pytest.mark.parametrize("groups", [1, 5])
+def test_cross_attention_kernel(gen, groups):
     l_dim, b, t, d, h = 2, 3, 256, 256, 4
     kT = torch.randint(0, 256, (l_dim, b, d // 2, t), generator=gen, device="cuda", dtype=torch.uint8)
     v = torch.randint(0, 256, (l_dim, b, t // 2, d), generator=gen, device="cuda", dtype=torch.uint8)
-    q = torch.randn((b, 1, d), generator=gen, device="cuda") * 0.1
-    out = decode_cross_attention(q, kT, v, 1, 200, h)
-    assert _rel_err(out, decode_cross_attention_plain(q, kT, v, 1, 200, h)) <= 1e-5
+    q = torch.randn((b * groups, 1, d), generator=gen, device="cuda") * 0.1
+    out = decode_cross_attention(q, kT, v, 1, 200, h, groups)
+    assert _rel_err(out, decode_cross_attention_plain(q, kT, v, 1, 200, h, groups)) <= 1e-5
+
+
+@pytest.mark.parametrize("ctx,valid", [(64, 0), (64, 37), (96, 96), (448, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_layer_kernel(gen, ctx, valid, dtype):
+    l_dim, b, d, h = 2, 3, 256, 4
+    kc = torch.randint(-127, 128, (l_dim, b, ctx, d), generator=gen, device="cuda", dtype=torch.int8)
+    vc = torch.randint(-127, 128, (l_dim, b, ctx, d), generator=gen, device="cuda", dtype=torch.int8)
+    sc = torch.rand((l_dim, b, ctx, 2), generator=gen, device="cuda") * 0.02
+    q = torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype)
+    _build.reset_launches()
+    out = decode_attention_layer(q, kc, vc, sc, 1, valid, h)
+    assert _build.LAUNCHES["decode_attention_layer"] == 1
+    ref = decode_attention_layer_plain(q, kc, vc, sc, 1, valid, h)
+    for a, r in zip(out, ref):  # f32 math both ways, sums in another order
+        assert (a - r).abs().max().item() <= 1e-5 * max(r.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("dtype,width", [(torch.int8, 1280), (torch.float32, 2), (torch.bfloat16, 3)])
+def test_cache_slot_kernel(gen, dtype, width):
+    """16-byte rows take the vector path; 8- and 6-byte rows the byte path."""
+    cache = torch.randn((3, 5, 16, width), generator=gen, device="cuda").mul(50).to(dtype)
+    new = torch.randn((3, 5, 1, width), generator=gen, device="cuda").mul(50).to(dtype)
+    ref = cache.clone()
+    write_cache_slot(cache, new, 7)
+    write_cache_slot_plain(ref, new, 7)
+    assert torch.equal(cache, ref)
 
 
 @pytest.mark.parametrize("t,valid", [(128, 100), (200, 200)])

@@ -40,7 +40,7 @@ def test_package_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_request_walls.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", *(ROOT / "scripts" / f"torch_{n}.py" for n in ("request_walls", "cross_attention_times"))]
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in [*PACKAGE.rglob("*.py"), *SCRIPTS]))
@@ -96,6 +96,11 @@ def test_cache_modes_outside_the_slice_raise(compute, item):
 
 
 def test_beam_groups_raise():
+    """batch_groups must split the self cache's streams into the cross
+    cache's utterances."""
     cfg = WhisperConfig.tiny_test()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        decode_step({}, cfg, torch.zeros(2, dtype=torch.long), 4, None, Compute.fastest(kv_bits=4), batch_groups=2)
+    compute = Compute.fastest(kv_bits=4)
+    cache = init_cache(cfg, 2, compute, 64, "cpu")
+    for groups in (0, 2):  # 2 streams on 2 utterances: groups of 1 only
+        with pytest.raises(ValueError, match="batch_groups"):
+            decode_step({}, cfg, torch.zeros(2, dtype=torch.long), 4, cache, compute, batch_groups=groups)

@@ -12,7 +12,10 @@ import jax.numpy as jnp
 
 from whisper_burn_tpu.ops import Compute as JCompute
 from whisper_burn_tpu.ops.compute import KernelBackend
-from whisper_burn_tpu.ops.pallas_attention import decode_attention_kT, decode_attention_merged
+from whisper_burn_tpu.ops.pallas_attention import decode_attention_kT, decode_attention_layer as j_layer
+from whisper_burn_tpu.ops.pallas_attention import decode_attention_merged
+from whisper_burn_tpu.ops.pallas_attention import flash_merge_extra_key as j_merge
+from whisper_burn_tpu.ops.pallas_cache import write_cache_slot as j_write_slot
 from whisper_burn_tpu.ops.pallas_encoder_attention import encoder_attention_packed
 from whisper_burn_tpu.ops.pallas_ffn import fused_ffn_pallas, fused_ffn_pallas_stacked
 from whisper_burn_tpu.ops.pallas_q4 import q4_matmul_pallas, q4_matmul_pallas_stacked
@@ -21,7 +24,13 @@ from whisper_burn_tpu.ops.q4_matmul import q4_matmul as j_q4_matmul
 from whisper_burn_tpu_torch.models.params import repack_f32
 from whisper_burn_tpu_torch.ops import _build
 from whisper_burn_tpu_torch.ops.compute import Compute
-from whisper_burn_tpu_torch.ops.decode_attention import decode_cross_attention, decode_self_attention
+from whisper_burn_tpu_torch.ops.cache import write_cache_slot
+from whisper_burn_tpu_torch.ops.decode_attention import (
+    decode_attention_layer,
+    decode_cross_attention,
+    decode_self_attention,
+    flash_merge_extra_key,
+)
 from whisper_burn_tpu_torch.ops.encoder_attention import encoder_attention
 from whisper_burn_tpu_torch.ops.linear import apply_ffn
 from whisper_burn_tpu_torch.ops.q4_kernel import q4_matmul
@@ -141,6 +150,50 @@ def test_self_attention_with_store_matches_pallas(pos):
     np.testing.assert_array_equal(tsc.numpy(), expect_sc)
 
 
+def _self_cache(rng, l_dim, b, ctx, d):
+    k8 = rng.integers(-127, 128, (l_dim, b, ctx, d), dtype=np.int8)
+    v8 = rng.integers(-127, 128, (l_dim, b, ctx, d), dtype=np.int8)
+    sc = rng.uniform(0.001, 0.02, (l_dim, b, ctx, 2)).astype(np.float32)
+    return k8, v8, sc
+
+
+# ctx 64 is one key tile of the Pallas kernel; ctx 96 is three 32-key tiles
+# (its flash recurrence), which kernel E covers in one exact pass
+@pytest.mark.parametrize("ctx,valid", [(64, 1), (64, 37), (64, 64), (96, 1), (96, 37), (96, 96)])
+def test_attention_layer_and_merge_match_pallas(ctx, valid):
+    """Kernel E's plain version (unnormalized acc, m, l) against the general
+    Pallas kernel, then the flash merge of the current token on top."""
+    rng = np.random.default_rng(8)
+    l_dim, b, d, h, layer = 2, 3, 256, 4, 1
+    k8, v8, sc = _self_cache(rng, l_dim, b, ctx, d)
+    q, kn, vn = (rng.standard_normal((b, 1, d)).astype(np.float32) for _ in range(3))
+    ref = j_layer(
+        jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8), jnp.asarray(layer), jnp.asarray(valid), h,
+        kv_scale4=jnp.asarray(sc), interpret=True,
+    )
+    out = decode_attention_layer(
+        torch.from_numpy(q), torch.from_numpy(k8), torch.from_numpy(v8), torch.from_numpy(sc), layer, valid, h
+    )
+    assert [tuple(a.shape) for a in out] == [(b, 1, d), (b, 1, h), (b, 1, h)]
+    for a, r in zip(out, ref):
+        _close(a, r)
+    merged = flash_merge_extra_key(*out, torch.from_numpy(q), torch.from_numpy(kn), torch.from_numpy(vn), h)
+    _close(merged, j_merge(*ref, jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), h))
+
+
+@pytest.mark.parametrize("pos", [0, 13, 63])
+def test_cache_slot_matches_pallas(pos):
+    """Kernel F's plain version writes exactly what the Pallas slot writer
+    writes, and nothing else."""
+    rng = np.random.default_rng(9)
+    cache = rng.integers(-127, 128, (2, 3, 64, 256), dtype=np.int8)
+    new = rng.integers(-127, 128, (2, 3, 1, 256), dtype=np.int8)
+    ref = j_write_slot(jnp.asarray(cache), jnp.asarray(new), jnp.asarray(pos), interpret=True)
+    out = torch.from_numpy(cache.copy())
+    write_cache_slot(out, torch.from_numpy(new), pos)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
 def _pack4(q4, axis):
     lo, hi = np.split((q4 + 8).astype(np.uint8), 2, axis=axis)
     return lo | (hi << 4)
@@ -158,6 +211,25 @@ def test_cross_attention_int4_matches_pallas(valid):
         interpret=True, normalized=True,
     )
     out = decode_cross_attention(torch.from_numpy(q), torch.from_numpy(kT), torch.from_numpy(v), layer, valid, h)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("valid", [100, 128])
+def test_grouped_cross_attention_int4_matches_pallas(valid):
+    """Three query streams per cross-cache entry (beam search's
+    batch_groups): stream b reads entry b // 3."""
+    rng = np.random.default_rng(10)
+    l_dim, b, g, t, d, h, layer = 2, 2, 3, 128, 256, 4, 1
+    kT = _pack4(rng.integers(-8, 8, (l_dim, b, d, t), dtype=np.int8), axis=2)
+    v = _pack4(rng.integers(-8, 8, (l_dim, b, t, d), dtype=np.int8), axis=2)
+    q = (rng.standard_normal((b * g, 1, d)) * 0.3).astype(np.float32)
+    ref, _, _ = decode_attention_kT(
+        jnp.asarray(q), jnp.asarray(kT), jnp.asarray(v), jnp.asarray(layer), jnp.asarray(valid), h,
+        batch_groups=g, interpret=True, normalized=True,
+    )
+    out = decode_cross_attention(
+        torch.from_numpy(q), torch.from_numpy(kT), torch.from_numpy(v), layer, valid, h, batch_groups=g
+    )
     _close(out, ref)
 
 

@@ -231,6 +231,45 @@ def test_prefill_and_teacher_forced_decode_match_jax(setup, caches):
     print(f"stages: prefill {pre:.3g}, teacher-forced steps {steps:.3g}")
 
 
+def test_grouped_decode_steps_match_jax(setup, caches):
+    """Teacher-forced steps with batch_groups=G (beam search's branch of the
+    decode step: kernel E and the flash merge for self-attention, grouped
+    kernel C, the deferred slot write by kernel F) on the same prefilled
+    self caches repeated G-fold, both sides' cross caches shared per
+    utterance; logits at 1e-4. Each step starts from the JAX side's self
+    cache and the rows both store are held to _assert_self_rows_agree, as
+    int8 codes at rounding ties move later steps."""
+    _, _, jparams, params = setup
+    jenc, enc, _, _ = caches
+    g = 3
+    jcache = j_fill(jparams, JCFG, jenc, j_init_cache(JCFG, B, JC, ctx=CTX), JC)
+    cache = fill_cross_cache(params, CFG, enc, init_cache(CFG, B, TC, CTX, "cpu"), TC)
+    prompt = _prompt(B)
+    _, jc = j_prefill(jparams, JCFG, jnp.asarray(prompt), jcache, JC)
+    prefill(params, CFG, torch.from_numpy(prompt).long(), cache, TC)
+    _assert_self_rows_agree(cache, jc, slice(0, 4))
+    rep = lambda a: jnp.repeat(a, g, axis=1)
+    jc = jc._replace(self_k=rep(jc.self_k), self_v=rep(jc.self_v), self_kv_scale=rep(jc.self_kv_scale))
+    cache.self_k, cache.self_v, cache.self_kv_scale = (
+        torch.from_numpy(np.array(a)) for a in (jc.self_k, jc.self_v, jc.self_kv_scale)
+    )
+    forced = np.random.default_rng(11).integers(0, CFG.n_vocab, (STEPS, B * g)).astype(np.int32)
+    step = jax.jit(j_decode_step, static_argnums=(1, 5, 6))
+    diffs = []
+    _build.reset_launches()
+    for k in range(STEPS):
+        pos = 4 + k
+        jlogits, jc = step(jparams, JCFG, jnp.asarray(forced[k]), jnp.asarray(pos), jc, JC, g)
+        logits = decode_step(params, CFG, torch.from_numpy(forced[k]).long(), pos, cache, TC, batch_groups=g)
+        assert logits.shape == (B * g, CFG.n_vocab_padded)
+        _close(logits, jlogits, 1e-4)
+        diffs.append(_max_diff(logits, jlogits))
+        _assert_self_rows_agree(cache, jc, slice(pos, pos + 1))
+        _take_self_cache(cache, jc)
+    assert sum(_build.LAUNCHES.values()) == 0  # CPU tensors: plain versions only
+    print(f"grouped teacher-forced steps: {max(diffs):.3g}")
+
+
 def test_greedy_decode_matches_jax(setup):
     audio, mel, jparams, params = setup
     lang = np.full(B, CFG.lang_token_start, np.int32)

@@ -1,4 +1,4 @@
-// Kernels B and C: one-query decode attention over the quantized caches.
+// Kernels B, C and E: one-query decode attention over the quantized caches.
 //
 // Kernel B, decode_self_attention, replaces the merged + store form of
 // whisper_burn_tpu/ops/pallas_attention.py:_kernel (via
@@ -14,6 +14,19 @@
 // scores stay in shared memory; the value sum runs with one thread per
 // channel on coalesced 64-byte rows.
 //
+// Kernel E, decode_attention_layer, replaces the general form of the same
+// _kernel (via decode_attention_layer, int8 cache with per-token scales):
+// the same attention over keys t < valid, without the current token and
+// without the store, returned unnormalized as (acc [B, D], m [B, H],
+// l [B, H]) for the caller's flash merge (beam search's deferred cache
+// write). Scores are (q.k) * scale * sk[t]; acc sums p[t] * sv[t] * v[t];
+// l sums p[t] with the V scale left out. The TPU kernel walks key tiles
+// with a running max when ctx spans several; here the whole ctx of scores
+// sits in shared memory (ctx * 4 bytes, within the 48 KB default: ctx up
+// to 12288, above n_text_ctx 448), so one exact pass gives the same m, l
+// and acc. Bound and design: those of kernel B, whose cached-key part it
+// shares (attend_cached).
+//
 // Kernel C, decode_cross_attention, replaces
 // whisper_burn_tpu/ops/pallas_attention.py:_kt_kernel (int4, normalized).
 // Keys are int4 pairs packed along D, stored [L, B, D/2, T] (byte row j
@@ -21,11 +34,17 @@
 // values are packed along T, stored [L, B, T/2, D] (row t holds time t low
 // and time t + T/2 high). Codes are biased by 8. Keys at `valid` and above
 // are masked. Per-channel scales are folded into q and the output by the
-// caller. Bound: the int4 cache read (T * D bytes per stream and layer,
-// memory). Design: one block per (stream, head pair h, h + H/2): channel j
-// of head h and of head h + H/2 share a byte, so every key and value byte
-// is read by exactly one block, with consecutive threads on consecutive
-// keys (scores) or channels (values).
+// caller. With G > 1 query streams per cache entry (beam search's
+// batch_groups) stream b reads entry b / G, as the TPU kernel's index map
+// does. Bound: the int4 cache read (T * D bytes per cache entry and layer,
+// memory). Design: one block per (entry, head pair h, h + H/2, stream of
+// the entry): channel j of head h and of head h + H/2 share a byte, so
+// every key and value byte is read by exactly one block per stream, with
+// consecutive threads on consecutive keys (scores) or channels (values).
+// The G streams of an entry are the grid's z axis, so their blocks run
+// side by side and re-read the entry's bytes mostly from L2. The host
+// passes the entry count: the same kernel dividing B by G itself took
+// more registers and ran slower, at G = 1 too.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -68,6 +87,51 @@ __device__ float block_reduce(float v, float* scratch) {
 
 constexpr int SELF_THREADS = 128;
 
+// The cached-key part of kernels B and E for one (stream, head) block of
+// SELF_THREADS threads: scores of keys t < valid of the cache rows from
+// row0 on (qs holds the head's 64 query values, s has room for `valid`
+// floats), their softmax weights and the weighted value sum. Every thread
+// gets the running max m and the normalizer l (V scale left out); thread
+// tid < 64 gets channel c0 + tid's sum of p[t] * sv[t] * v[t] in acc.
+__device__ void attend_cached(const int8_t* kc, const int8_t* vc, const float* kvs, size_t row0,
+                              int c0, int valid, int D, const float* qs, float* s,
+                              float* scratch, float* part, float& m_out, float& l_out,
+                              float& acc_out) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int nwarps = SELF_THREADS / 32;
+  const float scale = rsqrtf((float)DH);
+
+  for (int t = warp; t < valid; t += nwarps) {
+    const char2 kk = *reinterpret_cast<const char2*>(kc + (row0 + t) * D + c0 + 2 * lane);
+    float d = qs[2 * lane] * (float)kk.x + qs[2 * lane + 1] * (float)kk.y;
+    d = warp_sum(d);
+    if (lane == 0) s[t] = d * scale * kvs[(row0 + t) * 2];
+  }
+  __syncthreads();
+  float m = NEG_BIG;
+  for (int t = tid; t < valid; t += SELF_THREADS) m = fmaxf(m, s[t]);
+  m = block_reduce<true>(m, scratch);
+  float l = 0.f;
+  for (int t = tid; t < valid; t += SELF_THREADS) {
+    const float p = expf(s[t] - m);
+    l += p;
+    s[t] = p * kvs[(row0 + t) * 2 + 1];  // V scale weights the value sum only
+  }
+  l = block_reduce<false>(l, scratch);
+  __syncthreads();
+
+  // value sum: channel c = tid % 64, keys split in two halves by tid / 64
+  const int c = tid % DH, half = tid / DH;
+  float acc = 0.f;
+  for (int t = half; t < valid; t += SELF_THREADS / DH)
+    acc += s[t] * (float)vc[(row0 + t) * D + c0 + c];
+  part[tid] = acc;
+  __syncthreads();
+  m_out = m;
+  l_out = l;
+  acc_out = tid < DH ? part[tid] + part[tid + DH] : 0.f;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(SELF_THREADS)
 self_attn_kernel(const T* __restrict__ q, int8_t* kc, int8_t* vc, float* kvs,
@@ -80,46 +144,19 @@ self_attn_kernel(const T* __restrict__ q, int8_t* kc, int8_t* vc, float* kvs,
   __shared__ float scratch[32];
   __shared__ float part[SELF_THREADS];
   const int b = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int nwarps = SELF_THREADS / 32;
+  const int tid = threadIdx.x;
   const int c0 = h * DH;
   const float scale = rsqrtf((float)DH);
   const size_t row0 = ((size_t)layer * B + b) * ctx;  // first cache row of (layer, b)
 
   if (tid < DH) qs[tid] = to_f(q[(size_t)b * D + c0 + tid]);
   __syncthreads();
-
-  // scores of the cached keys t < pos
-  for (int t = warp; t < pos; t += nwarps) {
-    const char2 kk = *reinterpret_cast<const char2*>(kc + (row0 + t) * D + c0 + 2 * lane);
-    float d = qs[2 * lane] * (float)kk.x + qs[2 * lane + 1] * (float)kk.y;
-    d = warp_sum(d);
-    if (lane == 0) s[t] = d * scale * kvs[(row0 + t) * 2];
-  }
-  __syncthreads();
-  float m = NEG_BIG;
-  for (int t = tid; t < pos; t += SELF_THREADS) m = fmaxf(m, s[t]);
-  m = block_reduce<true>(m, scratch);
-  float l = 0.f;
-  for (int t = tid; t < pos; t += SELF_THREADS) {
-    const float p = expf(s[t] - m);
-    l += p;
-    s[t] = p * kvs[(row0 + t) * 2 + 1];  // V scale weights the value sum only
-  }
-  l = block_reduce<false>(l, scratch);
-  __syncthreads();
-
-  // value sum: channel c = tid % 64, keys split in two halves by tid / 64
-  const int c = tid % DH, half = tid / DH;
-  float acc = 0.f;
-  for (int t = half; t < pos; t += SELF_THREADS / DH)
-    acc += s[t] * (float)vc[(row0 + t) * D + c0 + c];
-  part[tid] = acc;
+  float m, l, acc;
+  attend_cached(kc, vc, kvs, row0, c0, pos, D, qs, s, scratch, part, m, l, acc);
   // the current token's score
   float e = tid < DH ? qs[tid] * to_f(k_new[(size_t)b * D + c0 + tid]) : 0.f;
   e = block_reduce<false>(e, scratch) * scale;
   if (tid < DH) {
-    acc = part[tid] + part[tid + DH];
     const float m2 = fmaxf(m, e);
     const float alpha = expf(m - m2), beta = expf(e - m2);
     const float l2 = l * alpha + beta;
@@ -132,23 +169,51 @@ self_attn_kernel(const T* __restrict__ q, int8_t* kc, int8_t* vc, float* kvs,
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(SELF_THREADS)
+layer_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
+                  const int8_t* __restrict__ vc, const float* __restrict__ kvs,
+                  float* __restrict__ acc_out, float* __restrict__ m_out,
+                  float* __restrict__ l_out, int layer, int valid, int B, int ctx, int D, int H) {
+  extern __shared__ float s[];  // [ctx] scores, then probabilities
+  __shared__ float qs[DH];
+  __shared__ float scratch[32];
+  __shared__ float part[SELF_THREADS];
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int c0 = h * DH;
+  const size_t row0 = ((size_t)layer * B + b) * ctx;
+
+  if (tid < DH) qs[tid] = to_f(q[(size_t)b * D + c0 + tid]);
+  __syncthreads();
+  float m, l, acc;
+  attend_cached(kc, vc, kvs, row0, c0, valid, D, qs, s, scratch, part, m, l, acc);
+  if (tid < DH) acc_out[(size_t)b * D + c0 + tid] = acc;
+  if (tid == 0) {
+    m_out[b * H + h] = m;
+    l_out[b * H + h] = l;
+  }
+}
+
 constexpr int CROSS_THREADS = 512;
 
 template <typename T>
 __global__ void __launch_bounds__(CROSS_THREADS)
 cross_attn_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kT,
                   const uint8_t* __restrict__ v, float* __restrict__ out,
-                  int layer, int valid, int B, int D, int Tn, int H) {
+                  int layer, int valid, int E, int G, int D, int Tn, int H) {
   extern __shared__ float s[];  // [2][Tn] scores of the two heads
   __shared__ float qs[2][DH];
   __shared__ float scratch[32];
   __shared__ float part[CROSS_THREADS];
-  const int b = blockIdx.x, h = blockIdx.y, h2 = h + H / 2;
+  const int e = blockIdx.x, h = blockIdx.y, h2 = h + H / 2;  // e: cache entry
+  const int b = e * G + blockIdx.z;  // the query stream
   const int tid = threadIdx.x;
   const int D2 = D / 2, T2 = Tn / 2;
   const float scale = rsqrtf((float)DH);
-  const uint8_t* kb = kT + ((size_t)layer * B + b) * D2 * Tn;
-  const uint8_t* vb = v + ((size_t)layer * B + b) * T2 * D;
+  const size_t entry = (size_t)layer * E + e;
+  const uint8_t* kb = kT + entry * D2 * Tn;
+  const uint8_t* vb = v + entry * T2 * D;
   float* s1 = s;
   float* s2 = s + Tn;
 
@@ -241,13 +306,41 @@ extern "C" int decode_self_attention(const void* q, int bf16, void* kc, void* vc
   return static_cast<int>(cudaGetLastError());
 }
 
-// q: [B, D] f32 or bf16; kT: uint8 [L, B, D/2, T]; v: uint8 [L, B, T/2, D];
-// out: f32 [B, D], normalized. Head width 64, H even, T even, 2 * T * 4
-// bytes of dynamic shared memory within the 48 KB default.
+// q: [B, D] f32 or bf16 (bf16 flag), B query streams; kc, vc: int8
+// [L, B, ctx, D]; kvs: f32 [L, B, ctx, 2]; acc: f32 [B, D]; m, l: f32
+// [B, H]. Head width 64. Needs 0 <= valid <= ctx and ctx * 4 bytes of
+// dynamic shared memory within the 48 KB default.
+extern "C" int decode_attention_layer(const void* q, int bf16, const void* kc, const void* vc,
+                                      const void* kvs, void* acc, void* m, void* l, int layer,
+                                      int valid, int B, int ctx, int D, int H, void* stream) {
+  dim3 grid(B, H);
+  const size_t smem = (size_t)ctx * sizeof(float);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* k8 = static_cast<const int8_t*>(kc);
+  const int8_t* v8 = static_cast<const int8_t*>(vc);
+  const float* sc = static_cast<const float*>(kvs);
+  float* a = static_cast<float*>(acc);
+  float* mo = static_cast<float*>(m);
+  float* lo = static_cast<float*>(l);
+  if (bf16) {
+    layer_attn_kernel<__nv_bfloat16><<<grid, SELF_THREADS, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(q), k8, v8, sc, a, mo, lo, layer, valid, B, ctx, D, H);
+  } else {
+    layer_attn_kernel<float><<<grid, SELF_THREADS, smem, st>>>(
+        static_cast<const float*>(q), k8, v8, sc, a, mo, lo, layer, valid, B, ctx, D, H);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q: [B, D] f32 or bf16, B query streams, G of them per cache entry (B % G
+// == 0); kT: uint8 [L, B/G, D/2, T]; v: uint8 [L, B/G, T/2, D]; out: f32
+// [B, D], normalized. Head width 64, H even, T even, 2 * T * 4 bytes of
+// dynamic shared memory within the 48 KB default.
 extern "C" int decode_cross_attention(const void* q, int bf16, const void* kT, const void* v,
-                                      void* out, int layer, int valid, int B, int D, int T,
+                                      void* out, int layer, int valid, int B, int G, int D, int T,
                                       int H, void* stream) {
-  dim3 grid(B, H / 2);
+  dim3 grid(B / G, H / 2, G);
+  const int E = B / G;
   const size_t smem = 2 * (size_t)T * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* k4 = static_cast<const uint8_t*>(kT);
@@ -255,10 +348,10 @@ extern "C" int decode_cross_attention(const void* q, int bf16, const void* kT, c
   float* o = static_cast<float*>(out);
   if (bf16) {
     cross_attn_kernel<__nv_bfloat16><<<grid, CROSS_THREADS, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q), k4, v4, o, layer, valid, B, D, T, H);
+        static_cast<const __nv_bfloat16*>(q), k4, v4, o, layer, valid, E, G, D, T, H);
   } else {
     cross_attn_kernel<float><<<grid, CROSS_THREADS, smem, st>>>(
-        static_cast<const float*>(q), k4, v4, o, layer, valid, B, D, T, H);
+        static_cast<const float*>(q), k4, v4, o, layer, valid, E, G, D, T, H);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,13 +9,25 @@ int4-packed cross-KV with per-channel scales and int8 per-token self-KV.
 * output projection = tied token-embedding transpose (int8 copy with
   ``compute.quantized_logits``), padded vocab masked to -inf
 
-The decode step follows the JAX package's store-in-kernel flash path: per
-layer, kernel A serves the four projections and the FFN (by layer index,
-no weight copy), kernel B the self-attention (the current token's raw K/V
-merged into the softmax, its quantized row and scales stored at ``pos``
-in place) and kernel C the cross-attention (per-channel K scales folded
-into the query, V scales into the output). The caches are updated in
-place.
+The decode step follows the JAX package's flash path (``_decode_step_flash``).
+Per layer, kernel A serves the four projections and the FFN (by layer
+index, no weight copy) and kernel C the cross-attention (per-channel K
+scales folded into the query, V scales into the output; with
+``batch_groups=G`` the G streams of an utterance share its cross cache).
+The self-attention takes one of two branches, by ``batch_groups``:
+
+* ``1`` (greedy): kernel B, the current token's raw K/V merged into the
+  softmax and its quantized row and scales stored at ``pos`` in place.
+  The JAX package takes this store-in-kernel branch only when ctx is one
+  key tile and its deferred branch otherwise; kernel B computes the same
+  function at any ctx, so the port always takes it here.
+* ``> 1`` (beam search): the deferred-write branch. Kernel E attends over
+  the cached keys, unnormalized, :func:`flash_merge_extra_key` merges the
+  current token's raw K/V; after the layer loop the new rows of every
+  layer are quantized per token, kernel F writes them at ``pos`` and a
+  slice assignment the scales.
+
+The caches are updated in place.
 """
 
 from __future__ import annotations
@@ -28,9 +40,12 @@ from whisper_burn_tpu_torch.models.attention import attention, attention_kt, cau
 from whisper_burn_tpu_torch.models.config import WhisperConfig
 from whisper_burn_tpu_torch.models.layers import layer_norm
 from whisper_burn_tpu_torch.ops.compute import Compute
+from whisper_burn_tpu_torch.ops.cache import write_cache_slot
 from whisper_burn_tpu_torch.ops.decode_attention import (
+    decode_attention_layer,
     decode_cross_attention,
     decode_self_attention,
+    flash_merge_extra_key,
     unpack_int4,
 )
 from whisper_burn_tpu_torch.ops.linear import (
@@ -73,7 +88,7 @@ def check_supported(compute: Compute) -> None:
     if not compute.quantized_self_kv:
         raise NotImplementedError(
             "only the int8 self-KV cache is ported; the unquantized self cache needs the "
-            "general decode kernel and the slot writer: ROADMAP Queue 2, K8 and K9"
+            "general decode kernel's unscaled form: ROADMAP Queue 2, K8"
         )
 
 
@@ -240,35 +255,56 @@ def decode_step(
 ) -> torch.Tensor:
     """One step for ``token [B]`` at cache position ``pos`` (a host int:
     the loop knows it without a device sync). Returns logits ``[B, Vp]``
-    f32; the cache gains row ``pos`` in place."""
-    if batch_groups != 1:
-        raise NotImplementedError(
-            "batch_groups > 1 (beam search) is not ported yet: ROADMAP Queue 1, item 11 "
-            "and Queue 2, K8"
-        )
+    f32; the cache gains row ``pos`` in place. ``batch_groups=G > 1``
+    (beam search) shares each cross-cache entry among G consecutive
+    streams: the self cache holds B streams, the cross cache B / G."""
     check_supported(compute)
+    b = token.shape[0]
+    if batch_groups < 1 or cache.self_k.shape[1] != b or cache.cross_k.shape[1] * batch_groups != b:
+        raise ValueError(
+            f"decode_step: {b} streams, self cache of {cache.self_k.shape[1]}, cross cache of "
+            f"{cache.cross_k.shape[1]} x batch_groups {batch_groups}"
+        )
+    deferred = batch_groups > 1
     dec = params["decoder"]
     blocks = dec["blocks"]
     n_heads = cfg.n_text_head
     x = _embed(dec, token[:, None], pos, compute)  # [B, 1, D]
+    new_k, new_v = [], []
     for layer in range(cfg.n_text_layer):
         h = layer_norm(x, *_ln(blocks, "attn_ln", layer))
         q, k_new, v_new = qkv_proj(blocks, h, compute, layer=layer)
-        kq, ksc = _quantize_tokens(k_new)
-        vq, vsc = _quantize_tokens(v_new)
-        a = decode_self_attention(
-            q, cache.self_k, cache.self_v, cache.self_kv_scale, layer, pos, n_heads,
-            k_new, v_new, kq, vq, torch.cat([ksc, vsc], dim=-1),
-        )
+        if deferred:
+            state = decode_attention_layer(
+                q, cache.self_k, cache.self_v, cache.self_kv_scale, layer, pos, n_heads
+            )
+            a = flash_merge_extra_key(*state, q, k_new, v_new, n_heads)
+            new_k.append(k_new)
+            new_v.append(v_new)
+        else:
+            kq, ksc = _quantize_tokens(k_new)
+            vq, vsc = _quantize_tokens(v_new)
+            a = decode_self_attention(
+                q, cache.self_k, cache.self_v, cache.self_kv_scale, layer, pos, n_heads,
+                k_new, v_new, kq, vq, torch.cat([ksc, vsc], dim=-1),
+            )
         x = x + apply_reduce_linear(blocks["attn_o"], a.to(compute.dtype), compute, layer=layer)
 
         h = layer_norm(x, *_ln(blocks, "xattn_ln", layer))
         qx = apply_linear(blocks["xattn_q"], h, compute, layer=layer)
         qx = qx * cache.cross_k_scale[layer].to(qx.dtype)
-        a = decode_cross_attention(qx, cache.cross_k, cache.cross_v, layer, cfg.n_audio_ctx, n_heads)
+        a = decode_cross_attention(
+            qx, cache.cross_k, cache.cross_v, layer, cfg.n_audio_ctx, n_heads, batch_groups
+        )
         a = a * cache.cross_v_scale[layer]
         x = x + apply_reduce_linear(blocks["xattn_o"], a.to(compute.dtype), compute, layer=layer)
 
         h = layer_norm(x, *_ln(blocks, "mlp_ln", layer))
         x = x + apply_ffn(blocks, h, cfg.gelu, compute, layer=layer)
+    if deferred:  # one slot across all layers: [L, B, 1, D] rows, [L, B, 1, 1] scales
+        kq, ksc = _quantize_tokens(torch.stack(new_k))
+        vq, vsc = _quantize_tokens(torch.stack(new_v))
+        write_cache_slot(cache.self_k, kq, pos)
+        write_cache_slot(cache.self_v, vq, pos)
+        cache.self_kv_scale[:, :, pos] = torch.cat([ksc, vsc], dim=-1)[:, :, 0]
     return _logits(dec, x[:, 0], cfg, compute)

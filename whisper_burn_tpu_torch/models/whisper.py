@@ -16,7 +16,8 @@ emit EOT either way, so the tokens are the same as stopping at once.
 Each stage runs inside a ``torch.profiler.record_function`` range named
 ``greedy_decode.<stage>`` (encode, cross_fill, prefill, decode), so a
 profiler trace of a request splits its time by stage on the host and on
-the device.
+the device. :func:`encode_and_fill` and :func:`prompt_logits` are the
+stages that beam search (``models/beam.py``) shares.
 """
 
 from __future__ import annotations
@@ -64,6 +65,48 @@ def detect_language(params: dict, cfg: WhisperConfig, cache: KVCache, compute: C
     return lang_logits.argmax(dim=-1).to(torch.int32) + cfg.lang_token_start
 
 
+def encode_and_fill(
+    params: dict, cfg: WhisperConfig, mel: torch.Tensor, compute: Compute, max_tokens: int, stage: str
+) -> KVCache:
+    """Encode mel ``[B, n_mels, 3000]`` and fill a fresh cache's cross K/V,
+    in the ranges ``<stage>.encode`` and ``<stage>.cross_fill``. The self
+    cache is allocated once at the full ``ctx`` (prompt + max_tokens,
+    64-aligned: 256 for 224 tokens); the JAX package grows it in two
+    phases, but the decode kernels read only keys below ``pos``, so the
+    tokens are the same."""
+    set_fp32_precision(compute)
+    with record_function(f"{stage}.encode"):
+        enc_out = encode(params, mel, cfg, compute)
+    ctx = min(cfg.n_text_ctx, max(64, -(-(PROMPT_LEN + max_tokens) // 64) * 64))
+    with record_function(f"{stage}.cross_fill"):
+        cache = init_cache(cfg, mel.shape[0], compute, ctx, mel.device)
+        fill_cross_cache(params, cfg, enc_out, cache, compute)
+    return cache
+
+
+def prompt_logits(
+    params: dict, cfg: WhisperConfig, cache: KVCache, lang_tokens: torch.Tensor, compute: Compute,
+    *, detect: bool, task: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prefill the prompt ``[SOT, lang, task, NO_TIMESTAMPS]`` into
+    ``cache``; returns sample #0's logits (EOT suppressed) and the
+    language tokens (entries ``< 0`` auto-detected with ``detect``)."""
+    b = cache.self_v.shape[1]
+    dev = cache.self_v.device
+    lang_tokens = lang_tokens.to(device=dev, dtype=torch.int32)
+    if detect:
+        detected = detect_language(params, cfg, cache, compute)
+        lang_tokens = torch.where(lang_tokens < 0, detected, lang_tokens)
+    task_token = {"transcribe": cfg.transcribe_token, "translate": cfg.translate_token}[task]
+    full = lambda v: torch.full((b,), v, dtype=torch.int32, device=dev)
+    prompt = torch.stack(
+        [full(SOT), lang_tokens, full(task_token), full(cfg.no_timestamps_token)], dim=1
+    ).long()
+    logits = prefill(params, cfg, prompt, cache, compute)
+    logits[:, EOT] = float("-inf")  # sample #0: EOT always suppressed
+    return logits, lang_tokens
+
+
 def greedy_decode(
     params: dict,
     cfg: WhisperConfig,
@@ -78,37 +121,16 @@ def greedy_decode(
     """Transcribe mel ``[B, n_mels, 3000]`` to token ids, on mel's device.
 
     ``lang_tokens: int [B]``; with ``detect=True`` entries ``< 0`` are
-    auto-detected. The self cache is allocated once at the full
-    ``ctx`` (prompt + max_tokens, 64-aligned: 256 for 224 tokens); the JAX
-    package grows it in two phases, but the decode kernel reads only keys
-    below ``pos``, so the tokens are the same.
+    auto-detected.
     """
-    set_fp32_precision(compute)
     b = mel.shape[0]
-    dev = mel.device
-    with record_function("greedy_decode.encode"):
-        enc_out = encode(params, mel, cfg, compute)
-    ctx = min(cfg.n_text_ctx, max(64, -(-(PROMPT_LEN + max_tokens) // 64) * 64))
-    with record_function("greedy_decode.cross_fill"):
-        cache = init_cache(cfg, b, compute, ctx, dev)
-        fill_cross_cache(params, cfg, enc_out, cache, compute)
-
+    cache = encode_and_fill(params, cfg, mel, compute, max_tokens, "greedy_decode")
     with record_function("greedy_decode.prefill"):
-        lang_tokens = lang_tokens.to(device=dev, dtype=torch.int32)
-        if detect:
-            detected = detect_language(params, cfg, cache, compute)
-            lang_tokens = torch.where(lang_tokens < 0, detected, lang_tokens)
-        task_token = {"transcribe": cfg.transcribe_token, "translate": cfg.translate_token}[task]
-        full = lambda v: torch.full((b,), v, dtype=torch.int32, device=dev)
-        prompt = torch.stack(
-            [full(SOT), lang_tokens, full(task_token), full(cfg.no_timestamps_token)], dim=1
-        ).long()
-        logits = prefill(params, cfg, prompt, cache, compute)
-        logits[:, EOT] = float("-inf")  # sample #0: EOT always suppressed
+        logits, lang_tokens = prompt_logits(params, cfg, cache, lang_tokens, compute, detect=detect, task=task)
         cur = logits.argmax(dim=-1)
-        tokens = torch.full((b, max_tokens), EOT, dtype=torch.int32, device=dev)
+        tokens = torch.full((b, max_tokens), EOT, dtype=torch.int32, device=mel.device)
         tokens[:, 0] = cur.to(torch.int32)
-        done = torch.zeros(b, dtype=torch.bool, device=dev)
+        done = torch.zeros(b, dtype=torch.bool, device=mel.device)
 
     with record_function("greedy_decode.decode"):
         for k in range(1, max_tokens):

@@ -1,17 +1,23 @@
-"""Kernels B and C: decode attention over the quantized caches.
+"""Kernels B, C and E: decode attention over the quantized caches.
 
 Counterpart of ``whisper_burn_tpu/ops/pallas_attention.py``; source
 ``csrc/decode_attention.cu``.
 
 * :func:`decode_self_attention` (kernel B) replaces ``_kernel`` in its
   merged + store form (``decode_attention_merged(kq=, vq=)``, K2).
+* :func:`decode_attention_layer` (kernel E) replaces ``_kernel`` in its
+  general, unnormalized form over the int8 self cache with per-token
+  scales (``decode_attention_layer(kv_scale4=)``, K8); the XLA epilogues
+  that follow it there, :func:`flash_merge_extra_key` and
+  :func:`normalize`, are plain PyTorch here too.
 * :func:`decode_cross_attention` (kernel C) replaces ``_kt_kernel`` over
-  the int4 cross cache with ``normalized=True`` (K3).
+  the int4 cross cache with ``normalized=True`` (K3), ``batch_groups``
+  query streams per cache entry.
 
-Both read one layer of a stacked cache by index, so no slice is copied,
-and both are bound on the H100 by the cache bytes they read (see the
-source note for how each design keeps every byte read once). CPU tensors
-take the plain versions; CUDA tensors launch the kernel or raise.
+Each reads one layer of a stacked cache by index, so no slice is copied,
+and each is bound on the H100 by the cache bytes it reads (see the source
+note for how each design keeps every byte read once). CPU tensors take the
+plain versions; CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -24,8 +30,9 @@ import torch
 from whisper_burn_tpu_torch.ops import _build
 
 NAME = "decode_attention"
-SELF, CROSS = "decode_self_attention", "decode_cross_attention"
+SELF, LAYER, CROSS = "decode_self_attention", "decode_attention_layer", "decode_cross_attention"
 HEAD_DIM = 64
+NEG_BIG = -1e30
 _MAX_SMEM = 48 * 1024
 _FNS: dict[str, object] = {}
 
@@ -35,7 +42,8 @@ def _fn(fn: str):
         p, i = ctypes.c_void_p, ctypes.c_int
         args = {
             SELF: [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p],
-            CROSS: [p, i, p, p, p, i, i, i, i, i, i, p],
+            LAYER: [p, i, p, p, p, p, p, p, i, i, i, i, i, i, p],
+            CROSS: [p, i, p, p, p, i, i, i, i, i, i, i, p],
         }[fn]
         _FNS[fn] = _build.declare(_build.library(NAME), fn, args)
     return _FNS[fn]
@@ -46,34 +54,99 @@ def _check_heads(d: int, n_heads: int) -> None:
         raise ValueError(f"decode attention needs 64-wide heads, got D={d}, H={n_heads}")
 
 
+def decode_attention_layer_plain(q, k_cache, v_cache, kv_scale, layer, valid, n_heads):
+    b, _, d = q.shape
+    dh = d // n_heads
+    qf = q.float().reshape(b, n_heads, dh)
+    kf = k_cache[layer, :, :valid].float().reshape(b, valid, n_heads, dh)
+    vf = v_cache[layer, :, :valid].float().reshape(b, valid, n_heads, dh)
+    sk = kv_scale[layer, :, :valid, 0]
+    sv = kv_scale[layer, :, :valid, 1]
+    s = torch.einsum("bhd,bthd->bht", qf, kf) * (1.0 / math.sqrt(dh)) * sk[:, None, :]
+    m = torch.full((b, n_heads), NEG_BIG, device=q.device)
+    if valid:
+        m = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bht,bthd->bhd", p * sv[:, None, :], vf)
+    return acc.reshape(b, 1, d), m[:, None], p.sum(dim=-1)[:, None]
+
+
+def decode_attention_layer(
+    q: torch.Tensor,  # [B, 1, D] compute dtype
+    k_cache: torch.Tensor,  # int8 [L, B, ctx, D]
+    v_cache: torch.Tensor,
+    kv_scale: torch.Tensor,  # f32 [L, B, ctx, 2]: K scale in lane 0, V in lane 1
+    layer: int,
+    valid: int,
+    n_heads: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention of one query per stream over the cached keys ``t < valid``
+    of ``layer``, unnormalized: ``acc [B, 1, D]`` f32 is the sum of
+    ``p[t] * sv[t] * v[t]`` with ``p[t] = exp(s[t] - m)`` and scores
+    ``s[t] = (q . k[t]) / sqrt(dh) * sk[t]``; ``m [B, 1, H]`` is their max
+    and ``l [B, 1, H]`` the sum of ``p[t]`` (the V scale left out)."""
+    b, _, d = q.shape
+    l_dim, kb, ctx, kd = k_cache.shape
+    _check_heads(d, n_heads)
+    if (kb, kd) != (b, d) or v_cache.shape != k_cache.shape or kv_scale.shape != (l_dim, b, ctx, 2):
+        raise ValueError("decode_attention_layer: cache shapes do not match the query")
+    if not (0 <= valid <= ctx and 0 <= layer < l_dim):
+        raise ValueError(f"decode_attention_layer: valid {valid} / layer {layer} out of range")
+    if q.device.type == "cpu":
+        return decode_attention_layer_plain(q, k_cache, v_cache, kv_scale, layer, valid, n_heads)
+    q = q.contiguous()
+    _build.require_cuda(q, k_cache, v_cache, kv_scale)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("decode_attention_layer: f32 or bf16 query")
+    if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8 or kv_scale.dtype != torch.float32:
+        raise ValueError("decode_attention_layer: int8 caches, f32 scales")
+    if ctx * 4 > _MAX_SMEM:
+        raise ValueError(f"decode_attention_layer: ctx {ctx} exceeds the score buffer")
+    acc = torch.empty((b, 1, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, 1, n_heads), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    err = _fn(LAYER)(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(), v_cache.data_ptr(),
+        kv_scale.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), layer, valid, b, ctx, d,
+        n_heads, _build.stream_ptr(q.device),
+    )
+    _build.check(err, LAYER)
+    _build.count_launch(LAYER, (b, ctx, d))
+    return acc, m, l
+
+
+def normalize(acc: torch.Tensor, l: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """``acc [B, 1, D] / l [B, 1, H]``, each head's normalizer over its
+    channels."""
+    return acc / l.repeat_interleave(acc.shape[-1] // n_heads, dim=-1)
+
+
+def flash_merge_extra_key(acc, m, l, q, k_new, v_new, n_heads: int) -> torch.Tensor:
+    """Merge one more key, the current token's raw ``k_new``/``v_new``
+    ``[B, 1, D]``, into the unnormalized state of
+    :func:`decode_attention_layer` and normalize: the f32 attention output
+    ``[B, 1, D]`` over the cached keys and the current token."""
+    b, _, d = q.shape
+    dh = d // n_heads
+    qf = q.float().reshape(b, n_heads, dh)
+    kf = k_new.float().reshape(b, n_heads, dh)
+    s_e = (qf * kf).sum(dim=-1)[:, None, :] * (1.0 / math.sqrt(dh))  # [B, 1, H]
+    m2 = torch.maximum(m, s_e)
+    alpha = torch.exp(m - m2)  # rescales the cached keys' state
+    beta = torch.exp(s_e - m2)  # the current token's weight
+    rep = lambda x: x.repeat_interleave(dh, dim=-1)
+    return normalize(acc * rep(alpha) + rep(beta) * v_new.float(), l * alpha + beta, n_heads)
+
+
 def decode_self_attention_plain(
     q, k_cache, v_cache, kv_scale, layer, pos, n_heads, k_new, v_new, kq, vq, new_scale
 ):
-    b, _, d = q.shape
-    dh = d // n_heads
-    scale = 1.0 / math.sqrt(dh)
-    qf = q.float().reshape(b, n_heads, dh)
-    kf = k_cache[layer, :, :pos].float().reshape(b, pos, n_heads, dh)
-    vf = v_cache[layer, :, :pos].float().reshape(b, pos, n_heads, dh)
-    sk = kv_scale[layer, :, :pos, 0]
-    sv = kv_scale[layer, :, :pos, 1]
-    s = torch.einsum("bhd,bthd->bht", qf, kf) * scale * sk[:, None, :]
-    m = torch.full((b, n_heads), -1e30, device=q.device)
-    if pos:
-        m = torch.maximum(m, s.amax(dim=-1))
-    p = torch.exp(s - m[..., None])
-    l = p.sum(dim=-1)
-    acc = torch.einsum("bht,bthd->bhd", p * sv[:, None, :], vf)
-    s_e = (qf * k_new.float().reshape(b, n_heads, dh)).sum(dim=-1) * scale
-    m2 = torch.maximum(m, s_e)
-    alpha, beta = torch.exp(m - m2), torch.exp(s_e - m2)
-    l2 = l * alpha + beta
-    vn = v_new.float().reshape(b, n_heads, dh)
-    out = (acc * alpha[..., None] + beta[..., None] * vn) / l2[..., None]
+    state = decode_attention_layer_plain(q, k_cache, v_cache, kv_scale, layer, pos, n_heads)
+    out = flash_merge_extra_key(*state, q, k_new, v_new, n_heads)
     k_cache[layer, :, pos] = kq[:, 0]
     v_cache[layer, :, pos] = vq[:, 0]
     kv_scale[layer, :, pos] = new_scale[:, 0]
-    return out.reshape(b, 1, d)
+    return out
 
 
 def decode_self_attention(
@@ -141,11 +214,12 @@ def unpack_int4(p: torch.Tensor, dim: int, dtype: torch.dtype) -> torch.Tensor:
     return torch.cat([lo, hi], dim=dim).to(dtype)
 
 
-def decode_cross_attention_plain(q, kT, v, layer, valid, n_heads):
+def decode_cross_attention_plain(q, kT, v, layer, valid, n_heads, batch_groups=1):
     b, _, d = q.shape
     dh = d // n_heads
-    k = unpack_int4(kT[layer], 1, torch.float32)  # [B, D, T]
-    vv = unpack_int4(v[layer], 1, torch.float32)  # [B, T, D]
+    entry = torch.arange(b, device=q.device) // batch_groups  # each stream's cache entry
+    k = unpack_int4(kT[layer], 1, torch.float32)[entry]  # [B, D, T]
+    vv = unpack_int4(v[layer], 1, torch.float32)[entry]  # [B, T, D]
     t = k.shape[-1]
     qh = q.float().reshape(b, n_heads, 1, dh)
     s = qh @ k.reshape(b, n_heads, dh, t) / math.sqrt(dh)  # [B, H, 1, T]
@@ -156,25 +230,30 @@ def decode_cross_attention_plain(q, kT, v, layer, valid, n_heads):
 
 
 def decode_cross_attention(
-    q: torch.Tensor,  # [B, 1, D], K scales already folded in
+    q: torch.Tensor,  # [B*G, 1, D], K scales already folded in
     kT: torch.Tensor,  # uint8 [L, B, D/2, T] keys packed along D
     v: torch.Tensor,  # uint8 [L, B, T/2, D] values packed along T
     layer: int,
     valid: int,
     n_heads: int,
+    batch_groups: int = 1,
 ) -> torch.Tensor:
     """One-query cross-attention over ``layer`` of the int4 cross cache;
-    keys ``t >= valid`` masked; returns the normalized f32 ``[B, 1, D]``
-    (V scales are applied by the caller)."""
+    keys ``t >= valid`` masked; returns the normalized f32 ``[B*G, 1, D]``
+    (V scales are applied by the caller). ``batch_groups=G`` query streams
+    share each cache entry: stream ``b`` reads entry ``b // G`` (beam
+    search's W beams of one utterance)."""
     b, _, d = q.shape
     l_dim, kb, d2, t = kT.shape
     _check_heads(d, n_heads)
-    if (kb, d2 * 2) != (b, d) or v.shape != (l_dim, b, t // 2, d) or t % 2 or n_heads % 2:
+    if batch_groups < 1 or (kb * batch_groups, d2 * 2) != (b, d):
+        raise ValueError(f"decode_cross_attention: {b} query streams for {kb} cache entries x {batch_groups}")
+    if v.shape != (l_dim, kb, t // 2, d) or t % 2 or n_heads % 2:
         raise ValueError("decode_cross_attention: cache shapes do not match the query")
     if not (0 < valid <= t and 0 <= layer < l_dim):
         raise ValueError(f"decode_cross_attention: valid {valid} / layer {layer} out of range")
     if q.device.type == "cpu":
-        return decode_cross_attention_plain(q, kT, v, layer, valid, n_heads)
+        return decode_cross_attention_plain(q, kT, v, layer, valid, n_heads, batch_groups)
     q = q.contiguous()
     _build.require_cuda(q, kT, v)
     if q.dtype not in (torch.float32, torch.bfloat16) or kT.dtype != torch.uint8 or v.dtype != torch.uint8:
@@ -184,8 +263,8 @@ def decode_cross_attention(
     out = torch.empty((b, 1, d), dtype=torch.float32, device=q.device)
     err = _fn(CROSS)(
         q.data_ptr(), int(q.dtype == torch.bfloat16), kT.data_ptr(), v.data_ptr(),
-        out.data_ptr(), layer, valid, b, d, t, n_heads, _build.stream_ptr(q.device),
+        out.data_ptr(), layer, valid, b, batch_groups, d, t, n_heads, _build.stream_ptr(q.device),
     )
     _build.check(err, CROSS)
-    _build.count_launch(CROSS, (b, t, d))
+    _build.count_launch(CROSS, (b, t, d, batch_groups))
     return out
