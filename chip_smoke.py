@@ -7,34 +7,47 @@ Phases, each timed and each fatal on failure:
 1. card: the GPU's name and power limit as nvidia-smi reports them;
 2. build: ``nvcc`` compiles every kernel of ``whisper_burn_tpu_torch/csrc``
    (one process per source, in parallel) into ``build/kernels``;
-3. main paths: Large-V3 serving parameters fabricated on the device from a
-   seed, ``prepare_params`` with the serving compute (bf16, int4 cross-KV,
-   int8 self-KV, int8 logits, W8A8), then (a) three greedy requests of
-   8 x 30 s of seeded synthetic audio through mel ->
-   ``greedy_decode(max_tokens=224)`` and (b) three beam requests of the
-   same audio through mel -> ``beam_decode(beam_width=5, max_tokens=224)``
-   (8 utterances x 5 beams = 40 decode streams; the first request is a
-   warm-up, the other two are timed). Every launch counter is set to 0
-   just before each path and read just after; each request's launches are
-   held against the counts the shapes predict, and its host syncs counted
-   (at most one per done check);
+3. main paths: Large-V3 parameters fabricated on the device from a seed,
+   prepared twice: for the serving compute (bf16, int4 cross-KV, int8
+   self-KV, int8 logits, W8A8) and for ``Compute.fast()`` (bf16, every
+   cache unquantized, bf16 logits). Then requests of 8 x 30 s of seeded
+   synthetic audio through mel -> ``greedy_decode(max_tokens=224)`` or
+   ``beam_decode(beam_width=5, max_tokens=224)`` (8 utterances x 5 beams =
+   40 decode streams), one path at a time: ``greedy`` and ``beam`` (the
+   serving compute, three requests each), ``fast_greedy`` and ``fast_beam``
+   (``Compute.fast()``), ``int8_greedy`` and ``int8_beam`` (the serving
+   compute with the int8 cross cache, ``Compute.fastest()``), two requests
+   each; and ``entry``: three calls of the flagship step
+   ``whisper_burn_tpu_torch.entry.entry()`` (Large-V3 with the numpy
+   fixture, ``Compute.fast()``, B=1, 16 tokens). The first request of a
+   path is its warm-up. Every launch counter is set to 0 just before each
+   path and read just after; each request's launches are held against the
+   counts the shapes predict, and its host syncs counted (at most one per
+   done check);
 4. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' Large-V3 shapes (kernel A at M = 8, 32 and
-   40 rows; B; C ungrouped and with 5 streams per cross-cache entry; D; E
-   at 4, 115 and 227 valid keys; F exactly), with the tolerance stated;
+   40 rows, and at the entry's 1, 4, 1500 cross-fill and 1536 encoder rows;
+   B and B' at 4, 115 and 227 cached keys, B' also at the entry's one
+   stream and 4, 11 and 18; C and C' (int8 and bf16) ungrouped and with 5
+   streams per cross-cache entry, C' bf16 also at the entry's one entry;
+   D; E and E' at 4, 115 and 227 valid keys; F in int8 and bf16 exactly,
+   at 8, 40 and the entry's one stream), with the tolerance stated;
    device time per call, from torch.profiler traces, of the kernel, the
    plain version and one PyTorch library call computing the same function
    (a yardstick only: the port never calls it), and the least time the
    card could take (bytes over 3.35 TB/s or operations over 989 TFLOP/s);
-   then one more greedy request and one beam request of 32 tokens under
-   torch.profiler, whose traces give each kernel's device time per launch
-   at each main-path shape, the stages ``greedy_decode`` and
-   ``beam_decode`` mark, and the decode step split into the hand-written
-   kernels, the beam's self-cache reorder (its ``beam_decode.reorder``
-   ranges), other device work and idle;
-5. end to end at a small config in f32: the same greedy and beam tokens,
-   and the same teacher-forced logits (ungrouped and grouped), through the
-   kernels as through the plain versions.
+   then one more request of four paths under torch.profiler (greedy at 224
+   tokens; beam, fast_greedy and fast_beam at 32), whose traces give each
+   kernel's device time per launch at each main-path shape, the stages
+   ``greedy_decode`` and ``beam_decode`` mark, and the decode step split
+   into the hand-written kernels, the beam's self-cache reorder (its
+   ``beam_decode.reorder`` ranges), the logits (``decode_step.logits``),
+   other device work and idle; a kernel row of a path without a traced
+   request (entry, int8_*) takes its isolated time;
+5. end to end at a small config in f32, for the int4 serving modes,
+   ``Compute.parity()`` and ``Compute.fastest()``: the same greedy and beam
+   tokens, and the same teacher-forced logits (ungrouped and grouped),
+   through the kernels as through the plain versions.
 
 It prints ``{"kernels": [...]}`` and the card line before its last line,
 and last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the
@@ -44,6 +57,7 @@ repository beside it, and exits non-zero without a result otherwise.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import os
 import re
@@ -59,17 +73,23 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
 BATCH, REQUESTS, MAX_TOKENS = 8, 3, 224
-BEAM_WIDTH, TRACED_BEAM_TOKENS = 5, 32
+NEW_PATH_REQUESTS = 2  # a warm-up and one timed request
+BEAM_WIDTH, TRACED_TOKENS = 5, 32
 STREAMS = BATCH * BEAM_WIDTH  # beam search's decode rows
+CTX = 256  # the self cache of 224 tokens: 4 + 224 rounded up to 64
 SEED = 0
 TRACE_DIR = Path(__file__).resolve().parent / "build" / "traces"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the hand-written kernels as the trace names them, by counter name
 KERNEL_OF = {"q4_matmul": "q4_matmul", "decode_self_attention": "self_attn",
-             "decode_attention_layer": "layer_attn", "decode_cross_attention": "cross_attn",
-             "encoder_attention": "encoder_attn", "write_cache_slot": "slot"}
-OURS = re.compile(r"\b(q4_matmul|self_attn|layer_attn|cross_attn|encoder_attn|slot)_kernel<")
+             "decode_attention_merged": "merged_attn", "decode_attention_layer": "layer_attn",
+             "decode_attention_layer_unscaled": "layer_unscaled", "decode_cross_attention": "cross_attn",
+             "decode_cross_attention_unpacked": "cross_unpacked", "encoder_attention": "encoder_attn",
+             "write_cache_slot": "slot"}
+OURS = re.compile(r"\b(q4_matmul|self_attn|merged_attn|layer_attn|layer_unscaled|cross_attn|cross_unpacked"
+                  r"|encoder_attn|slot)_kernel<")
 STAGES = {"encode", "cross_fill", "prefill", "decode"}
+DA = "whisper_burn_tpu_torch/csrc/decode_attention.cu"
 
 
 def log(obj) -> None:
@@ -238,17 +258,33 @@ def q4_rows(cases, gen, path: str) -> list[dict]:
 
 def decode_linears(params, cfg, m: int, prefix: str = "") -> list[tuple]:
     """Kernel A's decode-step sites at ``m`` rows: the four projections (two
-    shapes), the FFN's two launches and the int8 logits."""
+    shapes), the FFN's two launches, and the int8 logits where the params
+    hold them (``Compute.fast()``'s bf16 logits are a torch.mm)."""
     blocks = params["decoder"]["blocks"]
-    emb_q = params["decoder"]["tok_emb_q"]
-    logits_lin = {"qw": emb_q["qw"][None], "scales": emb_q["scales"][None]}
     k1, k4, k5 = (f"whisper_burn_tpu/ops/{f}" for f in ("pallas_q4.py:121 (K1)", "pallas_ffn.py:153 (K4)", "pallas_q4.py:44 (K5)"))
-    return [
+    sites = [
         (f"{prefix}attn_qkv", m, blocks["attn_qkv"], None, torch.bfloat16, k1),
         (f"{prefix}attn_o/xattn_q/xattn_o", m, blocks["attn_o"], None, torch.bfloat16, k1),
         (f"{prefix}ffn_fc1", m, blocks["fc1"], cfg.gelu, torch.bfloat16, k4),
         (f"{prefix}ffn_fc2", m, blocks["fc2"], None, torch.bfloat16, k4),
-        (f"{prefix}logits", m, logits_lin, None, torch.float32, k5),
+    ]
+    emb_q = params["decoder"].get("tok_emb_q")
+    if emb_q is not None:
+        logits_lin = {"qw": emb_q["qw"][None], "scales": emb_q["scales"][None]}
+        sites.append((f"{prefix}logits", m, logits_lin, None, torch.float32, k5))
+    return sites
+
+
+def prefill_linears(params, cfg, m: int, prefix: str = "") -> list[tuple]:
+    """Kernel A's prefill sites at ``m`` rows (four prompt tokens per
+    utterance): the projections (two shapes) and the FFN's two launches."""
+    blocks = params["decoder"]["blocks"]
+    k5, k7 = "whisper_burn_tpu/ops/pallas_q4.py:44 (K5)", "whisper_burn_tpu/ops/pallas_ffn.py:93 (K7)"
+    return [
+        (f"{prefix}prefill_qkv", m, blocks["attn_qkv"], None, torch.bfloat16, k5),
+        (f"{prefix}prefill_proj", m, blocks["attn_o"], None, torch.bfloat16, k5),
+        (f"{prefix}prefill_fc1", m, blocks["fc1"], cfg.gelu, torch.bfloat16, k7),
+        (f"{prefix}prefill_fc2", m, blocks["fc2"], None, torch.bfloat16, k7),
     ]
 
 
@@ -260,21 +296,13 @@ def kernel_checks(params, cfg, gen):
     from whisper_burn_tpu_torch.ops.encoder_attention import encoder_attention, encoder_attention_plain
 
     dev = torch.device("cuda")
-    blocks = params["decoder"]["blocks"]
     L = cfg.n_text_layer
-    cases = decode_linears(params, cfg, BATCH) + [  # site, launch rows, linear, gelu, out dtype, replaces
-        ("prefill_qkv", 4 * BATCH, blocks["attn_qkv"], None, torch.bfloat16, "whisper_burn_tpu/ops/pallas_q4.py:44 (K5)"),
-        ("prefill_proj", 4 * BATCH, blocks["attn_o"], None, torch.bfloat16, "whisper_burn_tpu/ops/pallas_q4.py:44 (K5)"),
-        ("prefill_fc1", 4 * BATCH, blocks["fc1"], cfg.gelu, torch.bfloat16, "whisper_burn_tpu/ops/pallas_ffn.py:93 (K7)"),
-        ("prefill_fc2", 4 * BATCH, blocks["fc2"], None, torch.bfloat16, "whisper_burn_tpu/ops/pallas_ffn.py:93 (K7)"),
-    ]
-    rows = q4_rows(cases, gen, "greedy")
+    rows = q4_rows(decode_linears(params, cfg, BATCH) + prefill_linears(params, cfg, 4 * BATCH), gen, "greedy")
 
     # kernel B at the main path's cache shape, at the mean decode position
     # when all MAX_TOKENS - 1 steps run (positions 4 .. 226)
     d, h, ctx = cfg.n_text_state, cfg.n_text_head, 256
     pos = round(mean_decode_pos(MAX_TOKENS - 1))
-    da = "whisper_burn_tpu_torch/csrc/decode_attention.cu"
     kc = torch.randint(-127, 128, (L, BATCH, ctx, d), generator=gen, device=dev, dtype=torch.int8)
     vc = torch.randint(-127, 128, (L, BATCH, ctx, d), generator=gen, device=dev, dtype=torch.int8)
     sc = torch.rand((L, BATCH, ctx, 2), generator=gen, device=dev) * 0.02 + 1e-3
@@ -310,13 +338,14 @@ def kernel_checks(params, cfg, gen):
     b_ms, b_by = self_attention_bound(pos, d)
     ms, sig = device_ms(kern, 64, ours=True)
     rows.append(dict(
-        name="decode_self_attention", route="cuda", source=da, path="greedy",
+        name="decode_self_attention", route="cuda", source=DA, path="greedy",
         replaces="whisper_burn_tpu/ops/pallas_attention.py:66 (K2)",
         shape_key=["decode_self_attention", [BATCH, ctx, d]], sig=sig, max_abs_err=self_err,
         isolated_ms=ms, plain_ms=device_ms(plain, 16), bound_ms=b_ms, bound_by=b_by,
         library_ms=device_ms(lib, 64),
         library_call="scaled_dot_product_attention on the dequantized bf16 cache (no store)",
         tol="1e-5 of max|out|; cache store exact", shape=f"B={BATCH} ctx={ctx} pos={pos} D={d}",
+        isolated_bound_ms=b_ms, bound_of_pos=lambda p: self_attention_bound(p, d),
     ))
     del kc, vc, kd, vd
 
@@ -346,7 +375,7 @@ def kernel_checks(params, cfg, gen):
     b_ms, b_by = bound(nbytes, 4.0 * BATCH * valid * d)
     ms, sig = device_ms(kern, 64, ours=True)
     rows.append(dict(
-        name="decode_cross_attention", route="cuda", source=da, path="greedy",
+        name="decode_cross_attention", route="cuda", source=DA, path="greedy",
         replaces="whisper_burn_tpu/ops/pallas_attention.py:636 (K3)",
         shape_key=["decode_cross_attention", [BATCH, t, d, 1]], sig=sig, max_abs_err=cross_err,
         isolated_ms=ms, plain_ms=device_ms(plain, 16), bound_ms=b_ms, bound_by=b_by,
@@ -400,7 +429,6 @@ def beam_kernel_checks(params, cfg, gen):
     L = cfg.n_text_layer
     rows = q4_rows(decode_linears(params, cfg, STREAMS, "beam_"), gen, "beam")
     d, h, ctx = cfg.n_text_state, cfg.n_text_head, 256
-    da = "whisper_burn_tpu_torch/csrc/decode_attention.cu"
     it = iter(range(1 << 30))
     layer = lambda: next(it) % L  # cycle layers: caches come from HBM, not L2
 
@@ -431,13 +459,14 @@ def beam_kernel_checks(params, cfg, gen):
     ms, sig = device_ms(kern, 64, ours=True)
     b_ms, b_by = layer_attention_bound(pos, d, h)
     rows.append(dict(
-        name="decode_attention_layer", route="cuda", source=da, path="beam",
+        name="decode_attention_layer", route="cuda", source=DA, path="beam",
         replaces="whisper_burn_tpu/ops/pallas_attention.py:66 (K8)",
         shape_key=["decode_attention_layer", [STREAMS, ctx, d]], sig=sig, max_abs_err=layer_err,
         isolated_ms=ms, isolated_bound_ms=b_ms, plain_ms=device_ms(plain, 16), bound_ms=b_ms, bound_by=b_by,
         library_ms=device_ms(lib, 64),
         library_call="scaled_dot_product_attention on the dequantized bf16 layer (normalized)",
         tol="1e-5 of max|acc|, max|m|, max|l|", shape=f"B*W={STREAMS} ctx={ctx} valid={pos} D={d}",
+        bound_of_pos=lambda p: layer_attention_bound(p, d, h),
     ))
 
     # the beam step's reorder of the self caches (not a kernel of the port:
@@ -468,7 +497,7 @@ def beam_kernel_checks(params, cfg, gen):
     rows.append(dict(
         name="write_cache_slot", route="cuda", source="whisper_burn_tpu_torch/csrc/cache_slot.cu", path="beam",
         replaces="whisper_burn_tpu/ops/pallas_cache.py:33 (K9)",
-        shape_key=["write_cache_slot", [L, STREAMS, ctx, d]], sig=sig, max_abs_err=0.0,
+        shape_key=["write_cache_slot", [L, STREAMS, ctx, d, 1]], sig=sig, max_abs_err=0.0,
         isolated_ms=ms, plain_ms=device_ms(plain, 16), bound_ms=b_ms, bound_by=b_by,
         library_ms=device_ms(lib, 64), library_call="index_copy_ along T",
         tol="exact", shape=f"L={L} B*W={STREAMS} ctx={ctx} W={d} int8",
@@ -499,7 +528,7 @@ def beam_kernel_checks(params, cfg, gen):
     b_ms, b_by = bound(nbytes, 4.0 * STREAMS * valid * d)
     ms, sig = device_ms(kern, 64, ours=True)
     rows.append(dict(
-        name="decode_cross_attention/grouped", route="cuda", source=da, path="beam",
+        name="decode_cross_attention/grouped", route="cuda", source=DA, path="beam",
         replaces="whisper_burn_tpu/ops/pallas_attention.py:636 (K3, batch_groups)",
         shape_key=["decode_cross_attention", [STREAMS, t, d, BEAM_WIDTH]], sig=sig, max_abs_err=cross_err,
         isolated_ms=ms, plain_ms=device_ms(plain, 16), bound_ms=b_ms, bound_by=b_by,
@@ -510,8 +539,286 @@ def beam_kernel_checks(params, cfg, gen):
     return rows, reorder_row
 
 
+def merged_attention_bound(pos: float, d: int, b: int) -> tuple[float, str]:
+    """Kernel B' at ``pos`` over ``b`` streams: q, the bf16 K/V rows below
+    pos, the raw k/v bf16, the f32 output."""
+    nbytes = b * (d * 2 + 2 * pos * d * 2 + 2 * d * 2 + d * 4)
+    return bound(nbytes, 4.0 * b * (pos + 1) * d)
+
+
+def unscaled_layer_bound(pos: float, d: int, h: int) -> tuple[float, str]:
+    """Kernel E' at ``pos`` over the STREAMS beam streams: q bf16, the bf16
+    K/V rows below pos, acc f32 and m, l f32."""
+    nbytes = STREAMS * (d * 2 + 2 * pos * d * 2 + d * 4 + 2 * h * 4)
+    return bound(nbytes, 4.0 * STREAMS * pos * d)
+
+
+def isolated_row(name, path, source, replaces, shape_key, kern, plain, lib, err, bound_ms_by,
+                 library_call, tol, shape, **extra) -> dict:
+    """A kernel row: the kernel's isolated device time and signature, the
+    plain version's and the library call's, from traces of 64, 16 and 64
+    calls."""
+    ms, sig = device_ms(kern, 64, ours=True)
+    return dict(
+        name=name, route="cuda", source=source, path=path, replaces=replaces, shape_key=shape_key,
+        sig=sig, max_abs_err=err, isolated_ms=ms, plain_ms=device_ms(plain, 16),
+        bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1], library_ms=device_ms(lib, 64),
+        library_call=library_call, tol=tol, shape=shape, **extra,
+    )
+
+
+def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
+    """The kernels of the unquantized and int8 cache modes at their paths'
+    Large-V3 shapes: kernel A at the entry's encoder and cross-fill rows and
+    at its decode step's one row and its prefill's four; B' (fast_greedy and
+    entry), E' (fast_beam), C' over the int8 and bf16 cross caches,
+    ungrouped and grouped (int8_greedy, int8_beam, fast_greedy, fast_beam,
+    entry), and F over the bf16 self caches (fast_greedy, fast_beam,
+    entry)."""
+    from whisper_burn_tpu_torch.entry import MAX_TOKENS as ENTRY_TOKENS
+    from whisper_burn_tpu_torch.ops.cache import write_cache_slot, write_cache_slot_plain
+    from whisper_burn_tpu_torch.ops.decode_attention import (
+        decode_attention_layer, decode_attention_layer_plain, decode_attention_merged,
+        decode_attention_merged_plain, decode_cross_attention, decode_cross_attention_plain,
+    )
+
+    dev = torch.device("cuda")
+    L, d, h = cfg.n_text_layer, cfg.n_text_state, cfg.n_text_head
+    t_enc = -(-cfg.n_audio_ctx // 128) * 128  # the encoder's padded rows, 1536
+    enc, dec = fast_params["encoder"]["blocks"], fast_params["decoder"]["blocks"]
+    k5, k7 = "whisper_burn_tpu/ops/pallas_q4.py:44 (K5)", "whisper_burn_tpu/ops/pallas_ffn.py:93 (K7)"
+    rows = q4_rows([
+        ("encoder_qkv", t_enc, enc["attn_qkv"], None, torch.bfloat16, k5),
+        ("encoder_attn_o", t_enc, enc["attn_o"], None, torch.bfloat16, k5),
+        ("encoder_fc1", t_enc, enc["fc1"], cfg.gelu, torch.bfloat16, k7),
+        ("encoder_fc2", t_enc, enc["fc2"], None, torch.bfloat16, k7),
+        ("cross_fill_kv", cfg.n_audio_ctx, dec["xattn_kv"], None, torch.bfloat16, k5),
+    ] + decode_linears(fast_params, cfg, 1, "entry_") + prefill_linears(fast_params, cfg, 4, "entry_"), gen, "entry")
+    it = iter(range(1 << 30))
+    layer = lambda: next(it) % L  # cycle layers: caches come from HBM, not L2
+    pos = round(mean_decode_pos(MAX_TOKENS - 1))
+    bf = torch.bfloat16
+    rand = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+    heads = lambda x, n: x.reshape(x.shape[0], n, h, 64).transpose(1, 2)
+    # the entry's self cache: 4 + 16 tokens rounded up to 64
+    entry_ctx = max(64, -(-(4 + ENTRY_TOKENS) // 64) * 64)
+
+    # kernel B' over the bf16 self cache, nothing stored: BATCH streams
+    # (fast_greedy) and the entry's one, at the first, mean and last
+    # positions of their decode steps
+    for path, b, ctx, steps in (("fast_greedy", BATCH, CTX, MAX_TOKENS - 1), ("entry", 1, entry_ctx, ENTRY_TOKENS - 1)):
+        p_mean = round(mean_decode_pos(steps))
+        kc, vc = rand(L, b, ctx, d), rand(L, b, ctx, d)
+        q, kn, vn = rand(b, 1, d), rand(b, 1, d), rand(b, 1, d)
+        err = 0.0
+        for dtype in (bf, torch.float32):
+            kcd, vcd = kc.to(dtype), vc.to(dtype)
+            k0, v0 = kcd.clone(), vcd.clone()
+            args = (q.to(dtype), kcd, vcd)
+            for p in (4, p_mean, 3 + steps):
+                for lyr in (0, L - 1):
+                    new = (kn.to(dtype), vn.to(dtype))
+                    out = decode_attention_merged(*args, lyr, p, h, *new)
+                    ref = decode_attention_merged_plain(*args, lyr, p, h, *new)
+                    e = max_err(out, ref)
+                    check(f"decode_attention_merged {path} {dtype} pos={p}", e, ref, 1e-5)  # f32 math both ways
+                    err = max(err, e) if dtype == bf else err
+            if not (torch.equal(kcd, k0) and torch.equal(vcd, v0)):
+                raise AssertionError("decode_attention_merged changed its cache")
+            del k0, v0
+        kd = [heads(kc[l, :, :p_mean + 1], p_mean + 1) for l in range(L)]
+        vd = [heads(vc[l, :, :p_mean + 1], p_mean + 1) for l in range(L)]
+        qh = heads(q, 1)
+        rows.append(isolated_row(
+            "decode_attention_merged" + ("/entry" if path == "entry" else ""), path, DA,
+            "whisper_burn_tpu/ops/pallas_attention.py:66 (K2, decode_attention_merged without kq/vq)",
+            ["decode_attention_merged", [b, ctx, d]],
+            lambda: decode_attention_merged(q, kc, vc, layer(), p_mean, h, kn, vn),
+            lambda: decode_attention_merged_plain(q, kc, vc, layer(), p_mean, h, kn, vn),
+            lambda: torch.nn.functional.scaled_dot_product_attention(qh, kd[(l := layer())], vd[l]),
+            err, merged_attention_bound(p_mean, d, b),
+            "scaled_dot_product_attention on the bf16 cache rows up to pos", "1e-5 of max|out|; cache unchanged",
+            f"B={b} ctx={ctx} pos={p_mean} D={d} bf16", isolated_bound_ms=merged_attention_bound(p_mean, d, b)[0],
+            bound_of_pos=lambda p, b=b: merged_attention_bound(p, d, b),
+        ))
+        del kc, vc, kd, vd
+
+    # kernel E': the STREAMS beam streams over the bf16 self cache
+    kc, vc = rand(L, STREAMS, CTX, d), rand(L, STREAMS, CTX, d)
+    q = rand(STREAMS, 1, d)
+    err = 0.0
+    for dtype in (bf, torch.float32):
+        args = (q.to(dtype), kc.to(dtype), vc.to(dtype), None, L - 1)
+        for valid in (4, pos, 3 + MAX_TOKENS):
+            out = decode_attention_layer(*args, valid, h)
+            ref = decode_attention_layer_plain(*args, valid, h)
+            for part, a, r in zip(("acc", "m", "l"), out, ref):
+                e = max_err(a, r)
+                check(f"decode_attention_layer_unscaled {dtype} valid={valid} {part}", e, r, 1e-5)
+                err = max(err, e) if dtype == bf else err
+    kd = [heads(kc[l, :, :pos], pos) for l in range(L)]
+    vd = [heads(vc[l, :, :pos], pos) for l in range(L)]
+    qh = heads(q, 1)
+    rows.append(isolated_row(
+        "decode_attention_layer_unscaled", "fast_beam", DA,
+        "whisper_burn_tpu/ops/pallas_attention.py:66 (K8, kv_scale4=None)",
+        ["decode_attention_layer_unscaled", [STREAMS, CTX, d]],
+        lambda: decode_attention_layer(q, kc, vc, None, layer(), pos, h),
+        lambda: decode_attention_layer_plain(q, kc, vc, None, layer(), pos, h),
+        lambda: torch.nn.functional.scaled_dot_product_attention(qh, kd[(l := layer())], vd[l]),
+        err, unscaled_layer_bound(pos, d, h),
+        "scaled_dot_product_attention on the bf16 layer (normalized)", "1e-5 of max|acc|, max|m|, max|l|",
+        f"B*W={STREAMS} ctx={CTX} valid={pos} D={d} bf16", isolated_bound_ms=unscaled_layer_bound(pos, d, h)[0],
+        bound_of_pos=lambda p: unscaled_layer_bound(p, d, h),
+    ))
+
+    # kernel F: one slot of the bf16 self caches, 8 and 40 streams at ctx
+    # CTX, and the entry's one stream at its ctx
+    p_entry = round(mean_decode_pos(ENTRY_TOKENS - 1))
+    for path, streams, ctx, p_mean, cache in (
+        ("fast_greedy", BATCH, CTX, pos, kc[:, :BATCH].contiguous()),
+        ("fast_beam", STREAMS, CTX, pos, kc),
+        ("entry", 1, entry_ctx, p_entry, rand(L, 1, entry_ctx, d)),
+    ):
+        new = rand(L, streams, 1, d)
+        for p in (0, p_mean, ctx - 1):
+            out, ref = cache.clone(), cache.clone()
+            write_cache_slot(out, new, p)
+            write_cache_slot_plain(ref, new, p)
+            if not torch.equal(out, ref):
+                raise AssertionError(f"write_cache_slot bf16 {path} at {p} differs from the plain version")
+        del out, ref
+        idx = torch.tensor([p_mean], device=dev)
+        rows.append(isolated_row(
+            f"write_cache_slot/bf16/{streams}", path, "whisper_burn_tpu_torch/csrc/cache_slot.cu",
+            "whisper_burn_tpu/ops/pallas_cache.py:33 (K9)", ["write_cache_slot", [L, streams, ctx, d, 2]],
+            lambda: write_cache_slot(cache, new, p_mean), lambda: write_cache_slot_plain(cache, new, p_mean),
+            lambda: cache.index_copy_(2, idx, new), 0.0, bound(2 * L * streams * d * 2, 0.0),
+            "index_copy_ along T", "exact", f"L={L} B={streams} ctx={ctx} W={d} bf16",
+        ))
+    del kc, vc, kd, vd, cache
+
+    # kernel C' over the int8 and bf16 cross caches, T = 1536 with 1500
+    # valid: BATCH entries, ungrouped and with BEAM_WIDTH streams each, and
+    # the entry's one bf16 entry
+    t, valid = 1536, cfg.n_audio_ctx
+    for kind, cases in (("int8", ((BATCH, 1, "int8_greedy"), (BATCH, BEAM_WIDTH, "int8_beam"))),
+                        ("bf16", ((BATCH, 1, "fast_greedy"), (BATCH, BEAM_WIDTH, "fast_beam"), (1, 1, "entry")))):
+        if kind == "int8":
+            kT = torch.randint(-127, 128, (L, BATCH, d, t), generator=gen, device=dev, dtype=torch.int8)
+            v = torch.randint(-127, 128, (L, BATCH, t, d), generator=gen, device=dev, dtype=torch.int8)
+            qscale, item = 0.003, 1
+        else:
+            kT, v = rand(L, BATCH, d, t), rand(L, BATCH, t, d)
+            qscale, item = 0.3, 2
+        kd = [heads(kT[l, :, :, :valid].transpose(1, 2).to(bf), valid).contiguous() for l in range(L)]
+        vd = [heads(v[l, :, :valid].to(bf), valid).contiguous() for l in range(L)]
+        for b, g, path in cases:
+            kTb, vb = (kT, v) if b == BATCH else (kT[:, :b].contiguous(), v[:, :b].contiguous())
+            qx = rand(b * g, 1, d, scale=qscale)
+            err = 0.0
+            for dtype in (bf, torch.float32):
+                if kind == "bf16" and dtype == torch.float32:
+                    continue  # a float cache takes a query of its dtype
+                out = decode_cross_attention(qx.to(dtype), kTb, vb, L - 1, valid, h, g)
+                ref = decode_cross_attention_plain(qx.to(dtype), kTb, vb, L - 1, valid, h, g)
+                e = max_err(out, ref)
+                check(f"decode_cross_attention {kind} B={b} G={g} {dtype}", e, ref, 1e-5)
+                err = max(err, e) if dtype == bf else err
+            qh = qx.reshape(b, g, h, 64).transpose(1, 2)  # an utterance's streams as its queries
+            # each entry's keys up to `valid` and its values read once; q bf16
+            # in and f32 out per stream
+            nbytes = b * 2 * valid * d * item + b * g * (d * 2 + d * 4)
+            rows.append(isolated_row(
+                f"decode_cross_attention_unpacked/{kind}" + ("/grouped" if g > 1 else "") + ("/entry" if path == "entry" else ""),
+                path, DA,
+                f"whisper_burn_tpu/ops/pallas_attention.py:636 (K3, {kind} branch" + (", batch_groups)" if g > 1 else ")"),
+                ["decode_cross_attention_unpacked", [b * g, t, d, g, item]],
+                lambda: decode_cross_attention(qx, kTb, vb, layer(), valid, h, g),
+                lambda: decode_cross_attention_plain(qx, kTb, vb, layer(), valid, h, g),
+                lambda: torch.nn.functional.scaled_dot_product_attention(qh, kd[(l := layer())][:b], vd[l][:b]),
+                err, bound(nbytes, 4.0 * b * g * valid * d),
+                f"scaled_dot_product_attention on the {kind} cache as bf16" + (", the beams as 5 queries" if g > 1 else ""),
+                "1e-5 of max|out|", f"B={b} x G={g} T={t} valid={valid} D={d} {kind}",
+            ))
+            del kTb, vb
+        del kT, v, kd, vd
+    return rows
+
+
 # --------------------------------------------------------------------------
-# phase 3: the main path
+# phase 3: the main paths
+
+
+@dataclasses.dataclass
+class MainPath:
+    """One main path: ``run(r)`` serves request ``r`` through the entries a
+    user calls and returns its result; ``batch`` utterances of up to
+    ``max_tokens`` tokens, beam search or greedy, in ``compute``."""
+
+    label: str
+    run: object
+    compute: object
+    batch: int = BATCH
+    max_tokens: int = MAX_TOKENS
+    beam: bool = False
+    requests: int = NEW_PATH_REQUESTS
+
+
+def lang_tokens(cfg, batch: int) -> torch.Tensor:
+    return torch.full((batch,), cfg.lang_token_start, dtype=torch.int32, device="cuda")
+
+
+def audio_path(label, params, cfg, compute, mel_frontend, audios, beam=False, requests=NEW_PATH_REQUESTS):
+    """A path of requests on ``audios`` (B=8 x 30 s each): mel ->
+    greedy_decode, or mel -> beam_decode with BEAM_WIDTH beams."""
+    from whisper_burn_tpu_torch.models.beam import beam_decode
+    from whisper_burn_tpu_torch.models.whisper import greedy_decode
+
+    def run(r, max_tokens=MAX_TOKENS):
+        mel = mel_frontend(audios[r % len(audios)])
+        if beam:
+            return beam_decode(params, cfg, mel, lang_tokens(cfg, BATCH), compute, beam_width=BEAM_WIDTH,
+                               max_tokens=max_tokens)
+        return greedy_decode(params, cfg, mel, lang_tokens(cfg, BATCH), compute, max_tokens=max_tokens)
+
+    return MainPath(label, run, compute, beam=beam, requests=requests)
+
+
+def self_kernel(compute, beam: bool) -> str:
+    """The self-attention kernel of a decode step: B (int8 greedy), B'
+    (float greedy), E (int8 beam) or E' (float beam)."""
+    from whisper_burn_tpu_torch.ops.decode_attention import LAYER, LAYER_U, MERGED, SELF
+
+    if beam:
+        return LAYER if compute.quantized_self_kv else LAYER_U
+    return SELF if compute.quantized_self_kv else MERGED
+
+
+def predicted_launches(cfg, compute, batch: int, steps: int, beam: bool) -> dict:
+    """Launches per request the shapes predict. Kernel A: the six linears of
+    each layer per step and in the prefill, the int8 logits too with
+    ``quantized_logits``; without W8A8 also the encoder's four linears per
+    layer and the cross fill's one while their rows (B x 1536 and B x 1500)
+    are below LARGE_M. One self- and one cross-attention launch per layer
+    and step (C over int4, C' over int8 or float caches); two slot writes
+    (F) per step where the row is not stored by kernel B; D once per
+    encoder layer."""
+    from whisper_burn_tpu_torch.ops.cache import FN as SLOT
+    from whisper_burn_tpu_torch.ops.decode_attention import CROSS, CROSS_U
+    from whisper_burn_tpu_torch.ops.q4_matmul import LARGE_M
+
+    L, La = cfg.n_text_layer, cfg.n_audio_layer
+    t_enc = -(-cfg.n_audio_ctx // 128) * 128
+    a = (6 * L + int(compute.quantized_logits)) * (1 + steps)
+    if not compute.w8a8:
+        a += 4 * La * (batch * t_enc < LARGE_M) + L * (batch * cfg.n_audio_ctx < LARGE_M)
+    self_fn = self_kernel(compute, beam)
+    want = {"q4_matmul": a, self_fn: L * steps, CROSS if compute.kv_packed else CROSS_U: L * steps,
+            "encoder_attention": La}
+    if beam or not compute.quantized_self_kv:
+        want[SLOT] = 2 * steps
+    return want
 
 
 def expected_steps(tokens: torch.Tensor, max_tokens: int, check_every: int, eot_id: int) -> int:
@@ -525,137 +832,80 @@ def expected_steps(tokens: torch.Tensor, max_tokens: int, check_every: int, eot_
     return min(max_tokens, k_break) - 1
 
 
-def request(params, cfg, compute, mel_frontend, audio):
-    """One request through the entries a user calls: mel -> greedy_decode."""
-    from whisper_burn_tpu_torch.models.whisper import greedy_decode
+def check_result(path: MainPath, r: int, res, cfg) -> None:
+    """Tokens in range and EOT-filled after a stream's end; beam scores are
+    log-probabilities."""
+    from whisper_burn_tpu_torch.models.config import EOT
 
-    lang = torch.full((BATCH,), cfg.lang_token_start, dtype=torch.int32, device=audio.device)
-    return greedy_decode(params, cfg, mel_frontend(audio), lang, compute, max_tokens=MAX_TOKENS)
+    tok, n = res.tokens, path.max_tokens
+    if tuple(tok.shape) != (path.batch, n) or tok.min() < 0 or tok.max() >= cfg.n_vocab:
+        raise AssertionError(f"{path.label} request {r}: tokens {tuple(tok.shape)} out of shape or range")
+    if path.beam:
+        col = torch.arange(n, device=tok.device)[None, :]
+        if not bool(((tok == EOT) == (col >= res.n_generated[:, None])).all()):
+            raise AssertionError(f"{path.label} request {r}: tokens are not EOT exactly past n_generated")
+        if not bool(torch.isfinite(res.scores).all() and (res.scores <= 0).all()):
+            raise AssertionError(f"{path.label} request {r}: scores {res.scores.tolist()} are not log-probabilities")
+    else:
+        after_eot = (tok == EOT).int().cummax(dim=1).values.bool()
+        if not bool((tok[after_eot] == EOT).all()):
+            raise AssertionError(f"{path.label} request {r}: a stream emitted a token after its EOT")
 
 
-def main_path(params, cfg, compute, mel_frontend):
-    """Three counted greedy requests; returns the counts, by kernel and by
-    (kernel, shape), and the audios."""
+def run_path(path: MainPath, cfg) -> tuple[dict, dict]:
+    """``path.requests`` requests, counted, each held to the predicted
+    launches and at most one host sync per done check; returns the counts,
+    by kernel and by (kernel, shape)."""
     from whisper_burn_tpu_torch.models.config import EOT
     from whisper_burn_tpu_torch.models.whisper import DONE_CHECK_EVERY
     from whisper_burn_tpu_torch.ops import _build
-    from whisper_burn_tpu_torch.ops.decode_attention import CROSS, SELF
 
-    dev = torch.device("cuda")
-    audios = []
-    for r in range(REQUESTS):
-        g = torch.Generator(device=dev)
-        g.manual_seed(SEED + 1 + r)
-        audios.append(torch.randn((BATCH, 480_000), generator=g, device=dev) * 0.1)
+    L, n = cfg.n_text_layer, path.max_tokens
     torch.cuda.synchronize()
-    L, La = cfg.n_text_layer, cfg.n_audio_layer
     _build.reset_launches()
-    for r, audio in enumerate(audios):
+    for r in range(path.requests):
         before = dict(_build.LAUNCHES)
         torch.cuda.set_sync_debug_mode("warn")  # each implicit host sync warns
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             t0 = time.perf_counter()
-            res = request(params, cfg, compute, mel_frontend, audio)
+            res = path.run(r)
             torch.cuda.set_sync_debug_mode(0)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         syncs = sum("synchroniz" in str(w.message) for w in caught)
         got = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()}
-        steps = expected_steps(res.tokens, MAX_TOKENS, DONE_CHECK_EVERY, EOT)
-        checks = min(steps + 1, MAX_TOKENS - 1) // DONE_CHECK_EVERY  # done checks the loop ran
-        want = {
-            "q4_matmul": (6 * L + 1) * (1 + steps),
-            SELF: L * steps,
-            CROSS: L * steps,
-            "encoder_attention": La,
-        }
-        log({"request": r, "wall_ms": wall * 1e3, "tokens_shape": list(res.tokens.shape),
-             "audio_s_per_s": BATCH * 30.0 / wall, "decode_steps": steps, "host_syncs": syncs,
-             "done_checks": checks, "n_generated": res.n_generated.tolist(), "launches": got,
-             "expected_launches": want})
+        if path.beam:
+            # the decode steps run: all of them when no utterance finished
+            # (a finished one's best hypothesis is shorter than the cap)
+            steps = got.get(self_kernel(path.compute, True), 0) // L
+            if bool((res.n_generated == n).all()) and steps != n - 1:
+                raise AssertionError(f"{path.label} request {r}: {steps} decode steps, no utterance finished")
+            if not 1 <= steps <= n - 1:
+                raise AssertionError(f"{path.label} request {r}: {steps} decode steps")
+        else:
+            steps = expected_steps(res.tokens, n, DONE_CHECK_EVERY, EOT)
+        checks = min(steps + 1, n - 1) // DONE_CHECK_EVERY  # done checks the loop ran
+        want = predicted_launches(cfg, path.compute, path.batch, steps, path.beam)
+        line = {"path": path.label, "request": r, "timed": r > 0, "wall_ms": wall * 1e3,
+                "audio_s_per_s": path.batch * 30.0 / wall, "decode_steps": steps, "host_syncs": syncs,
+                "done_checks": checks, "n_generated": res.n_generated.tolist(), "launches": got,
+                "expected_launches": want}
+        if path.beam:
+            line.update(beam_width=BEAM_WIDTH, scores=res.scores.tolist())
+        log(line)
         if got != want:
-            raise AssertionError(f"request {r}: launches {got} differ from the shapes' prediction {want}")
-        if not 1 <= syncs <= max(checks, 1):
-            raise AssertionError(f"request {r}: {syncs} host syncs for {checks} done checks")
-        tok = res.tokens
-        if tok.min() < 0 or tok.max() >= cfg.n_vocab:
-            raise AssertionError("token id out of range")
-        after_eot = (tok == EOT).int().cummax(dim=1).values.bool()
-        if not bool((tok[after_eot] == EOT).all()):
-            raise AssertionError("a stream emitted a token after its EOT")
-    return dict(_build.LAUNCHES), shape_counts(), audios
+            raise AssertionError(f"{path.label} request {r}: launches {got} differ from the shapes' prediction {want}")
+        if not min(checks, 1) <= syncs <= max(checks, 1):
+            raise AssertionError(f"{path.label} request {r}: {syncs} host syncs for {checks} done checks")
+        check_result(path, r, res, cfg)
+    return dict(_build.LAUNCHES), shape_counts()
 
 
 def shape_counts() -> dict:
     from whisper_burn_tpu_torch.ops import _build
 
     return {json.dumps([k[0], list(k[1])]): v for k, v in _build.LAUNCH_SHAPES.items()}
-
-
-def beam_request(params, cfg, compute, mel_frontend, audio, max_tokens=MAX_TOKENS):
-    """One request through the entries a user calls: mel -> beam_decode."""
-    from whisper_burn_tpu_torch.models.beam import beam_decode
-
-    lang = torch.full((BATCH,), cfg.lang_token_start, dtype=torch.int32, device=audio.device)
-    return beam_decode(params, cfg, mel_frontend(audio), lang, compute, beam_width=BEAM_WIDTH, max_tokens=max_tokens)
-
-
-def beam_path(params, cfg, compute, mel_frontend, audios):
-    """One warm-up and two timed beam requests (B=8 x W=5), counted;
-    returns the counts, by kernel and by (kernel, shape)."""
-    from whisper_burn_tpu_torch.models.config import EOT
-    from whisper_burn_tpu_torch.models.whisper import DONE_CHECK_EVERY
-    from whisper_burn_tpu_torch.ops import _build
-    from whisper_burn_tpu_torch.ops.cache import FN as SLOT
-    from whisper_burn_tpu_torch.ops.decode_attention import CROSS, LAYER
-
-    L, La = cfg.n_text_layer, cfg.n_audio_layer
-    _build.reset_launches()
-    for r, audio in enumerate(audios):
-        before = dict(_build.LAUNCHES)
-        torch.cuda.set_sync_debug_mode("warn")
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            t0 = time.perf_counter()
-            res = beam_request(params, cfg, compute, mel_frontend, audio)
-            torch.cuda.set_sync_debug_mode(0)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        syncs = sum("synchroniz" in str(w.message) for w in caught)
-        got = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()}
-        # the decode steps run: all of them when no utterance finished
-        # (a finished one's best hypothesis is shorter than the cap)
-        steps = got.get(LAYER, 0) // L
-        if bool((res.n_generated == MAX_TOKENS).all()) and steps != MAX_TOKENS - 1:
-            raise AssertionError(f"beam request {r}: {steps} decode steps, no utterance finished")
-        checks = min(steps + 1, MAX_TOKENS - 1) // DONE_CHECK_EVERY
-        want = {
-            "q4_matmul": (6 * L + 1) * (1 + steps),
-            LAYER: L * steps,
-            CROSS: L * steps,
-            SLOT: 2 * steps,
-            "encoder_attention": La,
-        }
-        log({"beam_request": r, "timed": r > 0, "wall_ms": wall * 1e3, "audio_s_per_s": BATCH * 30.0 / wall,
-             "beam_width": BEAM_WIDTH, "decode_steps": steps, "host_syncs": syncs, "done_checks": checks,
-             "n_generated": res.n_generated.tolist(), "scores": res.scores.tolist(), "launches": got,
-             "expected_launches": want})
-        if got != want:
-            raise AssertionError(f"beam request {r}: launches {got} differ from the shapes' prediction {want}")
-        if not 1 <= steps <= MAX_TOKENS - 1:
-            raise AssertionError(f"beam request {r}: {steps} decode steps")
-        if not 1 <= syncs <= max(checks, 1):
-            raise AssertionError(f"beam request {r}: {syncs} host syncs for {checks} done checks")
-        tok, n_gen = res.tokens, res.n_generated
-        if tuple(tok.shape) != (BATCH, MAX_TOKENS) or tok.min() < 0 or tok.max() >= cfg.n_vocab:
-            raise AssertionError(f"beam request {r}: tokens {tuple(tok.shape)} out of shape or range")
-        col = torch.arange(MAX_TOKENS, device=tok.device)[None, :]
-        if not bool(((tok == EOT) == (col >= n_gen[:, None])).all()):
-            raise AssertionError(f"beam request {r}: tokens are not EOT exactly past n_generated")
-        if not bool(torch.isfinite(res.scores).all() and (res.scores <= 0).all()):
-            raise AssertionError(f"beam request {r}: scores {res.scores.tolist()} are not log-probabilities")
-    return dict(_build.LAUNCHES), shape_counts()
 
 
 def traced_run(run, sigs: dict, alias=lambda key: key):
@@ -713,15 +963,21 @@ def stage_split(ranges, entry: str) -> tuple[dict, dict]:
     return stages, spans
 
 
-def decode_split(dev, span, steps: int, gather_spans=()) -> dict:
+def device_spans(ranges, name: str) -> list[tuple[float, float]]:
+    return [(e["ts"], e["ts"] + e["dur"]) for e in ranges if e["cat"] == "gpu_user_annotation" and e["name"] == name]
+
+
+def decode_split(dev, span, steps: int, gather_spans=(), logits_spans=()) -> dict:
     """Each decode step's device time: the hand-written kernels, the work
-    inside ``gather_spans`` (the beam's reorder of its self caches), other
-    work, idle."""
+    inside ``gather_spans`` (the beam's reorder of its self caches), the
+    work inside ``logits_spans`` (final LayerNorm and the logits product,
+    kernel A's launch among them with int8 logits), other work, idle."""
     lo, hi = span
     in_decode = [e for e in dev if lo <= e["ts"] < hi]
+    inside = lambda spans: [e for e in in_decode if any(a <= e["ts"] < b for a, b in spans)]
     busy = sum(e["dur"] for e in in_decode)
     ours_busy = sum(e["dur"] for e in in_decode if OURS.search(e["name"]))
-    gathers = [e for e in in_decode if any(a <= e["ts"] < b for a, b in gather_spans)]
+    gathers, logits = inside(gather_spans), inside(logits_spans)
     gather = sum(e["dur"] for e in gathers)
     other = collections.Counter()
     for e in in_decode:
@@ -734,6 +990,8 @@ def decode_split(dev, span, steps: int, gather_spans=()) -> dict:
         "decode_step_kernels_ms": ours_busy / steps / 1e3,
         "decode_step_gather_ms": gather / steps / 1e3,
         "decode_gather_kernels": sorted({e["name"][:90] for e in gathers}),
+        "decode_step_logits_ms": sum(e["dur"] for e in logits) / steps / 1e3,
+        "decode_logits_kernels": sorted({e["name"][:90] for e in logits}),
         "decode_step_other_device_ms": (busy - ours_busy - gather) / steps / 1e3,
         "decode_device_ops_per_step": len(in_decode) / steps,
         "decode_device_idle_share": 1 - busy / (hi - lo),
@@ -741,72 +999,54 @@ def decode_split(dev, span, steps: int, gather_spans=()) -> dict:
     }
 
 
-def traced_request(params, cfg, compute, mel_frontend, audio, sigs: dict) -> tuple[dict, dict]:
-    """One more greedy request under torch.profiler. Returns the device
-    durations (µs) of the hand-written kernels' launches by (kernel,
-    shape), and the breakdown: the stages greedy_decode marks, on the host
-    and on the device, and each decode step split into the kernels, other
-    device work and idle."""
-    from whisper_burn_tpu_torch.models.config import EOT
-    from whisper_burn_tpu_torch.models.whisper import DONE_CHECK_EVERY
-
-    def run():
-        t0 = time.perf_counter()
-        res = request(params, cfg, compute, mel_frontend, audio)
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t0
-
-    res, wall, durations, lost, dev, ranges, _ = traced_run(run, sigs)
-    stages, spans = stage_split(ranges, "greedy_decode")
-    steps = expected_steps(res.tokens, MAX_TOKENS, DONE_CHECK_EVERY, EOT)
-    breakdown = {
-        "wall_ms": wall * 1e3,
-        "stages": stages,
-        **decode_split(dev, spans["decode"], steps),
-        "request_device_busy_ms": sum(e["dur"] for e in dev) / 1e3,
-        "trace_records_lost": lost,
-    }
-    return durations, breakdown
-
-
-def traced_beam_request(params, cfg, compute, mel_frontend, audio, sigs: dict) -> tuple[dict, dict]:
-    """One beam request of TRACED_BEAM_TOKENS tokens under torch.profiler
-    (a short one: the profiler's host cost grows with the steps). Returns
-    the kernels' device durations by (kernel, shape) and the breakdown, as
-    :func:`traced_request`, with the cache reorder gather split out."""
+def traced_path(path: MainPath, cfg, sigs: dict, max_tokens: int) -> tuple[dict, dict]:
+    """One more request of ``path`` at ``max_tokens`` tokens under
+    torch.profiler (beam and the new paths at TRACED_TOKENS: the profiler's
+    host cost grows with the steps). Returns the device durations (µs) of
+    the hand-written kernels' launches by (kernel, shape), and the
+    breakdown: the stages ``greedy_decode`` or ``beam_decode`` marks, on the
+    host and on the device, and each decode step split into the kernels,
+    the beam's cache reorder, the logits, other device work and idle."""
     from whisper_burn_tpu_torch.ops.cache import FN as SLOT
-    from whisper_burn_tpu_torch.ops.decode_attention import LAYER
+    from whisper_burn_tpu_torch.ops.decode_attention import LAYER, LAYER_U, MERGED, SELF
 
     def run():
         t0 = time.perf_counter()
-        res = beam_request(params, cfg, compute, mel_frontend, audio, max_tokens=TRACED_BEAM_TOKENS)
+        res = path.run(0, max_tokens=max_tokens)
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0
 
     def alias(key):
-        """32 tokens size the self cache 64 wide, not 256: E's launches
-        (whose work follows the valid keys, not ctx) and F's (one row per
-        layer and stream) stand for the main path's ctx-256 rows."""
+        """A request of fewer tokens sizes the self cache 64 wide, not CTX:
+        its self-attention launches (whose work follows the cached keys,
+        not ctx) and slot writes (one row per layer and stream) stand for
+        the main path's ctx-CTX rows."""
         kernel, shape = json.loads(key)
-        if kernel == LAYER:
-            shape[1] = 256
+        if kernel in (SELF, MERGED, LAYER, LAYER_U):
+            shape[1] = CTX
         if kernel == SLOT:
-            shape[2] = 256
+            shape[2] = CTX
         return json.dumps([kernel, shape])
 
     res, wall, durations, lost, dev, ranges, launch_log = traced_run(run, sigs, alias)
-    stages, spans = stage_split(ranges, "beam_decode")
-    steps = sum(n == LAYER for n, _ in launch_log) // cfg.n_text_layer
-    reorder = [(e["ts"], e["ts"] + e["dur"]) for e in ranges
-               if e["cat"] == "gpu_user_annotation" and e["name"] == "beam_decode.reorder"]
-    if not reorder:
+    entry = "beam_decode" if path.beam else "greedy_decode"
+    stages, spans = stage_split(ranges, entry)
+    self_fn = self_kernel(path.compute, path.beam)
+    steps = sum(n == self_fn for n, _ in launch_log) // cfg.n_text_layer
+    reorder = device_spans(ranges, "beam_decode.reorder")
+    if path.beam and not reorder:
         raise AssertionError("the trace holds no beam_decode.reorder range")
+    logits = device_spans(ranges, "decode_step.logits")
+    if not logits:
+        raise AssertionError("the trace holds no decode_step.logits range")
     breakdown = {
+        "path": path.label,
         "wall_ms": wall * 1e3,
-        "max_tokens": TRACED_BEAM_TOKENS,
+        "max_tokens": max_tokens,
         "reorder_ranges": len(reorder),
+        "logits_ranges": len(logits),
         "stages": stages,
-        **decode_split(dev, spans["decode"], steps, reorder),
+        **decode_split(dev, spans["decode"], steps, reorder, logits),
         "request_device_busy_ms": sum(e["dur"] for e in dev) / 1e3,
         "trace_records_lost": lost,
     }
@@ -817,7 +1057,19 @@ def traced_beam_request(params, cfg, compute, mel_frontend, audio, sigs: dict) -
 # phase 5: small config, kernels against plain versions end to end
 
 
-def small_end_to_end() -> dict:
+def small_end_to_end(compute) -> dict:
+    """Greedy tokens, teacher-forced logits (ungrouped and grouped) and beam
+    search at a small config in ``compute`` (f32), on the CPU through the
+    plain versions and on the card through the kernels: the same tokens, the
+    logits to 1e-4, the beam scores to 1e-4. With an int8 cross cache the
+    card's teacher-forced steps start from the CPU run's caches (its cross
+    fill, and its self cache before each step): the int8 steps are fine
+    enough that the two runs' last-bit differences put codes at rounding
+    ties, and one moved code shifts every later logit by about 3e-4. Before
+    each such copy the card's cross fill and the self-cache rows written
+    since the last copy are held against the CPU run's: int8 codes within
+    one step at no more than 1e-3 of places, scales to 1e-5 (as
+    tests/test_torch_modes.py holds them against the JAX package)."""
     from whisper_burn_tpu_torch.audio.mel import MelFrontend
     from whisper_burn_tpu_torch.models.beam import beam_decode
     from whisper_burn_tpu_torch.models.config import EOT, SOT, WhisperConfig
@@ -827,20 +1079,44 @@ def small_end_to_end() -> dict:
     from whisper_burn_tpu_torch.models.whisper import greedy_decode
     from whisper_burn_tpu_torch.ops import _build
     from whisper_burn_tpu_torch.ops.cache import FN as SLOT
-    from whisper_burn_tpu_torch.ops.compute import Compute
-    from whisper_burn_tpu_torch.ops.decode_attention import CROSS, LAYER
+    from whisper_burn_tpu_torch.ops.decode_attention import CROSS, CROSS_U
     from whisper_burn_tpu_torch.transcribe import prepare_params
 
     cfg = WhisperConfig.tiny_test().replace(
         n_audio_state=256, n_text_state=256, n_audio_head=4, n_text_head=4, n_audio_ctx=128, n_text_ctx=64
     )
-    # f32; W8A8 off: its per-row int8 rounding turns one-ulp differences at
-    # a rounding tie into a whole code step (tests/test_torch_slice.py)
-    compute = Compute.fastest(kv_bits=4).replace(quantized_logits=True, dtype=torch.float32)
     audio = (np.random.default_rng(7).standard_normal((2, 2 * 128 * 160)) * 0.1).astype(np.float32)
     g = 3  # beams
+    # every kernel the mode's paths launch
+    kernels = {"q4_matmul", "encoder_attention", self_kernel(compute, False), self_kernel(compute, True),
+               CROSS if compute.kv_packed else CROSS_U, SLOT}
+    resync = compute.quantized_kv and not compute.kv_packed
+    snaps = {}  # the CPU run's cache states, by (cache, step)
+    mismatch = collections.defaultdict(float)  # the largest share of int8 codes that differ, by cache tensor
     runs = {}
-    for dev in ("cuda", "cpu"):
+    for dev in ("cpu", "cuda"):
+
+        def sync(cache, key, rows):
+            """Snapshot (CPU) or check and take the snapshot (card);
+            ``rows``: the self-cache rows written since the last sync."""
+            if resync and dev == "cpu":
+                snaps[key] = {f.name: getattr(cache, f.name).clone() for f in dataclasses.fields(cache)
+                              if getattr(cache, f.name) is not None}
+            elif resync:
+                for name, ref in snaps[key].items():
+                    ours = getattr(cache, name)
+                    a, r = (x[:, :, rows] if name.startswith("self") else x for x in (ours.cpu(), ref))
+                    if r.dtype == torch.int8:
+                        diff = (a.int() - r.int()).abs()
+                        share = (diff > 0).float().mean().item() if diff.numel() else 0.0
+                        mismatch[name] = max(mismatch[name], share)
+                        if diff.numel() and (diff.max().item() > 1 or share > 1e-3):
+                            raise AssertionError(f"small {key}: {name} codes differ by up to "
+                                                 f"{diff.max().item()} at {share:.2e} of places")
+                    elif not torch.allclose(a, r, rtol=1e-5, atol=1e-5):
+                        raise AssertionError(f"small {key}: {name} differs by {(a - r).abs().max().item():.3e}")
+                    ours.copy_(ref)
+
         params = prepare_params(random_params(cfg, seed=0, device=dev), compute)
         mel = MelFrontend(n_mels=cfg.n_mels)(torch.from_numpy(audio).to(dev))
         lang = torch.full((2,), cfg.lang_token_start, dtype=torch.int32, device=dev)
@@ -853,26 +1129,33 @@ def small_end_to_end() -> dict:
                               device=mel.device).repeat(2, 1)
         enc = encode(params, mel, cfg, compute)
         caches = [fill_cross_cache(params, cfg, enc, init_cache(cfg, 2, compute, 64, mel.device), compute) for _ in range(2)]
+        for i, c in enumerate(caches):
+            sync(c, ("fill", i), slice(0, 0))
+        written = lambda k: slice(0, 4) if k == 0 else slice(3 + k, 4 + k)  # the prefill's rows, then each step's
         logits = [prefill(params, cfg, prompt, caches[0], compute)]
         forced = torch.from_numpy(np.random.default_rng(9).integers(0, cfg.n_vocab, (8, 2 * g))).to(dev)
         for k in range(8):
+            sync(caches[0], ("step", k), written(k))
             logits.append(decode_step(params, cfg, forced[k, :2], 4 + k, caches[0], compute))
+        sync(caches[0], ("step", 8), written(8))
         # the beam branch of the decode step: self caches repeated g-fold
         grouped, cache = [], caches[1]
         prefill(params, cfg, prompt, cache, compute)
         for name in ("self_k", "self_v", "self_kv_scale"):
-            setattr(cache, name, getattr(cache, name).repeat_interleave(g, dim=1))
-        _build.reset_launches()
+            if getattr(cache, name) is not None:
+                setattr(cache, name, getattr(cache, name).repeat_interleave(g, dim=1))
         for k in range(8):
+            sync(cache, ("grouped step", k), written(k))
             grouped.append(decode_step(params, cfg, forced[k], 4 + k, cache, compute, batch_groups=g))
+        sync(cache, ("grouped step", 8), written(8))
         # beam search with the EOT row scaled, so hypotheses are banked
         # before the cap (tests/test_torch_beam.py)
         bparams = random_params(cfg, seed=0, device=dev)
         bparams["decoder"]["tok_emb"][EOT] *= 2.5
         beam = beam_decode(prepare_params(bparams, compute), cfg, mel, lang, compute, beam_width=g, max_tokens=10)
         counts = dict(_build.LAUNCHES)
-        if dev == "cuda" and not all(counts.get(n, 0) > 0 for n in ("q4_matmul", LAYER, CROSS, SLOT)):
-            raise AssertionError(f"small beam: launches {counts}")
+        if dev == "cuda" and not all(counts.get(n, 0) > 0 for n in kernels):
+            raise AssertionError(f"small end to end: launches {counts}, expected each of {sorted(kernels)}")
         if dev == "cpu" and counts:
             raise AssertionError(f"cpu: kernel launches {counts}")
         runs[dev] = (res.tokens.cpu(), torch.stack(logits).cpu(), torch.stack(grouped).cpu(),
@@ -892,9 +1175,14 @@ def small_end_to_end() -> dict:
     beam_err = (sc - sc_p).abs().max().item()
     if not beam_err <= 1e-4:
         raise AssertionError(f"small beam scores differ by {beam_err:.3e}")
-    return {"tokens": runs["cuda"][0].tolist(), "logits_max_abs_err": errs[0],
+    return {"teacher_forced_from_cpu_caches": resync, "code_mismatch_share": dict(mismatch),
+            "tokens": runs["cuda"][0].tolist(), "logits_max_abs_err": errs[0],
             "grouped_logits_max_abs_err": errs[1], "beam_tokens": tok.tolist(),
             "beam_n_generated": ngen.tolist(), "beam_scores_max_abs_err": beam_err}
+
+
+def is_decode_row(row: dict) -> bool:
+    return not any(stage in row["name"] for stage in ("prefill", "encoder", "cross_fill"))
 
 
 def main() -> int:
@@ -904,11 +1192,12 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import whisper_burn_tpu_torch  # noqa: F401  (fails outside a checkout)
     from whisper_burn_tpu_torch.audio.mel import MelFrontend
+    from whisper_burn_tpu_torch.entry import MAX_TOKENS as ENTRY_TOKENS
+    from whisper_burn_tpu_torch.entry import entry
     from whisper_burn_tpu_torch.models.config import WhisperConfig
     from whisper_burn_tpu_torch.models.params import device_fabricated_params
     from whisper_burn_tpu_torch.ops import _build
     from whisper_burn_tpu_torch.ops.compute import Compute
-    from whisper_burn_tpu_torch.ops.decode_attention import LAYER, SELF
     from whisper_burn_tpu_torch.transcribe import prepare_params
 
     t_all = time.perf_counter()
@@ -924,74 +1213,108 @@ def main() -> int:
     t0 = time.perf_counter()
     cfg = WhisperConfig.large_v3()
     L = cfg.n_text_layer
-    compute = Compute.fastest(kv_bits=4).replace(quantized_logits=True, w8a8=True)
-    params = prepare_params(device_fabricated_params(cfg, seed=SEED, device="cuda"), compute)
+    serving = Compute.fastest(kv_bits=4).replace(quantized_logits=True, w8a8=True)
+    int8 = Compute.fastest().replace(quantized_logits=True, w8a8=True)
+    fast = Compute.fast()
+    raw = device_fabricated_params(cfg, seed=SEED, device="cuda")
+    params = prepare_params(raw, serving)  # serves int8 too: prepare_params reads no cache mode
+    fast_params = prepare_params(raw, fast)  # Q4 encoder weights (no W8A8 copies), bf16 embedding
+    del raw
     torch.cuda.synchronize()
     phases["params_s"] = time.perf_counter() - t0
     log({"phase": "params", "seconds": phases["params_s"],
          "device_bytes": torch.cuda.memory_allocated()})
 
-    # the timed requests of both paths run before any profiler session
+    # the timed requests of every path run before any profiler session
     # (the kernel times and the traced requests below use torch.profiler)
-    t0 = time.perf_counter()
     mel_frontend = MelFrontend(n_mels=cfg.n_mels, norm="slaney")
     mel_frontend(torch.zeros((1, 16_000), device="cuda"))  # its bases go to the card once
-    launches, greedy_counts, audios = main_path(params, cfg, compute, mel_frontend)
-    phases["main_path_s"] = time.perf_counter() - t0
-    log({"phase": "main_path", "seconds": phases["main_path_s"], "launches": launches})
-
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    beam_launches, beam_counts = beam_path(params, cfg, compute, mel_frontend, audios)
-    phases["beam_path_s"] = time.perf_counter() - t0
-    log({"phase": "beam_path", "seconds": phases["beam_path_s"], "launches": beam_launches,
-         "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    audios = []
+    for r in range(REQUESTS):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED + 1 + r)
+        audios.append(torch.randn((BATCH, 480_000), generator=g, device="cuda") * 0.1)
+    paths = [
+        audio_path("greedy", params, cfg, serving, mel_frontend, audios, requests=REQUESTS),
+        audio_path("beam", params, cfg, serving, mel_frontend, audios, beam=True, requests=REQUESTS),
+        audio_path("int8_greedy", params, cfg, int8, mel_frontend, audios),
+        audio_path("int8_beam", params, cfg, int8, mel_frontend, audios, beam=True),
+        audio_path("fast_greedy", fast_params, cfg, fast, mel_frontend, audios),
+        audio_path("fast_beam", fast_params, cfg, fast, mel_frontend, audios, beam=True),
+    ]
+    launches, counts = {}, {}
+    for path in paths + ["entry"]:
+        t0 = time.perf_counter()
+        if path == "entry":  # the flagship step as a user calls it
+            fn, args = entry()
+            torch.cuda.synchronize()
+            phases["entry_setup_s"] = time.perf_counter() - t0
+            path = MainPath("entry", lambda r: fn(*args), fast, batch=1, max_tokens=ENTRY_TOKENS, requests=REQUESTS)
+        torch.cuda.reset_peak_memory_stats()
+        launches[path.label], counts[path.label] = run_path(path, cfg)
+        phases[f"{path.label}_path_s"] = time.perf_counter() - t0
+        log({"phase": f"{path.label}_path", "seconds": phases[f"{path.label}_path_s"],
+             "launches": launches[path.label], "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    del fn, args
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     rows = kernel_checks(params, cfg, gen)
     beam_rows, reorder = beam_kernel_checks(params, cfg, gen)
-    rows += beam_rows
+    rows += beam_rows + mode_kernel_checks(fast_params, cfg, gen)
     phases["kernels_s"] = time.perf_counter() - t0
     log({"phase": "kernels", "seconds": phases["kernels_s"], "beam_reorder_isolated": reorder})
-    sigs = {}
+    sigs, rows_by_key = {}, {}
     for row in rows:
-        counts = greedy_counts if row["path"] == "greedy" else beam_counts
-        row["launches"] = counts.get(json.dumps(row["shape_key"]), 0)
+        key = json.dumps(row["shape_key"])
+        row["launches"] = counts[row["path"]].get(key, 0)
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on the {row['path']} path")
         (sig,) = row.pop("sig")
-        sigs[json.dumps(row["shape_key"])] = sig
+        sigs[key], rows_by_key[key] = sig, row
 
-    t0 = time.perf_counter()
-    durations, breakdown = traced_request(params, cfg, compute, mel_frontend, audios[0], sigs)
-    phases["traced_request_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    beam_durations, beam_breakdown = traced_beam_request(params, cfg, compute, mel_frontend, audios[0], sigs)
-    phases["traced_beam_request_s"] = time.perf_counter() - t0
+    by_label = {p.label: p for p in paths}
+    traced = {}
+    for label, tokens in (("greedy", MAX_TOKENS), ("beam", TRACED_TOKENS), ("fast_greedy", TRACED_TOKENS),
+                          ("fast_beam", TRACED_TOKENS)):
+        t0 = time.perf_counter()
+        traced[label] = traced_path(by_label[label], cfg, sigs, tokens)
+        phases[f"traced_{label}_s"] = time.perf_counter() - t0
     for row in rows:
-        # the bound at the traced run's positions
-        if row["name"] == "decode_self_attention":
-            row["bound_ms"], row["bound_by"] = self_attention_bound(
-                mean_decode_pos(breakdown["decode_steps"]), cfg.n_text_state)
-        if row["name"] == "decode_attention_layer":
-            row["bound_ms"], row["bound_by"] = layer_attention_bound(
-                mean_decode_pos(beam_breakdown["decode_steps"]), cfg.n_text_state, cfg.n_text_head)
-        durs = (durations if row["path"] == "greedy" else beam_durations)[json.dumps(row.pop("shape_key"))]
-        row["ms"] = sum(durs) / len(durs) / 1e3  # mean device time per launch, main-path trace
-    for bd, path, steps in ((breakdown, "greedy", launches[SELF] / L), (beam_breakdown, "beam", beam_launches[LAYER] / L)):
-        decode_rows = [r for r in rows if r["path"] == path and not r["name"].startswith(("q4_matmul/prefill", "encoder"))]
-        bd["bound_ms_per_decode_step"] = sum(r["bound_ms"] * r["launches"] for r in decode_rows) / steps
-    log({"phase": "traced_request", "seconds": phases["traced_request_s"], **breakdown})
-    log({"phase": "traced_beam_request", "seconds": phases["traced_beam_request_s"], **beam_breakdown})
-    del params
+        bound_of_pos = row.pop("bound_of_pos", None)
+        key = json.dumps(row.pop("shape_key"))
+        if row["path"] not in traced:
+            row["ms"], row["ms_source"] = row["isolated_ms"], "isolated (no traced request on its path)"
+            continue
+        durations, bd = traced[row["path"]]
+        if bound_of_pos is not None:  # the bound at the traced run's positions
+            row["bound_ms"], row["bound_by"] = bound_of_pos(mean_decode_pos(bd["decode_steps"]))
+        durs = durations[key]
+        row["ms"], row["ms_source"] = sum(durs) / len(durs) / 1e3, "traced request"  # mean per launch
+    for label, (_, bd) in traced.items():
+        path = by_label[label]
+        steps = launches[label][self_kernel(path.compute, path.beam)] / L
+        bd["bound_ms_per_decode_step"] = sum(
+            rows_by_key[k]["bound_ms"] * n for k, n in counts[label].items()
+            if k in rows_by_key and is_decode_row(rows_by_key[k])
+        ) / steps
+        log({"phase": f"traced_{label}", "seconds": phases[f"traced_{label}_s"], **bd})
+    del params, fast_params
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    small = small_end_to_end()
-    phases["small_e2e_s"] = time.perf_counter() - t0
-    log({"phase": "small_end_to_end", "seconds": phases["small_e2e_s"], **small})
+    for label, compute in (
+        ("int4", serving.replace(w8a8=False, dtype=torch.float32)),
+        ("parity", Compute.parity()),
+        ("int8", Compute.fastest().replace(dtype=torch.float32)),
+    ):
+        # f32; W8A8 off: its per-row int8 rounding turns one-ulp differences
+        # at a rounding tie into a whole code step (tests/test_torch_slice.py)
+        t0 = time.perf_counter()
+        small = small_end_to_end(compute)
+        phases[f"small_e2e_{label}_s"] = time.perf_counter() - t0
+        log({"phase": f"small_end_to_end_{label}", "seconds": phases[f"small_e2e_{label}_s"], **small})
     phases["total_s"] = time.perf_counter() - t_all
     log({"phases": phases})
 

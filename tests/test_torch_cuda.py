@@ -17,6 +17,8 @@ from whisper_burn_tpu_torch.ops.cache import write_cache_slot, write_cache_slot_
 from whisper_burn_tpu_torch.ops.decode_attention import (
     decode_attention_layer,
     decode_attention_layer_plain,
+    decode_attention_merged,
+    decode_attention_merged_plain,
     decode_cross_attention,
     decode_cross_attention_plain,
     decode_self_attention,
@@ -100,9 +102,59 @@ def test_attention_layer_kernel(gen, ctx, valid, dtype):
         assert (a - r).abs().max().item() <= 1e-5 * max(r.abs().max().item(), 1.0)
 
 
-@pytest.mark.parametrize("dtype,width", [(torch.int8, 1280), (torch.float32, 2), (torch.bfloat16, 3)])
+@pytest.mark.parametrize("pos", [0, 1, 63])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_merged_attention_kernel(gen, pos, dtype):
+    """Kernel B' over a float cache: the plain version's output, nothing stored."""
+    l_dim, b, ctx, d, h = 2, 3, 64, 256, 4
+    kc, vc = (torch.randn((l_dim, b, ctx, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    q, kn, vn = (torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
+    k0, v0 = kc.clone(), vc.clone()
+    _build.reset_launches()
+    out = decode_attention_merged(q, kc, vc, 1, pos, h, kn, vn)
+    assert _build.LAUNCHES["decode_attention_merged"] == 1
+    assert _rel_err(out, decode_attention_merged_plain(q, kc, vc, 1, pos, h, kn, vn)) <= 1e-5
+    assert torch.equal(kc, k0) and torch.equal(vc, v0)
+
+
+@pytest.mark.parametrize("ctx,valid", [(64, 0), (64, 37), (96, 96), (448, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_layer_unscaled_kernel(gen, ctx, valid, dtype):
+    """Kernel E' over a float cache, no scales."""
+    l_dim, b, d, h = 2, 3, 256, 4
+    kc, vc = (torch.randn((l_dim, b, ctx, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    q = torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype)
+    _build.reset_launches()
+    out = decode_attention_layer(q, kc, vc, None, 1, valid, h)
+    assert _build.LAUNCHES["decode_attention_layer_unscaled"] == 1
+    ref = decode_attention_layer_plain(q, kc, vc, None, 1, valid, h)
+    for a, r in zip(out, ref):
+        assert (a - r).abs().max().item() <= 1e-5 * max(r.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("groups", [1, 5])
+@pytest.mark.parametrize("cache", [torch.int8, torch.bfloat16, torch.float32])
+def test_cross_attention_unpacked_kernel(gen, cache, groups):
+    """Kernel C' over int8 (bf16 query) and float caches, keys [L, B, D, T]."""
+    l_dim, b, t, d, h = 2, 3, 256, 256, 4
+    if cache == torch.int8:
+        kT = torch.randint(-127, 128, (l_dim, b, d, t), generator=gen, device="cuda", dtype=torch.int8)
+        v = torch.randint(-127, 128, (l_dim, b, t, d), generator=gen, device="cuda", dtype=torch.int8)
+        q = (torch.randn((b * groups, 1, d), generator=gen, device="cuda") * 0.003).to(torch.bfloat16)
+    else:
+        kT = torch.randn((l_dim, b, d, t), generator=gen, device="cuda").to(cache)
+        v = torch.randn((l_dim, b, t, d), generator=gen, device="cuda").to(cache)
+        q = torch.randn((b * groups, 1, d), generator=gen, device="cuda").to(cache)
+    _build.reset_launches()
+    out = decode_cross_attention(q, kT, v, 1, 200, h, groups)
+    assert _build.LAUNCHES["decode_cross_attention_unpacked"] == 1
+    assert _rel_err(out, decode_cross_attention_plain(q, kT, v, 1, 200, h, groups)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,width", [(torch.int8, 1280), (torch.bfloat16, 1280), (torch.float32, 2), (torch.bfloat16, 3)])
 def test_cache_slot_kernel(gen, dtype, width):
-    """16-byte rows take the vector path; 8- and 6-byte rows the byte path."""
+    """16-byte multiples (int8 and bf16 at width 1280) take the vector path;
+    8- and 6-byte rows the byte path."""
     cache = torch.randn((3, 5, 16, width), generator=gen, device="cuda").mul(50).to(dtype)
     new = torch.randn((3, 5, 1, width), generator=gen, device="cuda").mul(50).to(dtype)
     ref = cache.clone()

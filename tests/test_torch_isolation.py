@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, its entry points refuse to fall back to the CPU, and CPU tensors
-take the plain versions without launching a kernel."""
+package, its entry points refuse to fall back to the CPU, CPU tensors
+take the plain versions without launching a kernel, and the cache modes
+allocate as the JAX package's do."""
 
 import ast
 import os
@@ -8,9 +9,12 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
+from whisper_burn_tpu_torch import entry as entry_module
+from whisper_burn_tpu_torch.entry import entry
 from whisper_burn_tpu_torch.models.config import WhisperConfig
 from whisper_burn_tpu_torch.models.decoder import decode_step, init_cache
 from whisper_burn_tpu_torch.models.params import (
@@ -89,10 +93,54 @@ def test_modes_outside_the_slice_raise(kw, item):
         Compute.fastest(kv_bits=4).replace(**kw)
 
 
-@pytest.mark.parametrize("compute, item", [(Compute.fastest(), "K3"), (Compute.fast(), "K3"), (Compute.fastest(kv_bits=4).replace(self_kv_dtype=None), "K8")])
-def test_cache_modes_outside_the_slice_raise(compute, item):
-    with pytest.raises(NotImplementedError, match=item):
-        init_cache(WhisperConfig.tiny_test(), 1, compute, 64, "cpu")
+@pytest.mark.parametrize("compute, cross, self_kv", [
+    (Compute.fast(), torch.bfloat16, torch.bfloat16),
+    (Compute.fastest(), torch.int8, torch.int8),
+    (Compute.fastest(kv_bits=4), torch.uint8, torch.int8),
+], ids=["fast", "fastest", "fastest-kv4"])
+def test_init_cache_allocates_each_mode(compute, cross, self_kv):
+    """Cross keys transposed [L, B, D, T] (int4: D/2 packed), values
+    [L, B, T, D] (int4: T/2); scales only for quantized caches."""
+    cfg = WhisperConfig.tiny_test()
+    l, d, t = cfg.n_text_layer, cfg.n_text_state, 16  # n_audio_ctx 12, 8-aligned
+    cache = init_cache(cfg, 2, compute, 64, "cpu")
+    packed = cross == torch.uint8
+    assert (cache.cross_k.dtype, cache.cross_v.dtype) == (cross, cross)
+    assert cache.cross_k.shape == (l, 2, d // 2 if packed else d, t)
+    assert cache.cross_v.shape == (l, 2, t // 2 if packed else t, d)
+    assert (cache.self_k.dtype, cache.self_v.dtype) == (self_kv, self_kv)
+    assert cache.self_k.shape == cache.self_v.shape == (l, 2, 64, d)
+    quantized = cross != torch.bfloat16
+    for scale in (cache.cross_k_scale, cache.cross_v_scale):
+        assert (scale is not None) == quantized
+        assert scale is None or (scale.shape, scale.dtype) == ((l, d), torch.float32)
+    if self_kv == torch.int8:
+        assert (cache.self_kv_scale.shape, cache.self_kv_scale.dtype) == ((l, 2, 64, 2), torch.float32)
+    else:
+        assert cache.self_kv_scale is None
+
+
+def test_entry_defaults_to_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+
+
+def test_entry_mel_is_the_seeded_draw(monkeypatch):
+    """entry(device="cpu") feeds numpy's default_rng(0) standard normal mel
+    [1, 128, 3000] and one Large-V3 language token; the Large-V3 weights are
+    swapped for the tiny config's here (fabricating them takes the host
+    minutes)."""
+    tiny = fabricated_quantized_params
+    monkeypatch.setattr(entry_module, "fabricated_quantized_params",
+                        lambda cfg, seed, device: tiny(WhisperConfig.tiny_test(), seed, device=device))
+    fn, (params, mel, lang) = entry(device="cpu")
+    assert callable(fn) and mel.device.type == "cpu" and mel.dtype == torch.float32
+    ref = np.random.default_rng(0).standard_normal((1, 128, 3000)).astype(np.float32)  # as __graft_entry__ casts it
+    np.testing.assert_array_equal(mel.numpy(), ref)
+    assert lang.tolist() == [WhisperConfig.large_v3().lang_token_start]
+    assert params["decoder"]["tok_emb"].dtype == torch.bfloat16 and "attn_qkv" in params["decoder"]["blocks"]
 
 
 def test_beam_groups_raise():

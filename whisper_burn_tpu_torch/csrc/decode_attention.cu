@@ -1,4 +1,4 @@
-// Kernels B, C and E: one-query decode attention over the quantized caches.
+// Kernels B, B', C, C', E and E': one-query decode attention over the caches.
 //
 // Kernel B, decode_self_attention, replaces the merged + store form of
 // whisper_burn_tpu/ops/pallas_attention.py:_kernel (via
@@ -10,9 +10,16 @@
 // then stored at pos in place (no key below pos is read-after-written).
 // Bound: the cache read (2 * pos * D bytes per stream and layer, memory).
 // Design: one block per (stream, head); a warp per key computes a 64-wide
-// dot with two channels per lane, so a warp reads one 64-byte key row;
-// scores stay in shared memory; the value sum runs with one thread per
-// channel on coalesced 64-byte rows.
+// dot with two channels per lane, so a warp reads one key row of the head
+// (64 bytes in int8); scores stay in shared memory; the value sum runs with
+// one thread per channel on coalesced rows.
+//
+// Kernel B', decode_attention_merged, replaces the same _kernel through
+// decode_attention_merged without kq/vq and without scales: the same merged
+// attention over a float (f32 or bf16) self cache, unscaled, and no store
+// (the decode step writes the row after its layer loop with kernel F, as
+// the JAX package does). Bound and design: those of kernel B, at two or
+// four bytes a cached value.
 //
 // Kernel E, decode_attention_layer, replaces the general form of the same
 // _kernel (via decode_attention_layer, int8 cache with per-token scales):
@@ -24,8 +31,10 @@
 // with a running max when ctx spans several; here the whole ctx of scores
 // sits in shared memory (ctx * 4 bytes, within the 48 KB default: ctx up
 // to 12288, above n_text_ctx 448), so one exact pass gives the same m, l
-// and acc. Bound and design: those of kernel B, whose cached-key part it
-// shares (attend_cached).
+// and acc. Kernel E' (decode_attention_layer_unscaled) is the same over a
+// float cache without scales (decode_attention_layer(kv_scale4=None)).
+// Bound and design: those of kernel B, whose cached-key part they share
+// (attend_cached).
 //
 // Kernel C, decode_cross_attention, replaces
 // whisper_burn_tpu/ops/pallas_attention.py:_kt_kernel (int4, normalized).
@@ -45,6 +54,17 @@
 // side by side and re-read the entry's bytes mostly from L2. The host
 // passes the entry count: the same kernel dividing B by G itself took
 // more registers and ran slower, at G = 1 too.
+//
+// Kernel C', decode_cross_attention_unpacked, replaces _kt_kernel's
+// unpacked branch (int8 codes with the per-channel scales folded outside,
+// or an f32/bf16 cache): keys stored [L, B, D, T], values [L, B, T, D],
+// normalized f32 out, keys at `valid` and above masked and never read.
+// Bound: the cache read (2 * valid * D elements per cache entry and layer,
+// memory). Design: one block per (stream of the entry, head, entry), the
+// entry's streams adjacent in launch order so their re-reads of its bytes
+// come mostly from L2; every thread loads 4 bytes at a time (4 int8, 2
+// bf16 or 1 f32 elements): consecutive threads on consecutive keys of a
+// key row (scores) or on consecutive channels of a value row (values).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -57,6 +77,28 @@ constexpr float NEG_BIG = -1e30f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
+
+// two consecutive cache elements as floats (the pointer is aligned to two)
+__device__ __forceinline__ float2 load2(const int8_t* p) {
+  const char2 v = *reinterpret_cast<const char2*>(p);
+  return make_float2((float)v.x, (float)v.y);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+
+// one 4-byte load: 4 / sizeof(C) consecutive cache elements as floats
+__device__ __forceinline__ void load4(const int8_t* p, float* o) {
+  const char4 v = *reinterpret_cast<const char4*>(p);
+  o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
+  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  o[0] = v.x, o[1] = v.y;
+}
+__device__ __forceinline__ void load4(const float* p, float* o) { o[0] = *p; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -87,13 +129,16 @@ __device__ float block_reduce(float v, float* scratch) {
 
 constexpr int SELF_THREADS = 128;
 
-// The cached-key part of kernels B and E for one (stream, head) block of
-// SELF_THREADS threads: scores of keys t < valid of the cache rows from
-// row0 on (qs holds the head's 64 query values, s has room for `valid`
-// floats), their softmax weights and the weighted value sum. Every thread
-// gets the running max m and the normalizer l (V scale left out); thread
-// tid < 64 gets channel c0 + tid's sum of p[t] * sv[t] * v[t] in acc.
-__device__ void attend_cached(const int8_t* kc, const int8_t* vc, const float* kvs, size_t row0,
+// The cached-key part of kernels B, B', E and E' for one (stream, head)
+// block of SELF_THREADS threads: scores of keys t < valid of the cache rows
+// from row0 on (qs holds the head's 64 query values, s has room for `valid`
+// floats), their softmax weights and the weighted value sum. With SCALED
+// the int8 codes take their per-token scales kvs; without it the cache
+// holds the values. Every thread gets the running max m and the normalizer
+// l (V scale left out); thread tid < 64 gets channel c0 + tid's sum of
+// p[t] * sv[t] * v[t] in acc.
+template <typename C, bool SCALED>
+__device__ void attend_cached(const C* kc, const C* vc, const float* kvs, size_t row0,
                               int c0, int valid, int D, const float* qs, float* s,
                               float* scratch, float* part, float& m_out, float& l_out,
                               float& acc_out) {
@@ -102,10 +147,10 @@ __device__ void attend_cached(const int8_t* kc, const int8_t* vc, const float* k
   const float scale = rsqrtf((float)DH);
 
   for (int t = warp; t < valid; t += nwarps) {
-    const char2 kk = *reinterpret_cast<const char2*>(kc + (row0 + t) * D + c0 + 2 * lane);
-    float d = qs[2 * lane] * (float)kk.x + qs[2 * lane + 1] * (float)kk.y;
+    const float2 kk = load2(kc + (row0 + t) * D + c0 + 2 * lane);
+    float d = qs[2 * lane] * kk.x + qs[2 * lane + 1] * kk.y;
     d = warp_sum(d);
-    if (lane == 0) s[t] = d * scale * kvs[(row0 + t) * 2];
+    if (lane == 0) s[t] = SCALED ? d * scale * kvs[(row0 + t) * 2] : d * scale;
   }
   __syncthreads();
   float m = NEG_BIG;
@@ -115,7 +160,7 @@ __device__ void attend_cached(const int8_t* kc, const int8_t* vc, const float* k
   for (int t = tid; t < valid; t += SELF_THREADS) {
     const float p = expf(s[t] - m);
     l += p;
-    s[t] = p * kvs[(row0 + t) * 2 + 1];  // V scale weights the value sum only
+    s[t] = SCALED ? p * kvs[(row0 + t) * 2 + 1] : p;  // V scale weights the value sum only
   }
   l = block_reduce<false>(l, scratch);
   __syncthreads();
@@ -124,12 +169,40 @@ __device__ void attend_cached(const int8_t* kc, const int8_t* vc, const float* k
   const int c = tid % DH, half = tid / DH;
   float acc = 0.f;
   for (int t = half; t < valid; t += SELF_THREADS / DH)
-    acc += s[t] * (float)vc[(row0 + t) * D + c0 + c];
+    acc += s[t] * to_f(vc[(row0 + t) * D + c0 + c]);
   part[tid] = acc;
   __syncthreads();
   m_out = m;
   l_out = l;
   acc_out = tid < DH ? part[tid] + part[tid + DH] : 0.f;
+}
+
+// Kernels B and B' for block (stream b, head h): attend_cached over keys
+// t < pos, then the current token's raw k_new / v_new merged in. Threads
+// tid < 64 return channel h * 64 + tid of the normalized output.
+template <typename T, typename C, bool SCALED>
+__device__ float attend_merged(const T* q, const C* kc, const C* vc, const float* kvs,
+                               const T* k_new, const T* v_new, int layer, int pos, int B,
+                               int ctx, int D, float* s, float* qs, float* scratch, float* part) {
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int c0 = h * DH;
+  const float scale = rsqrtf((float)DH);
+  const size_t row0 = ((size_t)layer * B + b) * ctx;  // first cache row of (layer, b)
+
+  if (tid < DH) qs[tid] = to_f(q[(size_t)b * D + c0 + tid]);
+  __syncthreads();
+  float m, l, acc;
+  attend_cached<C, SCALED>(kc, vc, kvs, row0, c0, pos, D, qs, s, scratch, part, m, l, acc);
+  // the current token's score
+  float e = tid < DH ? qs[tid] * to_f(k_new[(size_t)b * D + c0 + tid]) : 0.f;
+  e = block_reduce<false>(e, scratch) * scale;
+  if (tid >= DH) return 0.f;
+  const float m2 = fmaxf(m, e);
+  const float alpha = expf(m - m2), beta = expf(e - m2);
+  const float l2 = l * alpha + beta;
+  const float vn = to_f(v_new[(size_t)b * D + c0 + tid]);
+  return (acc * alpha + beta * vn) / l2;
 }
 
 template <typename T>
@@ -145,27 +218,52 @@ self_attn_kernel(const T* __restrict__ q, int8_t* kc, int8_t* vc, float* kvs,
   __shared__ float part[SELF_THREADS];
   const int b = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x;
+  const size_t row0 = ((size_t)layer * B + b) * ctx;
+  const size_t col = (size_t)b * D + h * DH + tid;
+  const float o = attend_merged<T, int8_t, true>(q, kc, vc, kvs, k_new, v_new, layer, pos, B, ctx,
+                                                  D, s, qs, scratch, part);
+  if (tid < DH) {
+    out[col] = o;
+    // store the current token at pos (no block reads row pos)
+    kc[(row0 + pos) * D + h * DH + tid] = kq[col];
+    vc[(row0 + pos) * D + h * DH + tid] = vq[col];
+    if (h == 0 && tid < 2) kvs[(row0 + pos) * 2 + tid] = new_scale[b * 2 + tid];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(SELF_THREADS)
+merged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+                   const T* __restrict__ k_new, const T* __restrict__ v_new,
+                   float* __restrict__ out, int layer, int pos, int B, int ctx, int D) {
+  extern __shared__ float s[];  // [ctx] scores, then probabilities
+  __shared__ float qs[DH];
+  __shared__ float scratch[32];
+  __shared__ float part[SELF_THREADS];
+  const float o = attend_merged<T, T, false>(q, kc, vc, nullptr, k_new, v_new, layer, pos, B, ctx,
+                                             D, s, qs, scratch, part);
+  if (threadIdx.x < DH) out[(size_t)blockIdx.x * D + blockIdx.y * DH + threadIdx.x] = o;
+}
+
+// Kernels E and E' for block (stream b, head h): attend_cached over keys
+// t < valid, written unnormalized
+template <typename T, typename C, bool SCALED>
+__device__ void layer_attn(const T* q, const C* kc, const C* vc, const float* kvs, float* acc_out,
+                           float* m_out, float* l_out, int layer, int valid, int B, int ctx, int D,
+                           int H, float* s, float* qs, float* scratch, float* part) {
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int tid = threadIdx.x;
   const int c0 = h * DH;
-  const float scale = rsqrtf((float)DH);
-  const size_t row0 = ((size_t)layer * B + b) * ctx;  // first cache row of (layer, b)
+  const size_t row0 = ((size_t)layer * B + b) * ctx;
 
   if (tid < DH) qs[tid] = to_f(q[(size_t)b * D + c0 + tid]);
   __syncthreads();
   float m, l, acc;
-  attend_cached(kc, vc, kvs, row0, c0, pos, D, qs, s, scratch, part, m, l, acc);
-  // the current token's score
-  float e = tid < DH ? qs[tid] * to_f(k_new[(size_t)b * D + c0 + tid]) : 0.f;
-  e = block_reduce<false>(e, scratch) * scale;
-  if (tid < DH) {
-    const float m2 = fmaxf(m, e);
-    const float alpha = expf(m - m2), beta = expf(e - m2);
-    const float l2 = l * alpha + beta;
-    const float vn = to_f(v_new[(size_t)b * D + c0 + tid]);
-    out[(size_t)b * D + c0 + tid] = (acc * alpha + beta * vn) / l2;
-    // store the current token at pos (no block reads row pos)
-    kc[(row0 + pos) * D + c0 + tid] = kq[(size_t)b * D + c0 + tid];
-    vc[(row0 + pos) * D + c0 + tid] = vq[(size_t)b * D + c0 + tid];
-    if (h == 0 && tid < 2) kvs[(row0 + pos) * 2 + tid] = new_scale[b * 2 + tid];
+  attend_cached<C, SCALED>(kc, vc, kvs, row0, c0, valid, D, qs, s, scratch, part, m, l, acc);
+  if (tid < DH) acc_out[(size_t)b * D + c0 + tid] = acc;
+  if (tid == 0) {
+    m_out[b * H + h] = m;
+    l_out[b * H + h] = l;
   }
 }
 
@@ -179,20 +277,22 @@ layer_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
   __shared__ float qs[DH];
   __shared__ float scratch[32];
   __shared__ float part[SELF_THREADS];
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int c0 = h * DH;
-  const size_t row0 = ((size_t)layer * B + b) * ctx;
+  layer_attn<T, int8_t, true>(q, kc, vc, kvs, acc_out, m_out, l_out, layer, valid, B, ctx, D, H,
+                              s, qs, scratch, part);
+}
 
-  if (tid < DH) qs[tid] = to_f(q[(size_t)b * D + c0 + tid]);
-  __syncthreads();
-  float m, l, acc;
-  attend_cached(kc, vc, kvs, row0, c0, valid, D, qs, s, scratch, part, m, l, acc);
-  if (tid < DH) acc_out[(size_t)b * D + c0 + tid] = acc;
-  if (tid == 0) {
-    m_out[b * H + h] = m;
-    l_out[b * H + h] = l;
-  }
+template <typename T>
+__global__ void __launch_bounds__(SELF_THREADS)
+layer_unscaled_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+                      float* __restrict__ acc_out, float* __restrict__ m_out,
+                      float* __restrict__ l_out, int layer, int valid, int B, int ctx, int D,
+                      int H) {
+  extern __shared__ float s[];  // [ctx] scores, then probabilities
+  __shared__ float qs[DH];
+  __shared__ float scratch[32];
+  __shared__ float part[SELF_THREADS];
+  layer_attn<T, T, false>(q, kc, vc, nullptr, acc_out, m_out, l_out, layer, valid, B, ctx, D, H,
+                          s, qs, scratch, part);
 }
 
 constexpr int CROSS_THREADS = 512;
@@ -272,6 +372,94 @@ cross_attn_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kT,
   }
 }
 
+constexpr int CROSS_U_THREADS = 512;
+
+template <typename T, typename C>
+__global__ void __launch_bounds__(CROSS_U_THREADS)
+cross_unpacked_kernel(const T* __restrict__ q, const C* __restrict__ kT, const C* __restrict__ v,
+                      float* __restrict__ out, int layer, int valid, int G, int D, int Tn) {
+  constexpr int V = 4 / (int)sizeof(C);      // elements per 4-byte load
+  constexpr int ROW_THREADS = DH / V;         // threads over one head's value row
+  constexpr int PARTS = CROSS_U_THREADS / ROW_THREADS;
+  extern __shared__ float s[];  // [Tn] scores of the head, then probabilities
+  __shared__ float qs[DH];
+  __shared__ float scratch[32];
+  __shared__ float part[PARTS * DH];
+  const int h = blockIdx.y, e = blockIdx.z;  // e: cache entry
+  const int b = e * G + blockIdx.x;         // the query stream
+  const int tid = threadIdx.x;
+  const float scale = rsqrtf((float)DH);
+  const size_t entry = (size_t)layer * gridDim.z + e;
+  const C* kb = kT + (entry * D + (size_t)h * DH) * Tn;  // the head's 64 key rows [64][Tn]
+  const C* vb = v + entry * Tn * D + h * DH;              // the head's value columns
+
+  if (tid < DH) qs[tid] = to_f(q[(size_t)b * D + h * DH + tid]);
+  __syncthreads();
+
+  float m = NEG_BIG;
+  for (int t0 = tid * V; t0 < valid; t0 += CROSS_U_THREADS * V) {
+    float a[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) a[i] = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < DH; ++j) {
+      float k[V];
+      load4(kb + (size_t)j * Tn + t0, k);
+      const float qj = qs[j];
+#pragma unroll
+      for (int i = 0; i < V; ++i) a[i] += qj * k[i];
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if (t0 + i < valid) {
+        s[t0 + i] = a[i] * scale;
+        m = fmaxf(m, a[i] * scale);
+      }
+    }
+  }
+  m = block_reduce<true>(m, scratch);
+  float l = 0.f;
+  for (int t = tid; t < valid; t += CROSS_U_THREADS) {
+    const float p = expf(s[t] - m);
+    s[t] = p;
+    l += p;
+  }
+  l = block_reduce<false>(l, scratch);
+  __syncthreads();
+
+  // values: V channels a thread, PARTS threads down the rows t < valid
+  const int c = (tid % ROW_THREADS) * V, pr = tid / ROW_THREADS;
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+#pragma unroll 4
+  for (int t = pr; t < valid; t += PARTS) {
+    float x[V];
+    load4(vb + (size_t)t * D + c, x);
+    const float p = s[t];
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] += p * x[i];
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) part[pr * DH + c + i] = acc[i];
+  __syncthreads();
+  if (tid < DH) {
+    float r = 0.f;
+    for (int k = 0; k < PARTS; ++k) r += part[k * DH + tid];
+    out[(size_t)b * D + h * DH + tid] = r / l;
+  }
+}
+
+template <typename T, typename C>
+int launch_cross_unpacked(const void* q, const void* kT, const void* v, float* out, int layer,
+                          int valid, int B, int G, int D, int Tn, int H, cudaStream_t st) {
+  dim3 grid(G, H, B / G);
+  cross_unpacked_kernel<T, C><<<grid, CROSS_U_THREADS, (size_t)Tn * sizeof(float), st>>>(
+      static_cast<const T*>(q), static_cast<const C*>(kT), static_cast<const C*>(v), out, layer,
+      valid, G, D, Tn);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, k_new, v_new: [B, D] f32 or bf16 (bf16 flag); kc, vc: int8 [L, B, ctx, D];
@@ -306,6 +494,31 @@ extern "C" int decode_self_attention(const void* q, int bf16, void* kc, void* vc
   return static_cast<int>(cudaGetLastError());
 }
 
+// q, k_new, v_new: [B, D]; kc, vc: [L, B, ctx, D]; all f32, or all bf16
+// (bf16 flag); out: f32 [B, D], normalized; nothing is stored. Head width
+// 64. Needs 0 <= pos < ctx and ctx * 4 bytes of dynamic shared memory
+// within the 48 KB default.
+extern "C" int decode_attention_merged(const void* q, int bf16, const void* kc, const void* vc,
+                                       const void* k_new, const void* v_new, void* out, int layer,
+                                       int pos, int B, int ctx, int D, int H, void* stream) {
+  dim3 grid(B, H);
+  const size_t smem = (size_t)ctx * sizeof(float);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (bf16) {
+    using T = __nv_bfloat16;
+    merged_attn_kernel<T><<<grid, SELF_THREADS, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
+        static_cast<const T*>(k_new), static_cast<const T*>(v_new), o, layer, pos, B, ctx, D);
+  } else {
+    merged_attn_kernel<float><<<grid, SELF_THREADS, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(kc), static_cast<const float*>(vc),
+        static_cast<const float*>(k_new), static_cast<const float*>(v_new), o, layer, pos, B, ctx,
+        D);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // q: [B, D] f32 or bf16 (bf16 flag), B query streams; kc, vc: int8
 // [L, B, ctx, D]; kvs: f32 [L, B, ctx, 2]; acc: f32 [B, D]; m, l: f32
 // [B, H]. Head width 64. Needs 0 <= valid <= ctx and ctx * 4 bytes of
@@ -332,6 +545,32 @@ extern "C" int decode_attention_layer(const void* q, int bf16, const void* kc, c
   return static_cast<int>(cudaGetLastError());
 }
 
+// q: [B, D]; kc, vc: [L, B, ctx, D]; all f32, or all bf16 (bf16 flag);
+// acc: f32 [B, D]; m, l: f32 [B, H]. Head width 64. Needs 0 <= valid <= ctx
+// and ctx * 4 bytes of dynamic shared memory within the 48 KB default.
+extern "C" int decode_attention_layer_unscaled(const void* q, int bf16, const void* kc,
+                                               const void* vc, void* acc, void* m, void* l,
+                                               int layer, int valid, int B, int ctx, int D, int H,
+                                               void* stream) {
+  dim3 grid(B, H);
+  const size_t smem = (size_t)ctx * sizeof(float);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* a = static_cast<float*>(acc);
+  float* mo = static_cast<float*>(m);
+  float* lo = static_cast<float*>(l);
+  if (bf16) {
+    using T = __nv_bfloat16;
+    layer_unscaled_kernel<T><<<grid, SELF_THREADS, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), a, mo, lo,
+        layer, valid, B, ctx, D, H);
+  } else {
+    layer_unscaled_kernel<float><<<grid, SELF_THREADS, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(kc),
+        static_cast<const float*>(vc), a, mo, lo, layer, valid, B, ctx, D, H);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // q: [B, D] f32 or bf16, B query streams, G of them per cache entry (B % G
 // == 0); kT: uint8 [L, B/G, D/2, T]; v: uint8 [L, B/G, T/2, D]; out: f32
 // [B, D], normalized. Head width 64, H even, T even, 2 * T * 4 bytes of
@@ -354,4 +593,24 @@ extern "C" int decode_cross_attention(const void* q, int bf16, const void* kT, c
         static_cast<const float*>(q), k4, v4, o, layer, valid, E, G, D, T, H);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// q: [B, D] f32 or bf16 (bf16 flag), B query streams, G of them per cache
+// entry (B % G == 0); kT: [L, B/G, D, T]; v: [L, B/G, T, D], int8
+// (cache_int8) or of q's type; out: f32 [B, D], normalized. Head width 64,
+// T and D multiples of 4, 0 < valid <= T, T * 4 bytes of dynamic shared
+// memory within the 48 KB default.
+extern "C" int decode_cross_attention_unpacked(const void* q, int bf16, int cache_int8,
+                                               const void* kT, const void* v, void* out,
+                                               int layer, int valid, int B, int G, int D, int T,
+                                               int H, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  using BF = __nv_bfloat16;
+  if (bf16 && cache_int8)
+    return launch_cross_unpacked<BF, int8_t>(q, kT, v, o, layer, valid, B, G, D, T, H, st);
+  if (bf16) return launch_cross_unpacked<BF, BF>(q, kT, v, o, layer, valid, B, G, D, T, H, st);
+  if (cache_int8)
+    return launch_cross_unpacked<float, int8_t>(q, kT, v, o, layer, valid, B, G, D, T, H, st);
+  return launch_cross_unpacked<float, float>(q, kT, v, o, layer, valid, B, G, D, T, H, st);
 }

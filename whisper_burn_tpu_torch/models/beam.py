@@ -113,11 +113,10 @@ def beam_decode(
         # #0, so no hypothesis finishes at the seed step)
         seed_logp, seed_tok = _top_k(_log_softmax(logits), w)  # [B, W]
         # self caches to the B*W streams, beams of an utterance adjacent
+        # (a float self cache has no scales)
+        rep = lambda c: None if c is None else c.repeat_interleave(w, dim=1)
         cache = dataclasses.replace(
-            cache,
-            self_k=cache.self_k.repeat_interleave(w, dim=1),
-            self_v=cache.self_v.repeat_interleave(w, dim=1),
-            self_kv_scale=cache.self_kv_scale.repeat_interleave(w, dim=1),
+            cache, self_k=rep(cache.self_k), self_v=rep(cache.self_v), self_kv_scale=rep(cache.self_kv_scale)
         )
         cur = seed_tok.reshape(bw)
         tokens = torch.full((bw, max_tokens), EOT, dtype=torch.int32, device=dev)
@@ -190,7 +189,8 @@ def beam_decode(
                 tokens[:, k] = new_tok.reshape(bw).to(torch.int32)
                 cache.self_k = cache.self_k.index_select(1, src)
                 cache.self_v = cache.self_v.index_select(1, src)
-                cache.self_kv_scale = cache.self_kv_scale.index_select(1, src)
+                if cache.self_kv_scale is not None:
+                    cache.self_kv_scale = cache.self_kv_scale.index_select(1, src)
 
             # an utterance is done when its pool is full and (the heuristic)
             # its best running candidate, normalized at the current length,

@@ -1,7 +1,10 @@
-"""Whisper text decoder with a preallocated, quantized KV cache.
+"""Whisper text decoder with a preallocated KV cache.
 
-Port of ``whisper_burn_tpu/models/decoder.py`` for the serving modes:
-int4-packed cross-KV with per-channel scales and int8 per-token self-KV.
+Port of ``whisper_burn_tpu/models/decoder.py``, in each cache mode the
+``Compute`` presets give: the cross cache int4 pairs (``fastest(kv_bits=4)``)
+or int8 (``fastest()``), both with per-channel scales, or unquantized in the
+compute dtype (``parity()``, ``fast()``); the self cache int8 with per-token
+scales (``fastest``) or unquantized.
 
 * token embedding + learned positions by absolute position
 * pre-norm blocks: self-attention (causal) -> cross-attention -> FFN
@@ -9,23 +12,35 @@ int4-packed cross-KV with per-channel scales and int8 per-token self-KV.
 * output projection = tied token-embedding transpose (int8 copy with
   ``compute.quantized_logits``), padded vocab masked to -inf
 
+The cross keys are stored transposed, ``[L, B, D, T]``, in every mode. The
+JAX package keeps that layout where its TPU kernel's block fits (int4,
+int8, and bf16 at Large-V3) and the natural one otherwise (f32 at
+Large-V3, served by its general kernel); layouts do not bind the port, the
+values do, so it keeps one layout and one cross kernel.
+
 The decode step follows the JAX package's flash path (``_decode_step_flash``).
 Per layer, kernel A serves the four projections and the FFN (by layer
-index, no weight copy) and kernel C the cross-attention (per-channel K
-scales folded into the query, V scales into the output; with
-``batch_groups=G`` the G streams of an utterance share its cross cache).
-The self-attention takes one of two branches, by ``batch_groups``:
+index, no weight copy) and kernel C the cross-attention (C over int4, C'
+over int8 or float caches; per-channel K scales folded into the query, V
+scales into the output; with ``batch_groups=G`` the G streams of an
+utterance share its cross cache). The self-attention takes one of these
+branches, by ``batch_groups`` and the self cache's mode:
 
-* ``1`` (greedy): kernel B, the current token's raw K/V merged into the
-  softmax and its quantized row and scales stored at ``pos`` in place.
+* ``1`` (greedy), int8: kernel B, the current token's raw K/V merged into
+  the softmax and its quantized row and scales stored at ``pos`` in place.
   The JAX package takes this store-in-kernel branch only when ctx is one
   key tile and its deferred branch otherwise; kernel B computes the same
   function at any ctx, so the port always takes it here.
-* ``> 1`` (beam search): the deferred-write branch. Kernel E attends over
-  the cached keys, unnormalized, :func:`flash_merge_extra_key` merges the
-  current token's raw K/V; after the layer loop the new rows of every
-  layer are quantized per token, kernel F writes them at ``pos`` and a
-  slice assignment the scales.
+* ``1``, float: kernel B', the same merge without scales and without the
+  store; the rows are written after the layer loop as below.
+* ``> 1`` (beam search): the deferred-write branch. Kernel E (int8) or E'
+  (float) attends over the cached keys, unnormalized,
+  :func:`flash_merge_extra_key` merges the current token's raw K/V.
+
+Where the row is not stored in the kernel, the new rows of every layer are
+written at ``pos`` after the layer loop by kernel F: quantized per token
+first for an int8 cache (the scales by a slice assignment), cast to the
+cache's dtype otherwise.
 
 The caches are updated in place.
 """
@@ -35,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.profiler import record_function
 
 from whisper_burn_tpu_torch.models.attention import attention, attention_kt, causal_mask, length_mask
 from whisper_burn_tpu_torch.models.config import WhisperConfig
@@ -43,6 +59,7 @@ from whisper_burn_tpu_torch.ops.compute import Compute
 from whisper_burn_tpu_torch.ops.cache import write_cache_slot
 from whisper_burn_tpu_torch.ops.decode_attention import (
     decode_attention_layer,
+    decode_attention_merged,
     decode_cross_attention,
     decode_self_attention,
     flash_merge_extra_key,
@@ -62,34 +79,22 @@ from whisper_burn_tpu_torch.ops.q4_matmul import q4_matmul
 class KVCache:
     """Preallocated decoder cache, updated in place.
 
-    Cross keys are int4 pairs packed along D, stored ``[L, B, D/2, T]``;
-    cross values packed along T, stored ``[L, B, T/2, D]``; both biased by
-    8, with per-(layer, channel) f32 scales ``[L, D]``. Self K/V are int8
-    ``[L, B, ctx, D]`` with per-token absmax/127 scales ``[L, B, ctx, 2]``
-    (K in lane 0, V in lane 1).
+    Cross keys are stored transposed, ``[L, B, D, T]``, values ``[L, B, T, D]``:
+    int4 pairs biased by 8 (uint8, keys packed along D as ``[L, B, D/2, T]``,
+    values along T as ``[L, B, T/2, D]``), int8 codes, or values in the
+    compute dtype. A quantized cross cache has per-(layer, channel) f32
+    scales ``[L, D]``. Self K/V are ``[L, B, ctx, D]``, int8 with per-token
+    absmax/127 scales ``[L, B, ctx, 2]`` (K in lane 0, V in lane 1), or in
+    the compute dtype with no scales.
     """
 
     self_k: torch.Tensor
     self_v: torch.Tensor
-    self_kv_scale: torch.Tensor
+    self_kv_scale: torch.Tensor | None
     cross_k: torch.Tensor
     cross_v: torch.Tensor
-    cross_k_scale: torch.Tensor
-    cross_v_scale: torch.Tensor
-
-
-def check_supported(compute: Compute) -> None:
-    """The decode path of this port needs the serving cache modes."""
-    if not compute.kv_packed:
-        raise NotImplementedError(
-            "only the int4 cross-KV cache is ported (Compute.fastest(kv_bits=4)); the "
-            "int8/bf16 cross cache needs _kt_kernel's other branches: ROADMAP Queue 2, K3"
-        )
-    if not compute.quantized_self_kv:
-        raise NotImplementedError(
-            "only the int8 self-KV cache is ported; the unquantized self cache needs the "
-            "general decode kernel's unscaled form: ROADMAP Queue 2, K8"
-        )
+    cross_k_scale: torch.Tensor | None
+    cross_v_scale: torch.Tensor | None
 
 
 def cross_cache_len(cfg: WhisperConfig) -> int:
@@ -101,16 +106,23 @@ def cross_cache_len(cfg: WhisperConfig) -> int:
 
 
 def init_cache(cfg: WhisperConfig, batch: int, compute: Compute, ctx: int, device) -> KVCache:
-    check_supported(compute)
     l, d, t = cfg.n_text_layer, cfg.n_text_state, cross_cache_len(cfg)
+    zeros = lambda *shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
+    kv_dt = compute.cross_kv_dtype
+    if compute.kv_packed:
+        cross_k, cross_v = zeros(l, batch, d // 2, t, dtype=kv_dt), zeros(l, batch, t // 2, d, dtype=kv_dt)
+    else:
+        cross_k, cross_v = zeros(l, batch, d, t, dtype=kv_dt), zeros(l, batch, t, d, dtype=kv_dt)
+    scale = lambda: torch.ones((l, d), dtype=torch.float32, device=device) if compute.quantized_kv else None
+    self_dt = torch.int8 if compute.quantized_self_kv else compute.self_kv_dtype or compute.dtype
     return KVCache(
-        self_k=torch.zeros((l, batch, ctx, d), dtype=torch.int8, device=device),
-        self_v=torch.zeros((l, batch, ctx, d), dtype=torch.int8, device=device),
-        self_kv_scale=torch.zeros((l, batch, ctx, 2), dtype=torch.float32, device=device),
-        cross_k=torch.zeros((l, batch, d // 2, t), dtype=torch.uint8, device=device),
-        cross_v=torch.zeros((l, batch, t // 2, d), dtype=torch.uint8, device=device),
-        cross_k_scale=torch.ones((l, d), dtype=torch.float32, device=device),
-        cross_v_scale=torch.ones((l, d), dtype=torch.float32, device=device),
+        self_k=zeros(l, batch, ctx, d, dtype=self_dt),
+        self_v=zeros(l, batch, ctx, d, dtype=self_dt),
+        self_kv_scale=zeros(l, batch, ctx, 2, dtype=torch.float32) if compute.quantized_self_kv else None,
+        cross_k=cross_k,
+        cross_v=cross_v,
+        cross_k_scale=scale(),
+        cross_v_scale=scale(),
     )
 
 
@@ -142,7 +154,12 @@ def _logits(
             )
         logits = q4_matmul(x, q["qw"], q["scales"], compute, out_dtype=torch.float32)
         logits = logits[..., : cfg.n_vocab_padded]
+    elif x.is_cuda and x.dtype == torch.bfloat16:
+        # bf16 product with f32 output, as the JAX package asks of XLA: no
+        # f32 copy of the [Vp, D] embedding per step
+        logits = torch.mm(x, dec["tok_emb"].to(torch.bfloat16).T, out_dtype=torch.float32)
     else:
+        # the CPU build of PyTorch has no mm with out_dtype: f32 product
         logits = x.float() @ dec["tok_emb"].to(compute.dtype).float().T
     return logits.masked_fill(torch.arange(logits.shape[-1], device=x.device) >= cfg.n_vocab, float("-inf"))
 
@@ -171,26 +188,53 @@ def _quantize_kv_layer4(x: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.
     return pack_int4(q, dim), scale
 
 
+def _quantize_kv_layer(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel symmetric int8 of one layer's ``[B, T, D]``: absmax/127
+    over batch and time together, as :func:`_quantize_kv_layer4`."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=(0, 1)), 1e-8) / 127.0
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
+
+
 def fill_cross_cache(
     params: dict, cfg: WhisperConfig, enc_out: torch.Tensor, cache: KVCache, compute: Compute
 ) -> KVCache:
-    """Project the encoder output to cross K/V layer by layer and store
-    them int4-packed with per-channel scales."""
+    """Project the encoder output to cross K/V layer by layer, zero-pad T to
+    the cache length and store them in the cache's mode: int4-packed or
+    int8 with per-channel scales, or cast to the cache dtype. Keys are
+    stored transposed."""
     blocks = params["decoder"]["blocks"]
     enc = enc_out.to(compute.dtype)
     t = enc.shape[1]
-    pad_to = cache.cross_v.shape[2] * 2
+    pad_to = cache.cross_k.shape[-1]
     for layer in range(cfg.n_text_layer):
         ck, cv = cross_kv_proj(blocks, enc, compute, layer=layer)
         ck = torch.nn.functional.pad(ck, (0, 0, 0, pad_to - t))
         cv = torch.nn.functional.pad(cv, (0, 0, 0, pad_to - t))
-        ck_q, ks = _quantize_kv_layer4(ck, dim=2)  # [B, T, D/2]
-        cv_q, vs = _quantize_kv_layer4(cv, dim=1)  # [B, T/2, D]
-        cache.cross_k[layer] = ck_q.transpose(1, 2)
-        cache.cross_v[layer] = cv_q
-        cache.cross_k_scale[layer] = ks
-        cache.cross_v_scale[layer] = vs
+        if cache.cross_k.dtype == torch.uint8:
+            ck, ks = _quantize_kv_layer4(ck, dim=2)  # [B, T, D/2]
+            cv, vs = _quantize_kv_layer4(cv, dim=1)  # [B, T/2, D]
+        elif cache.cross_k_scale is not None:
+            ck, ks = _quantize_kv_layer(ck)
+            cv, vs = _quantize_kv_layer(cv)
+        if cache.cross_k_scale is not None:
+            cache.cross_k_scale[layer] = ks
+            cache.cross_v_scale[layer] = vs
+        cache.cross_k[layer] = ck.transpose(1, 2)
+        cache.cross_v[layer] = cv
     return cache
+
+
+def _cross_layer(cache: KVCache, layer: int, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer of the cross cache in ``dtype``, dequantized: keys
+    ``[B, D, T]``, values ``[B, T, D]``."""
+    ck, cv = cache.cross_k[layer], cache.cross_v[layer]
+    if ck.dtype == torch.uint8:
+        ck, cv = unpack_int4(ck, 1, dtype), unpack_int4(cv, 1, dtype)
+    if cache.cross_k_scale is None:
+        return ck, cv
+    ks = cache.cross_k_scale[layer].to(dtype)[None, :, None]
+    return ck.to(dtype) * ks, cv.to(dtype) * cache.cross_v_scale[layer].to(dtype)[None, None, :]
 
 
 def _ln(blocks: dict, name: str, layer: int):
@@ -208,10 +252,11 @@ def prefill(
 ) -> torch.Tensor:
     """Prompt pass over ``tokens [B, T]`` at cache positions ``[0, T)``;
     returns the last position's logits.
-    Writes the quantized self K/V into ``cache`` unless ``write_cache`` is
-    False (language detection, with ``logit_rows``). Its linears run at
-    M = B*T through kernel A; its attentions are plain PyTorch over the
-    dequantized cross cache, as the JAX package leaves them to XLA."""
+    Writes the self K/V into ``cache`` (quantized per token for an int8
+    cache) unless ``write_cache`` is False (language detection, with
+    ``logit_rows``). Its linears run at M = B*T through kernel A; its
+    attentions are plain PyTorch over the dequantized cross cache, as the
+    JAX package leaves them to XLA."""
     dec = params["decoder"]
     blocks = dec["blocks"]
     b, t = tokens.shape
@@ -219,7 +264,7 @@ def prefill(
     n_heads = cfg.n_text_head
     x = _embed(dec, tokens, 0, compute)
     mask = causal_mask(t, t, device=dev)
-    cross_t = cache.cross_v.shape[2] * 2
+    cross_t = cache.cross_k.shape[-1]
     cross_mask = length_mask(cfg.n_audio_ctx, cross_t, device=dev) if cross_t != cfg.n_audio_ctx else None
     new_kv = []
     for layer in range(cfg.n_text_layer):
@@ -228,8 +273,7 @@ def prefill(
         a = attention(q, k, v, n_heads, mask=mask, compute=compute)
         x = x + apply_reduce_linear(blocks["attn_o"], a, compute, layer=layer)
 
-        ck = unpack_int4(cache.cross_k[layer], 1, compute.dtype) * cache.cross_k_scale[layer].to(compute.dtype)[None, :, None]
-        cv = unpack_int4(cache.cross_v[layer], 1, compute.dtype) * cache.cross_v_scale[layer].to(compute.dtype)[None, None, :]
+        ck, cv = _cross_layer(cache, layer, compute.dtype)
         h = layer_norm(x, *_ln(blocks, "xattn_ln", layer))
         qx = apply_linear(blocks["xattn_q"], h, compute, layer=layer)
         a = attention_kt(qx, ck, cv, n_heads, mask=cross_mask, compute=compute)
@@ -241,11 +285,11 @@ def prefill(
 
     if write_cache:
         for layer, (k, v) in enumerate(new_kv):
-            kq, ksc = _quantize_tokens(k)
-            vq, vsc = _quantize_tokens(v)
-            cache.self_k[layer, :, :t] = kq
-            cache.self_v[layer, :, :t] = vq
-            cache.self_kv_scale[layer, :, :t] = torch.cat([ksc, vsc], dim=-1)
+            if cache.self_kv_scale is not None:
+                (k, ksc), (v, vsc) = _quantize_tokens(k), _quantize_tokens(v)
+                cache.self_kv_scale[layer, :, :t] = torch.cat([ksc, vsc], dim=-1)
+            cache.self_k[layer, :, :t] = k
+            cache.self_v[layer, :, :t] = v
     return _logits(dec, x[:, -1], cfg, compute, rows=logit_rows)
 
 
@@ -258,7 +302,6 @@ def decode_step(
     f32; the cache gains row ``pos`` in place. ``batch_groups=G > 1``
     (beam search) shares each cross-cache entry among G consecutive
     streams: the self cache holds B streams, the cross cache B / G."""
-    check_supported(compute)
     b = token.shape[0]
     if batch_groups < 1 or cache.self_k.shape[1] != b or cache.cross_k.shape[1] * batch_groups != b:
         raise ValueError(
@@ -266,6 +309,7 @@ def decode_step(
             f"{cache.cross_k.shape[1]} x batch_groups {batch_groups}"
         )
     deferred = batch_groups > 1
+    quantized_self = cache.self_kv_scale is not None
     dec = params["decoder"]
     blocks = dec["blocks"]
     n_heads = cfg.n_text_head
@@ -279,32 +323,39 @@ def decode_step(
                 q, cache.self_k, cache.self_v, cache.self_kv_scale, layer, pos, n_heads
             )
             a = flash_merge_extra_key(*state, q, k_new, v_new, n_heads)
-            new_k.append(k_new)
-            new_v.append(v_new)
-        else:
+        elif quantized_self:
             kq, ksc = _quantize_tokens(k_new)
             vq, vsc = _quantize_tokens(v_new)
             a = decode_self_attention(
                 q, cache.self_k, cache.self_v, cache.self_kv_scale, layer, pos, n_heads,
                 k_new, v_new, kq, vq, torch.cat([ksc, vsc], dim=-1),
             )
+        else:
+            a = decode_attention_merged(q, cache.self_k, cache.self_v, layer, pos, n_heads, k_new, v_new)
+        if deferred or not quantized_self:
+            new_k.append(k_new)
+            new_v.append(v_new)
         x = x + apply_reduce_linear(blocks["attn_o"], a.to(compute.dtype), compute, layer=layer)
 
         h = layer_norm(x, *_ln(blocks, "xattn_ln", layer))
         qx = apply_linear(blocks["xattn_q"], h, compute, layer=layer)
-        qx = qx * cache.cross_k_scale[layer].to(qx.dtype)
+        if cache.cross_k_scale is not None:
+            qx = qx * cache.cross_k_scale[layer].to(qx.dtype)
         a = decode_cross_attention(
             qx, cache.cross_k, cache.cross_v, layer, cfg.n_audio_ctx, n_heads, batch_groups
         )
-        a = a * cache.cross_v_scale[layer]
+        if cache.cross_v_scale is not None:
+            a = a * cache.cross_v_scale[layer]
         x = x + apply_reduce_linear(blocks["xattn_o"], a.to(compute.dtype), compute, layer=layer)
 
         h = layer_norm(x, *_ln(blocks, "mlp_ln", layer))
         x = x + apply_ffn(blocks, h, cfg.gelu, compute, layer=layer)
-    if deferred:  # one slot across all layers: [L, B, 1, D] rows, [L, B, 1, 1] scales
-        kq, ksc = _quantize_tokens(torch.stack(new_k))
-        vq, vsc = _quantize_tokens(torch.stack(new_v))
-        write_cache_slot(cache.self_k, kq, pos)
-        write_cache_slot(cache.self_v, vq, pos)
-        cache.self_kv_scale[:, :, pos] = torch.cat([ksc, vsc], dim=-1)[:, :, 0]
-    return _logits(dec, x[:, 0], cfg, compute)
+    if new_k:  # one slot across all layers: [L, B, 1, D] rows, [L, B, 1, 1] scales
+        ks, vs = torch.stack(new_k), torch.stack(new_v)
+        if quantized_self:
+            (ks, ksc), (vs, vsc) = _quantize_tokens(ks), _quantize_tokens(vs)
+            cache.self_kv_scale[:, :, pos] = torch.cat([ksc, vsc], dim=-1)[:, :, 0]
+        write_cache_slot(cache.self_k, ks.to(cache.self_k.dtype), pos)
+        write_cache_slot(cache.self_v, vs.to(cache.self_v.dtype), pos)
+    with record_function("decode_step.logits"):
+        return _logits(dec, x[:, 0], cfg, compute)

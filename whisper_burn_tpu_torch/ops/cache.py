@@ -53,4 +53,4 @@ def write_cache_slot(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
         _build.stream_ptr(cache.device),
     )
     _build.check(err, FN)
-    _build.count_launch(FN, (l_dim, b, t, w))
+    _build.count_launch(FN, (l_dim, b, t, w, cache.element_size()))

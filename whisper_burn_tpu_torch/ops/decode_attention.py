@@ -1,18 +1,24 @@
-"""Kernels B, C and E: decode attention over the quantized caches.
+"""Kernels B, B', C, C', E and E': decode attention over the caches.
 
 Counterpart of ``whisper_burn_tpu/ops/pallas_attention.py``; source
 ``csrc/decode_attention.cu``.
 
 * :func:`decode_self_attention` (kernel B) replaces ``_kernel`` in its
-  merged + store form (``decode_attention_merged(kq=, vq=)``, K2).
-* :func:`decode_attention_layer` (kernel E) replaces ``_kernel`` in its
-  general, unnormalized form over the int8 self cache with per-token
-  scales (``decode_attention_layer(kv_scale4=)``, K8); the XLA epilogues
-  that follow it there, :func:`flash_merge_extra_key` and
-  :func:`normalize`, are plain PyTorch here too.
-* :func:`decode_cross_attention` (kernel C) replaces ``_kt_kernel`` over
-  the int4 cross cache with ``normalized=True`` (K3), ``batch_groups``
-  query streams per cache entry.
+  merged + store form over the int8 self cache
+  (``decode_attention_merged(kq=, vq=)``, K2).
+* :func:`decode_attention_merged` (kernel B') replaces the same form over a
+  float self cache, without scales and without the store
+  (``decode_attention_merged`` without ``kq``/``vq``, K2).
+* :func:`decode_attention_layer` replaces ``_kernel`` in its general,
+  unnormalized form (``decode_attention_layer``, K8): kernel E over the
+  int8 self cache with per-token scales, kernel E' over a float cache
+  without them; the XLA epilogues that follow it there,
+  :func:`flash_merge_extra_key` and :func:`normalize`, are plain PyTorch
+  here too.
+* :func:`decode_cross_attention` replaces ``_kt_kernel`` with
+  ``normalized=True`` (K3), ``batch_groups`` query streams per cache
+  entry: kernel C over the int4 cross cache, kernel C' over an int8 or
+  float one.
 
 Each reads one layer of a stacked cache by index, so no slice is copied,
 and each is bound on the H100 by the cache bytes it reads (see the source
@@ -31,6 +37,9 @@ from whisper_burn_tpu_torch.ops import _build
 
 NAME = "decode_attention"
 SELF, LAYER, CROSS = "decode_self_attention", "decode_attention_layer", "decode_cross_attention"
+MERGED, LAYER_U = "decode_attention_merged", "decode_attention_layer_unscaled"
+CROSS_U = "decode_cross_attention_unpacked"
+FLOATS = (torch.float32, torch.bfloat16)
 HEAD_DIM = 64
 NEG_BIG = -1e30
 _MAX_SMEM = 48 * 1024
@@ -42,8 +51,11 @@ def _fn(fn: str):
         p, i = ctypes.c_void_p, ctypes.c_int
         args = {
             SELF: [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p],
+            MERGED: [p, i, p, p, p, p, p, i, i, i, i, i, i, p],
             LAYER: [p, i, p, p, p, p, p, p, i, i, i, i, i, i, p],
+            LAYER_U: [p, i, p, p, p, p, p, i, i, i, i, i, i, p],
             CROSS: [p, i, p, p, p, i, i, i, i, i, i, i, p],
+            CROSS_U: [p, i, i, p, p, p, i, i, i, i, i, i, i, p],
         }[fn]
         _FNS[fn] = _build.declare(_build.library(NAME), fn, args)
     return _FNS[fn]
@@ -60,22 +72,40 @@ def decode_attention_layer_plain(q, k_cache, v_cache, kv_scale, layer, valid, n_
     qf = q.float().reshape(b, n_heads, dh)
     kf = k_cache[layer, :, :valid].float().reshape(b, valid, n_heads, dh)
     vf = v_cache[layer, :, :valid].float().reshape(b, valid, n_heads, dh)
-    sk = kv_scale[layer, :, :valid, 0]
-    sv = kv_scale[layer, :, :valid, 1]
-    s = torch.einsum("bhd,bthd->bht", qf, kf) * (1.0 / math.sqrt(dh)) * sk[:, None, :]
+    s = torch.einsum("bhd,bthd->bht", qf, kf) * (1.0 / math.sqrt(dh))
+    if kv_scale is not None:
+        s = s * kv_scale[layer, :, :valid, 0][:, None, :]
     m = torch.full((b, n_heads), NEG_BIG, device=q.device)
     if valid:
         m = torch.maximum(m, s.amax(dim=-1))
     p = torch.exp(s - m[..., None])
-    acc = torch.einsum("bht,bthd->bhd", p * sv[:, None, :], vf)
+    pv = p if kv_scale is None else p * kv_scale[layer, :, :valid, 1][:, None, :]
+    acc = torch.einsum("bht,bthd->bhd", pv, vf)
     return acc.reshape(b, 1, d), m[:, None], p.sum(dim=-1)[:, None]
+
+
+def _check_self_cache(fn: str, q, k_cache, v_cache, kv_scale, layer: int, valid: int, top: int) -> None:
+    b, _, d = q.shape
+    l_dim, kb, ctx, kd = k_cache.shape
+    if (kb, kd) != (b, d) or v_cache.shape != k_cache.shape or v_cache.dtype != k_cache.dtype:
+        raise ValueError(f"{fn}: cache shapes do not match the query")
+    if kv_scale is not None and kv_scale.shape != (l_dim, b, ctx, 2):
+        raise ValueError(f"{fn}: kv_scale must be [L, B, ctx, 2]")
+    if not (0 <= valid <= ctx - top and 0 <= layer < l_dim):
+        raise ValueError(f"{fn}: position {valid} / layer {layer} out of range")
+
+
+def _check_float_cache(fn: str, q, k_cache) -> None:
+    """A float cache takes a query of its own dtype, f32 or bf16."""
+    if q.dtype not in FLOATS or k_cache.dtype != q.dtype:
+        raise ValueError(f"{fn}: a float cache takes a query of its dtype, f32 or bf16; got {q.dtype}, {k_cache.dtype}")
 
 
 def decode_attention_layer(
     q: torch.Tensor,  # [B, 1, D] compute dtype
-    k_cache: torch.Tensor,  # int8 [L, B, ctx, D]
+    k_cache: torch.Tensor,  # int8 or float [L, B, ctx, D]
     v_cache: torch.Tensor,
-    kv_scale: torch.Tensor,  # f32 [L, B, ctx, 2]: K scale in lane 0, V in lane 1
+    kv_scale: torch.Tensor | None,  # f32 [L, B, ctx, 2] for an int8 cache: K in lane 0, V in lane 1
     layer: int,
     valid: int,
     n_heads: int,
@@ -84,34 +114,38 @@ def decode_attention_layer(
     of ``layer``, unnormalized: ``acc [B, 1, D]`` f32 is the sum of
     ``p[t] * sv[t] * v[t]`` with ``p[t] = exp(s[t] - m)`` and scores
     ``s[t] = (q . k[t]) / sqrt(dh) * sk[t]``; ``m [B, 1, H]`` is their max
-    and ``l [B, 1, H]`` the sum of ``p[t]`` (the V scale left out)."""
+    and ``l [B, 1, H]`` the sum of ``p[t]`` (the V scale left out). An int8
+    cache takes its per-token scales ``kv_scale`` (kernel E); a float cache
+    (f32 or bf16, of the query's dtype) none, ``sk = sv = 1`` (kernel E')."""
     b, _, d = q.shape
-    l_dim, kb, ctx, kd = k_cache.shape
+    ctx = k_cache.shape[2]
     _check_heads(d, n_heads)
-    if (kb, kd) != (b, d) or v_cache.shape != k_cache.shape or kv_scale.shape != (l_dim, b, ctx, 2):
-        raise ValueError("decode_attention_layer: cache shapes do not match the query")
-    if not (0 <= valid <= ctx and 0 <= layer < l_dim):
-        raise ValueError(f"decode_attention_layer: valid {valid} / layer {layer} out of range")
+    _check_self_cache("decode_attention_layer", q, k_cache, v_cache, kv_scale, layer, valid, 0)
     if q.device.type == "cpu":
         return decode_attention_layer_plain(q, k_cache, v_cache, kv_scale, layer, valid, n_heads)
     q = q.contiguous()
-    _build.require_cuda(q, k_cache, v_cache, kv_scale)
-    if q.dtype not in (torch.float32, torch.bfloat16):
+    scaled = kv_scale is not None
+    _build.require_cuda(q, k_cache, v_cache, *([kv_scale] if scaled else []))
+    if q.dtype not in FLOATS:
         raise ValueError("decode_attention_layer: f32 or bf16 query")
-    if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8 or kv_scale.dtype != torch.float32:
-        raise ValueError("decode_attention_layer: int8 caches, f32 scales")
+    if scaled and (k_cache.dtype != torch.int8 or kv_scale.dtype != torch.float32):
+        raise ValueError("decode_attention_layer: scales go with int8 caches and are f32")
+    if not scaled:
+        _check_float_cache("decode_attention_layer", q, k_cache)
     if ctx * 4 > _MAX_SMEM:
         raise ValueError(f"decode_attention_layer: ctx {ctx} exceeds the score buffer")
     acc = torch.empty((b, 1, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, 1, n_heads), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    err = _fn(LAYER)(
-        q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(), v_cache.data_ptr(),
-        kv_scale.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), layer, valid, b, ctx, d,
-        n_heads, _build.stream_ptr(q.device),
+    fn = LAYER if scaled else LAYER_U
+    args = (q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(), v_cache.data_ptr())
+    args += (kv_scale.data_ptr(),) if scaled else ()
+    err = _fn(fn)(
+        *args, acc.data_ptr(), m.data_ptr(), l.data_ptr(), layer, valid, b, ctx, d, n_heads,
+        _build.stream_ptr(q.device),
     )
-    _build.check(err, LAYER)
-    _build.count_launch(LAYER, (b, ctx, d))
+    _build.check(err, fn)
+    _build.count_launch(fn, (b, ctx, d))
     return acc, m, l
 
 
@@ -168,12 +202,9 @@ def decode_self_attention(
     normalized f32 ``[B, 1, D]``. Stores ``kq``/``vq`` and ``new_scale`` at
     ``pos`` of ``layer`` in place."""
     b, _, d = q.shape
-    l_dim, kb, ctx, kd = k_cache.shape
+    ctx = k_cache.shape[2]
     _check_heads(d, n_heads)
-    if (kb, kd) != (b, d) or v_cache.shape != k_cache.shape or kv_scale.shape != (l_dim, b, ctx, 2):
-        raise ValueError("decode_self_attention: cache shapes do not match the query")
-    if not (0 <= pos < ctx and 0 <= layer < l_dim):
-        raise ValueError(f"decode_self_attention: pos {pos} / layer {layer} out of range")
+    _check_self_cache("decode_self_attention", q, k_cache, v_cache, kv_scale, layer, pos, 1)
     for t in (k_new, v_new, kq, vq):
         if t.shape != (b, 1, d):
             raise ValueError("decode_self_attention: current-token rows must be [B, 1, D]")
@@ -186,7 +217,7 @@ def decode_self_attention(
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     kq, vq, new_scale = kq.contiguous(), vq.contiguous(), new_scale.contiguous()
     _build.require_cuda(q, k_cache, v_cache, kv_scale, k_new, v_new, kq, vq, new_scale)
-    if q.dtype not in (torch.float32, torch.bfloat16) or k_new.dtype != q.dtype or v_new.dtype != q.dtype:
+    if q.dtype not in FLOATS or k_new.dtype != q.dtype or v_new.dtype != q.dtype:
         raise ValueError("decode_self_attention: q, k_new, v_new must share f32 or bf16")
     if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8 or kq.dtype != torch.int8 or vq.dtype != torch.int8:
         raise ValueError("decode_self_attention: int8 caches and rows")
@@ -206,6 +237,51 @@ def decode_self_attention(
     return out
 
 
+def decode_attention_merged_plain(q, k_cache, v_cache, layer, pos, n_heads, k_new, v_new):
+    state = decode_attention_layer_plain(q, k_cache, v_cache, None, layer, pos, n_heads)
+    return flash_merge_extra_key(*state, q, k_new, v_new, n_heads)
+
+
+def decode_attention_merged(
+    q: torch.Tensor,  # [B, 1, D] f32 or bf16
+    k_cache: torch.Tensor,  # [L, B, ctx, D] of q's dtype
+    v_cache: torch.Tensor,
+    layer: int,
+    pos: int,
+    n_heads: int,
+    k_new: torch.Tensor,  # [B, 1, D] the current token's K, not yet cached
+    v_new: torch.Tensor,
+) -> torch.Tensor:
+    """Attention of one query per stream over the float cache's keys
+    ``t < pos`` of ``layer`` plus the current token, merged into one
+    softmax; returns the normalized f32 ``[B, 1, D]``. Stores nothing: the
+    caller writes the token's row after its layer loop."""
+    b, _, d = q.shape
+    ctx = k_cache.shape[2]
+    _check_heads(d, n_heads)
+    _check_self_cache("decode_attention_merged", q, k_cache, v_cache, None, layer, pos, 1)
+    if k_new.shape != (b, 1, d) or v_new.shape != (b, 1, d):
+        raise ValueError("decode_attention_merged: current-token rows must be [B, 1, D]")
+    if q.device.type == "cpu":
+        return decode_attention_merged_plain(q, k_cache, v_cache, layer, pos, n_heads, k_new, v_new)
+    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    _build.require_cuda(q, k_cache, v_cache, k_new, v_new)
+    _check_float_cache("decode_attention_merged", q, k_cache)
+    if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
+        raise ValueError("decode_attention_merged: q, k_new, v_new must share a dtype")
+    if ctx * 4 > _MAX_SMEM:
+        raise ValueError(f"decode_attention_merged: ctx {ctx} exceeds the score buffer")
+    out = torch.empty((b, 1, d), dtype=torch.float32, device=q.device)
+    err = _fn(MERGED)(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), layer, pos, b, ctx, d, n_heads,
+        _build.stream_ptr(q.device),
+    )
+    _build.check(err, MERGED)
+    _build.count_launch(MERGED, (b, ctx, d))
+    return out
+
+
 def unpack_int4(p: torch.Tensor, dim: int, dtype: torch.dtype) -> torch.Tensor:
     """Biased-nibble pairs -> values in [-8, 7]; element j pairs with
     j + size/2 along ``dim`` (low nibble first half)."""
@@ -218,8 +294,11 @@ def decode_cross_attention_plain(q, kT, v, layer, valid, n_heads, batch_groups=1
     b, _, d = q.shape
     dh = d // n_heads
     entry = torch.arange(b, device=q.device) // batch_groups  # each stream's cache entry
-    k = unpack_int4(kT[layer], 1, torch.float32)[entry]  # [B, D, T]
-    vv = unpack_int4(v[layer], 1, torch.float32)[entry]  # [B, T, D]
+    if kT.dtype == torch.uint8:
+        k = unpack_int4(kT[layer], 1, torch.float32)[entry]  # [B, D, T]
+        vv = unpack_int4(v[layer], 1, torch.float32)[entry]  # [B, T, D]
+    else:
+        k, vv = kT[layer].float()[entry], v[layer].float()[entry]
     t = k.shape[-1]
     qh = q.float().reshape(b, n_heads, 1, dh)
     s = qh @ k.reshape(b, n_heads, dh, t) / math.sqrt(dh)  # [B, H, 1, T]
@@ -231,24 +310,28 @@ def decode_cross_attention_plain(q, kT, v, layer, valid, n_heads, batch_groups=1
 
 def decode_cross_attention(
     q: torch.Tensor,  # [B*G, 1, D], K scales already folded in
-    kT: torch.Tensor,  # uint8 [L, B, D/2, T] keys packed along D
-    v: torch.Tensor,  # uint8 [L, B, T/2, D] values packed along T
+    kT: torch.Tensor,  # keys: uint8 [L, B, D/2, T] packed along D, or int8/float [L, B, D, T]
+    v: torch.Tensor,  # values: uint8 [L, B, T/2, D] packed along T, or int8/float [L, B, T, D]
     layer: int,
     valid: int,
     n_heads: int,
     batch_groups: int = 1,
 ) -> torch.Tensor:
-    """One-query cross-attention over ``layer`` of the int4 cross cache;
-    keys ``t >= valid`` masked; returns the normalized f32 ``[B*G, 1, D]``
-    (V scales are applied by the caller). ``batch_groups=G`` query streams
-    share each cache entry: stream ``b`` reads entry ``b // G`` (beam
-    search's W beams of one utterance)."""
+    """One-query cross-attention over ``layer`` of the cross cache; keys
+    ``t >= valid`` masked; returns the normalized f32 ``[B*G, 1, D]`` (the
+    per-channel scales of a quantized cache are applied by the caller).
+    A uint8 cache holds int4 pairs (kernel C); an int8 cache or a float
+    cache of the query's dtype is unpacked (kernel C'). ``batch_groups=G``
+    query streams share each cache entry: stream ``b`` reads entry
+    ``b // G`` (beam search's W beams of one utterance)."""
     b, _, d = q.shape
-    l_dim, kb, d2, t = kT.shape
+    l_dim, kb, dk, t = kT.shape
+    packed = kT.dtype == torch.uint8
     _check_heads(d, n_heads)
-    if batch_groups < 1 or (kb * batch_groups, d2 * 2) != (b, d):
+    if batch_groups < 1 or (kb * batch_groups, dk * (2 if packed else 1)) != (b, d):
         raise ValueError(f"decode_cross_attention: {b} query streams for {kb} cache entries x {batch_groups}")
-    if v.shape != (l_dim, kb, t // 2, d) or t % 2 or n_heads % 2:
+    v_shape = (l_dim, kb, t // 2, d) if packed else (l_dim, kb, t, d)
+    if v.shape != v_shape or v.dtype != kT.dtype or t % (2 if packed else 4) or n_heads % 2:
         raise ValueError("decode_cross_attention: cache shapes do not match the query")
     if not (0 < valid <= t and 0 <= layer < l_dim):
         raise ValueError(f"decode_cross_attention: valid {valid} / layer {layer} out of range")
@@ -256,15 +339,21 @@ def decode_cross_attention(
         return decode_cross_attention_plain(q, kT, v, layer, valid, n_heads, batch_groups)
     q = q.contiguous()
     _build.require_cuda(q, kT, v)
-    if q.dtype not in (torch.float32, torch.bfloat16) or kT.dtype != torch.uint8 or v.dtype != torch.uint8:
-        raise ValueError("decode_cross_attention: f32/bf16 query, uint8 caches")
-    if 2 * t * 4 > _MAX_SMEM:
+    if q.dtype not in FLOATS:
+        raise ValueError("decode_cross_attention: f32 or bf16 query")
+    if not packed and kT.dtype not in (torch.int8, q.dtype):
+        raise ValueError(f"decode_cross_attention: a {kT.dtype} cache for a {q.dtype} query")
+    if (2 if packed else 1) * t * 4 > _MAX_SMEM:
         raise ValueError(f"decode_cross_attention: T {t} exceeds the score buffer")
     out = torch.empty((b, 1, d), dtype=torch.float32, device=q.device)
-    err = _fn(CROSS)(
-        q.data_ptr(), int(q.dtype == torch.bfloat16), kT.data_ptr(), v.data_ptr(),
-        out.data_ptr(), layer, valid, b, batch_groups, d, t, n_heads, _build.stream_ptr(q.device),
-    )
-    _build.check(err, CROSS)
-    _build.count_launch(CROSS, (b, t, d, batch_groups))
+    bf16 = int(q.dtype == torch.bfloat16)
+    tail = (out.data_ptr(), layer, valid, b, batch_groups, d, t, n_heads, _build.stream_ptr(q.device))
+    if packed:
+        fn, shape = CROSS, (b, t, d, batch_groups)
+        err = _fn(fn)(q.data_ptr(), bf16, kT.data_ptr(), v.data_ptr(), *tail)
+    else:
+        fn, shape = CROSS_U, (b, t, d, batch_groups, kT.element_size())
+        err = _fn(fn)(q.data_ptr(), bf16, int(kT.dtype == torch.int8), kT.data_ptr(), v.data_ptr(), *tail)
+    _build.check(err, fn)
+    _build.count_launch(fn, shape)
     return out
