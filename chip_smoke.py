@@ -16,38 +16,50 @@ Phases, each timed and each fatal on failure:
    40 decode streams), one path at a time: ``greedy`` and ``beam`` (the
    serving compute, three requests each), ``fast_greedy`` and ``fast_beam``
    (``Compute.fast()``), ``int8_greedy`` and ``int8_beam`` (the serving
-   compute with the int8 cross cache, ``Compute.fastest()``), two requests
-   each; and ``entry``: three calls of the flagship step
+   compute with the int8 cross cache, ``Compute.fastest()``),
+   ``int4self_greedy`` and ``int4self_beam`` (the serving compute with int4
+   self keys and values, ``self_kv_bits=4``), ``mixed_greedy`` and
+   ``mixed_beam`` (int8 self keys, int4 values, ``self_kv_vbits=4``), two
+   requests each; ``entry``: three calls of the flagship step
    ``whisper_burn_tpu_torch.entry.entry()`` (Large-V3 with the numpy
-   fixture, ``Compute.fast()``, B=1, 16 tokens). The first request of a
-   path is its warm-up. Every launch counter is set to 0 just before each
-   path and read just after; each request's launches are held against the
-   counts the shapes predict, and its host syncs counted (at most one per
-   done check);
+   fixture, ``Compute.fast()``, B=1, 16 tokens); ``pipeline``: a
+   ``WhisperPipeline`` on the raw parameters in the int4 self mode,
+   ``transcribe_batch`` of 5 x 30 s with the language detected (bucketed to
+   8) and ``transcribe_long`` of 75 s (3 windows, bucketed to 4), each
+   after a warm-up call; and ``encoder_attention_heads``: kernel D' through
+   its own op (no model path reaches it) at B=8 x 1500 frames, Large-V3 and Medium
+   widths. The first request of a path is its warm-up. Every launch counter
+   is set to 0 just before each path and read just after; each request's
+   launches are held against the counts the shapes predict, and its host
+   syncs counted (at most one per done check);
 4. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' Large-V3 shapes (kernel A at M = 8, 32 and
    40 rows, and at the entry's 1, 4, 1500 cross-fill and 1536 encoder rows;
    B and B' at 4, 115 and 227 cached keys, B' also at the entry's one
    stream and 4, 11 and 18; C and C' (int8 and bf16) ungrouped and with 5
    streams per cross-cache entry, C' bf16 also at the entry's one entry;
-   D; E and E' at 4, 115 and 227 valid keys; F in int8 and bf16 exactly,
-   at 8, 40 and the entry's one stream), with the tolerance stated;
-   device time per call, from torch.profiler traces, of the kernel, the
-   plain version and one PyTorch library call computing the same function
-   (a yardstick only: the port never calls it), and the least time the
-   card could take (bytes over 3.35 TB/s or operations over 989 TFLOP/s);
-   then one more request of four paths under torch.profiler (greedy at 224
-   tokens; beam, fast_greedy and fast_beam at 32), whose traces give each
-   kernel's device time per launch at each main-path shape, the stages
-   ``greedy_decode`` and ``beam_decode`` mark, and the decode step split
-   into the hand-written kernels, the beam's self-cache reorder (its
+   D and D' (Large-V3 and Medium widths); E and E' at 4, 115 and 227 valid
+   keys; G (8 streams) and H (40) over the int4 and the mixed self caches
+   at 4, 115 and 227; F in int8, bf16 and uint8 exactly, at 8, 40 and the
+   entry's one stream; and the pipeline's own shapes at B = 4 and 8: A at
+   M = B and 4B, D, C, G and F), with the tolerance stated; device time per call,
+   from torch.profiler traces, of the kernel, the plain version and one
+   PyTorch library call computing the same function (a yardstick only: the
+   port never calls it), and the least time the card could take (bytes
+   over 3.35 TB/s or operations over 989 TFLOP/s); then one more request of
+   five paths under torch.profiler (greedy at 224 tokens; beam,
+   fast_greedy, fast_beam and int4self_greedy at 32), whose traces give
+   each kernel's device time per launch at each main-path shape, the
+   stages ``greedy_decode`` and ``beam_decode`` mark, and the decode step
+   split into the hand-written kernels, the beam's self-cache reorder (its
    ``beam_decode.reorder`` ranges), the logits (``decode_step.logits``),
    other device work and idle; a kernel row of a path without a traced
-   request (entry, int8_*) takes its isolated time;
-5. end to end at a small config in f32, for the int4 serving modes,
-   ``Compute.parity()`` and ``Compute.fastest()``: the same greedy and beam
-   tokens, and the same teacher-forced logits (ungrouped and grouped),
-   through the kernels as through the plain versions.
+   request takes its isolated time;
+5. end to end at a small config in f32, for the int4 serving modes (int8,
+   int4 and mixed self caches), ``Compute.parity()`` and
+   ``Compute.fastest()``: the same greedy and beam tokens, and the same
+   teacher-forced logits (ungrouped and grouped), through the kernels as
+   through the plain versions.
 
 It prints ``{"kernels": [...]}`` and the card line before its last line,
 and last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the
@@ -85,9 +97,10 @@ KERNEL_OF = {"q4_matmul": "q4_matmul", "decode_self_attention": "self_attn",
              "decode_attention_merged": "merged_attn", "decode_attention_layer": "layer_attn",
              "decode_attention_layer_unscaled": "layer_unscaled", "decode_cross_attention": "cross_attn",
              "decode_cross_attention_unpacked": "cross_unpacked", "encoder_attention": "encoder_attn",
-             "write_cache_slot": "slot"}
+             "write_cache_slot": "slot", "decode_attention_merged_int4": "merged_int4",
+             "decode_attention_layer_int4": "layer_int4", "encoder_attention_heads": "encoder_heads"}
 OURS = re.compile(r"\b(q4_matmul|self_attn|merged_attn|layer_attn|layer_unscaled|cross_attn|cross_unpacked"
-                  r"|encoder_attn|slot)_kernel<")
+                  r"|encoder_attn|slot|merged_int4|layer_int4|encoder_heads)_kernel<")
 STAGES = {"encode", "cross_fill", "prefill", "decode"}
 DA = "whisper_burn_tpu_torch/csrc/decode_attention.cu"
 
@@ -289,11 +302,7 @@ def prefill_linears(params, cfg, m: int, prefix: str = "") -> list[tuple]:
 
 
 def kernel_checks(params, cfg, gen):
-    from whisper_burn_tpu_torch.ops.decode_attention import (
-        decode_cross_attention, decode_cross_attention_plain,
-        decode_self_attention, decode_self_attention_plain, unpack_int4,
-    )
-    from whisper_burn_tpu_torch.ops.encoder_attention import encoder_attention, encoder_attention_plain
+    from whisper_burn_tpu_torch.ops.decode_attention import decode_self_attention, decode_self_attention_plain
 
     dev = torch.device("cuda")
     L = cfg.n_text_layer
@@ -348,71 +357,87 @@ def kernel_checks(params, cfg, gen):
         isolated_bound_ms=b_ms, bound_of_pos=lambda p: self_attention_bound(p, d),
     ))
     del kc, vc, kd, vd
+    rows.append(cross_int4_row(cfg, gen, BATCH, 1, "greedy", "decode_cross_attention"))
+    rows.append(encoder_attention_row(cfg, gen, BATCH, "greedy", "encoder_attention"))
+    return rows
 
-    # kernel C over the int4 cross cache, T = 1536 with 1500 valid
+
+def cross_int4_row(cfg, gen, b: int, g: int, path: str, name: str) -> dict:
+    """Kernel C over the int4 cross cache of ``b`` entries (T = 1536 with
+    1500 valid) with ``g`` query streams per entry, against its plain
+    version, and its times."""
+    from whisper_burn_tpu_torch.ops.decode_attention import (
+        decode_cross_attention, decode_cross_attention_plain, unpack_int4,
+    )
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    L, d, h = cfg.n_text_layer, cfg.n_text_state, cfg.n_text_head
     t, valid = 1536, cfg.n_audio_ctx
-    kT = torch.randint(0, 256, (L, BATCH, d // 2, t), generator=gen, device=dev, dtype=torch.uint8)
-    v4 = torch.randint(0, 256, (L, BATCH, t // 2, d), generator=gen, device=dev, dtype=torch.uint8)
-    qx = (torch.randn((BATCH, 1, d), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
-    for dtype in (torch.bfloat16, torch.float32):
-        out = decode_cross_attention(qx.to(dtype), kT, v4, L - 1, valid, h)
-        ref = decode_cross_attention_plain(qx.to(dtype), kT, v4, L - 1, valid, h)
+    kT = torch.randint(0, 256, (L, b, d // 2, t), generator=gen, device=dev, dtype=torch.uint8)
+    v4 = torch.randint(0, 256, (L, b, t // 2, d), generator=gen, device=dev, dtype=torch.uint8)
+    qx = (torch.randn((b * g, 1, d), generator=gen, device=dev) * 0.05).to(bf)
+    for dtype in (bf, torch.float32):
+        out = decode_cross_attention(qx.to(dtype), kT, v4, L - 1, valid, h, g)
+        ref = decode_cross_attention_plain(qx.to(dtype), kT, v4, L - 1, valid, h, g)
         err = max_err(out, ref)
-        check(f"decode_cross_attention {dtype}", err, ref, 1e-5)
-        if dtype == torch.bfloat16:
+        check(f"{name} {dtype}", err, ref, 1e-5)
+        if dtype == bf:
             cross_err = err
     it = iter(range(1 << 30))
-    kern = lambda: decode_cross_attention(qx, kT, v4, layer(), valid, h)
-    plain = lambda: decode_cross_attention_plain(qx, kT, v4, layer(), valid, h)
-    kd = [unpack_int4(kT[l], 1, torch.bfloat16)[..., :valid].reshape(BATCH, h, 64, valid).transpose(-1, -2).contiguous() for l in range(L)]
-    vd = [unpack_int4(v4[l], 1, torch.bfloat16)[:, :valid].reshape(BATCH, valid, h, 64).transpose(1, 2).contiguous() for l in range(L)]
-    qh = qx.reshape(BATCH, 1, h, 64).transpose(1, 2)
-    lib = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kd[(l := layer())], vd[l])
+    layer = lambda: next(it) % L  # cycle layers: caches come from HBM, not L2
+    kd = [unpack_int4(kT[l], 1, bf)[..., :valid].reshape(b, h, 64, valid).transpose(-1, -2).contiguous() for l in range(L)]
+    vd = [unpack_int4(v4[l], 1, bf)[:, :valid].reshape(b, valid, h, 64).transpose(1, 2).contiguous() for l in range(L)]
+    qh = qx.reshape(b, g, h, 64).transpose(1, 2)  # an entry's streams as its queries
     # the keys' packed [D/2, T] rows are needed up to `valid` only; every
-    # packed value row holds a valid time step (t < T/2 <= valid); q bf16
-    # in, f32 out
-    nbytes = BATCH * ((d // 2) * valid + (t // 2) * d + d * 2 + d * 4)
-    b_ms, b_by = bound(nbytes, 4.0 * BATCH * valid * d)
-    ms, sig = device_ms(kern, 64, ours=True)
-    rows.append(dict(
-        name="decode_cross_attention", route="cuda", source=DA, path="greedy",
-        replaces="whisper_burn_tpu/ops/pallas_attention.py:636 (K3)",
-        shape_key=["decode_cross_attention", [BATCH, t, d, 1]], sig=sig, max_abs_err=cross_err,
-        isolated_ms=ms, plain_ms=device_ms(plain, 16), bound_ms=b_ms, bound_by=b_by,
-        library_ms=device_ms(lib, 64),
-        library_call="scaled_dot_product_attention on the dequantized bf16 cache",
-        tol="1e-5 of max|out|", shape=f"B={BATCH} T={t} valid={valid} D={d}",
-    ))
-    del kT, v4, kd, vd
+    # packed value row holds a valid time step (t < T/2 <= valid); each
+    # entry's bytes read once (with g > 1 the kernel re-reads them per
+    # stream, mostly from L2); q bf16 in and f32 out per stream
+    nbytes = b * ((d // 2) * valid + (t // 2) * d) + b * g * (d * 2 + d * 4)
+    return isolated_row(
+        name, path, DA, "whisper_burn_tpu/ops/pallas_attention.py:636 (K3" + (", batch_groups)" if g > 1 else ")"),
+        ["decode_cross_attention", [b * g, t, d, g]],
+        lambda: decode_cross_attention(qx, kT, v4, layer(), valid, h, g),
+        lambda: decode_cross_attention_plain(qx, kT, v4, layer(), valid, h, g),
+        lambda: torch.nn.functional.scaled_dot_product_attention(qh, kd[(l := layer())], vd[l]),
+        cross_err, bound(nbytes, 4.0 * b * g * valid * d),
+        "scaled_dot_product_attention on the dequantized bf16 cache" + (f", the beams as {g} queries" if g > 1 else ""),
+        "1e-5 of max|out|", f"B={b}" + (f" x G={g}" if g > 1 else "") + f" T={t} valid={valid} D={d}",
+    )
 
-    # kernel D: one encoder layer's attention at T = 1536 with 1500 valid
-    ea = "whisper_burn_tpu_torch/csrc/encoder_attention.cu"
-    qkv = [torch.randn((BATCH, t, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3)]
-    for dtype, b_chk, rel in ((torch.bfloat16, BATCH, 1e-2), (torch.float32, 2, 1e-5)):
+
+def encoder_attention_row(cfg, gen, b: int, path: str, name: str) -> dict:
+    """Kernel D: one encoder layer's attention over ``b`` utterances at
+    T = 1536 with 1500 valid, against its plain version, and its times."""
+    from whisper_burn_tpu_torch.ops.encoder_attention import encoder_attention, encoder_attention_plain
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    d, h = cfg.n_audio_state, cfg.n_audio_head
+    t, valid = 1536, cfg.n_audio_ctx
+    qkv = [torch.randn((b, t, d), generator=gen, device=dev).to(bf) for _ in range(3)]
+    for dtype, b_chk, rel in ((bf, b, 1e-2), (torch.float32, min(b, 2), 1e-5)):
         xs = [a[:b_chk].to(dtype) for a in qkv]
         out = encoder_attention(*xs, h, valid=valid)
         ref = encoder_attention_plain(*xs, h, valid)
         err = max_err(out, ref)
-        check(f"encoder_attention {dtype}", err, ref, rel)
-        if dtype == torch.bfloat16:
+        check(f"{name} {dtype}", err, ref, rel)
+        if dtype == bf:
             enc_err = err
     kern = lambda: encoder_attention(*qkv, h, valid=valid)
     plain = lambda: encoder_attention_plain(*qkv, h, valid)
-    hq, hk, hv = (a.reshape(BATCH, t, h, 64).transpose(1, 2) for a in qkv)
+    hq, hk, hv = (a.reshape(b, t, h, 64).transpose(1, 2) for a in qkv)
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(hq, hk[:, :, :valid], hv[:, :, :valid])
     # q and the output over all T rows, k and v over the valid rows, bf16
-    b_ms, b_by = bound(BATCH * (2 * t + 2 * valid) * d * 2, 4.0 * BATCH * h * t * valid * 64)
+    b_ms, b_by = bound(b * (2 * t + 2 * valid) * d * 2, 4.0 * b * h * t * valid * 64)
     ms, sig = device_ms(kern, 5, 1, ours=True)
-    rows.append(dict(
-        name="encoder_attention", route="cuda", source=ea, path="greedy",
+    return dict(
+        name=name, route="cuda", source="whisper_burn_tpu_torch/csrc/encoder_attention.cu", path=path,
         replaces="whisper_burn_tpu/ops/pallas_encoder_attention.py:96 (K6)",
-        shape_key=["encoder_attention", [BATCH, t, d]], sig=sig, max_abs_err=enc_err,
+        shape_key=["encoder_attention", [b, t, d]], sig=sig, max_abs_err=enc_err,
         isolated_ms=ms, plain_ms=device_ms(plain, 3, 1), bound_ms=b_ms,
         bound_by=b_by, library_ms=device_ms(lib, 5, 1),
         library_call="scaled_dot_product_attention over the 1500 valid keys",
-        tol="bf16 1e-2 and f32 1e-5 of max|out|", shape=f"B={BATCH} T={t} valid={valid} D={d} H={h}",
-    ))
-    return rows
+        tol="bf16 1e-2 and f32 1e-5 of max|out|", shape=f"B={b} T={t} valid={valid} D={d} H={h}",
+    )
 
 
 def beam_kernel_checks(params, cfg, gen):
@@ -420,10 +445,7 @@ def beam_kernel_checks(params, cfg, gen):
     and C with BEAM_WIDTH streams per cross-cache entry; and the device
     time of the beam step's self-cache reorder at ctx 256."""
     from whisper_burn_tpu_torch.ops.cache import write_cache_slot, write_cache_slot_plain
-    from whisper_burn_tpu_torch.ops.decode_attention import (
-        decode_attention_layer, decode_attention_layer_plain,
-        decode_cross_attention, decode_cross_attention_plain, unpack_int4,
-    )
+    from whisper_burn_tpu_torch.ops.decode_attention import decode_attention_layer, decode_attention_layer_plain
 
     dev = torch.device("cuda")
     L = cfg.n_text_layer
@@ -504,38 +526,7 @@ def beam_kernel_checks(params, cfg, gen):
     ))
     del kc, vc, kd, vd
 
-    # kernel C grouped: BEAM_WIDTH streams per utterance's int4 cross cache
-    t, valid = 1536, cfg.n_audio_ctx
-    kT = torch.randint(0, 256, (L, BATCH, d // 2, t), generator=gen, device=dev, dtype=torch.uint8)
-    v4 = torch.randint(0, 256, (L, BATCH, t // 2, d), generator=gen, device=dev, dtype=torch.uint8)
-    qx = (torch.randn((STREAMS, 1, d), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
-    for dtype in (torch.bfloat16, torch.float32):
-        out = decode_cross_attention(qx.to(dtype), kT, v4, L - 1, valid, h, BEAM_WIDTH)
-        ref = decode_cross_attention_plain(qx.to(dtype), kT, v4, L - 1, valid, h, BEAM_WIDTH)
-        err = max_err(out, ref)
-        check(f"decode_cross_attention grouped {dtype}", err, ref, 1e-5)
-        if dtype == torch.bfloat16:
-            cross_err = err
-    kern = lambda: decode_cross_attention(qx, kT, v4, layer(), valid, h, BEAM_WIDTH)
-    plain = lambda: decode_cross_attention_plain(qx, kT, v4, layer(), valid, h, BEAM_WIDTH)
-    kd = [unpack_int4(kT[l], 1, torch.bfloat16)[..., :valid].reshape(BATCH, h, 64, valid).transpose(-1, -2).contiguous() for l in range(L)]
-    vd = [unpack_int4(v4[l], 1, torch.bfloat16)[:, :valid].reshape(BATCH, valid, h, 64).transpose(1, 2).contiguous() for l in range(L)]
-    qh = qx.reshape(BATCH, BEAM_WIDTH, h, 64).transpose(1, 2)  # an utterance's beams as its queries
-    lib = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kd[(l := layer())], vd[l])
-    # each utterance's packed bytes read once (the kernel re-reads them per
-    # beam, mostly from L2); q bf16 in and f32 out per stream
-    nbytes = BATCH * ((d // 2) * valid + (t // 2) * d) + STREAMS * (d * 2 + d * 4)
-    b_ms, b_by = bound(nbytes, 4.0 * STREAMS * valid * d)
-    ms, sig = device_ms(kern, 64, ours=True)
-    rows.append(dict(
-        name="decode_cross_attention/grouped", route="cuda", source=DA, path="beam",
-        replaces="whisper_burn_tpu/ops/pallas_attention.py:636 (K3, batch_groups)",
-        shape_key=["decode_cross_attention", [STREAMS, t, d, BEAM_WIDTH]], sig=sig, max_abs_err=cross_err,
-        isolated_ms=ms, plain_ms=device_ms(plain, 16), bound_ms=b_ms, bound_by=b_by,
-        library_ms=device_ms(lib, 64),
-        library_call="scaled_dot_product_attention on the dequantized bf16 cache, the beams as 5 queries",
-        tol="1e-5 of max|out|", shape=f"B={BATCH} x G={BEAM_WIDTH} T={t} valid={valid} D={d}",
-    ))
+    rows.append(cross_int4_row(cfg, gen, BATCH, BEAM_WIDTH, "beam", "decode_cross_attention/grouped"))
     return rows, reorder_row
 
 
@@ -746,6 +737,196 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
     return rows
 
 
+def int4_attention_bound(pos: float, d: int, b: int, sw: int, key_bytes: float, merged: bool,
+                         h: int) -> tuple[float, str]:
+    """Kernel G (``merged``) or H at ``pos`` over ``b`` streams: q bf16, the
+    packed K (``key_bytes`` a channel: 0.5 int4, 1 int8) and int4 V rows
+    below pos and their f32 scales; G also the raw k/v bf16 and the f32
+    output, H acc f32 and m, l f32."""
+    cached = pos * (d * key_bytes + d * 0.5 + sw * 4)
+    io = 2 * d * 2 + d * 4 if merged else d * 4 + 2 * h * 4
+    return bound(b * (d * 2 + cached + io), 4.0 * b * (pos + merged) * d)
+
+
+def int4_self_row(cfg, gen, mode: str, merged: bool, b: int, path: str) -> dict:
+    """Kernel G (``merged``) or H over ``b`` streams' int4 (``mode``
+    "int4self") or mixed self cache at ctx CTX, against its plain version
+    at positions 4, 115 and 227 in bf16 and f32, and its times at 115."""
+    from whisper_burn_tpu_torch.models.decoder import self_kv_groups
+    from whisper_burn_tpu_torch.ops.decode_attention import (
+        LAYER4, MERGED4, decode_attention_layer_int4, decode_attention_layer_int4_plain,
+        decode_attention_merged_int4, decode_attention_merged_int4_plain, dequantize_self_rows, int4_lanes,
+    )
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    L, d, h = cfg.n_text_layer, cfg.n_text_state, cfg.n_text_head
+    it = iter(range(1 << 30))
+    layer = lambda: next(it) % L  # cycle layers: caches come from HBM, not L2
+    pos = round(mean_decode_pos(MAX_TOKENS - 1))
+    ng = self_kv_groups(d)
+    heads = lambda x: x.reshape(x.shape[0], x.shape[1], h, 64).transpose(1, 2)
+    sw, key_bytes = (2 * ng, 0.5) if mode == "int4self" else (1 + ng, 1.0)
+    fn = MERGED4 if merged else LAYER4
+    k_shape = (L, b, CTX, d // 2 if mode == "int4self" else d)
+    if mode == "int4self":
+        kc = torch.randint(0, 256, k_shape, generator=gen, device=dev, dtype=torch.uint8)
+    else:
+        kc = torch.randint(-127, 128, k_shape, generator=gen, device=dev, dtype=torch.int8)
+    vc = torch.randint(0, 256, (L, b, CTX, d // 2), generator=gen, device=dev, dtype=torch.uint8)
+    sc = torch.rand((L, b, CTX, sw), generator=gen, device=dev) * 0.04 + 0.01
+    if mode == "mixed":
+        sc[..., 0] *= 0.1  # an int8 key step
+    q, kn, vn = (torch.randn((b, 1, d), generator=gen, device=dev).to(bf) for _ in range(3))
+    err = 0.0
+    for dtype in (bf, torch.float32):
+        for p in (4, pos, 3 + MAX_TOKENS):
+            if merged:
+                args = (q.to(dtype), kc, vc, sc, L - 1, p, h, kn.to(dtype), vn.to(dtype))
+                outs, refs = [decode_attention_merged_int4(*args)], [decode_attention_merged_int4_plain(*args)]
+            else:
+                args = (q.to(dtype), kc, vc, sc, L - 1, p, h)
+                outs, refs = decode_attention_layer_int4(*args), decode_attention_layer_int4_plain(*args)
+            for part, a, r in zip(("out",) if merged else ("acc", "m", "l"), outs, refs):
+                e = max_err(a, r)
+                check(f"{fn} {mode} B={b} {dtype} pos={p} {part}", e, r, 1e-5)  # f32 math
+                err = max(err, e) if dtype == bf else err
+    n = pos + merged  # the cached rows, and the current token's for G
+    lanes = int4_lanes("check", q, kc, vc, sc, h)
+    deq = [dequantize_self_rows(kc[l, :, :n], vc[l, :, :n], sc[l, :, :n], lanes) for l in range(L)]
+    kd = [heads(k_.to(bf)) for k_, _ in deq]
+    vd = [heads(v_.to(bf)) for _, v_ in deq]
+    del deq
+    qh = heads(q)
+    if merged:
+        kern = lambda: decode_attention_merged_int4(q, kc, vc, sc, layer(), pos, h, kn, vn)
+        plain = lambda: decode_attention_merged_int4_plain(q, kc, vc, sc, layer(), pos, h, kn, vn)
+        replaces = "whisper_burn_tpu/ops/pallas_attention.py:66 (K11, int4 branches :174-258, merged form, no store"
+    else:
+        kern = lambda: decode_attention_layer_int4(q, kc, vc, sc, layer(), pos, h)
+        plain = lambda: decode_attention_layer_int4_plain(q, kc, vc, sc, layer(), pos, h)
+        replaces = "whisper_burn_tpu/ops/pallas_attention.py:66 (K11, int4 branches :174-258, general unnormalized form"
+    replaces += ", voff=1 :337-338)" if mode == "mixed" else ")"
+    b_of = lambda p: int4_attention_bound(p, d, b, sw, key_bytes, merged, h)
+    return isolated_row(
+        f"{fn}/{mode}" + (f"/pipeline/B={b}" if path == "pipeline" else ""), path, DA, replaces,
+        [fn, [b, CTX, d, sw]], kern, plain,
+        lambda: torch.nn.functional.scaled_dot_product_attention(qh, kd[(l := layer())], vd[l]),
+        err, b_of(pos), "scaled_dot_product_attention on the dequantized bf16 cache rows",
+        "1e-5 of max|out| (G) or of max|acc|, |m|, |l| (H)",
+        f"B={b} ctx={CTX} pos={pos} D={d} {'int4 K+V' if mode == 'int4self' else 'int8 K, int4 V'}, {sw} scale lanes",
+        isolated_bound_ms=b_of(pos)[0], bound_of_pos=b_of,
+    )
+
+
+def slot_uint8_row(cfg, gen, streams: int, path: str) -> dict:
+    """Kernel F on the int4 self caches' uint8 rows (640 bytes, D/2) of
+    ``streams`` streams at ctx CTX: exactly the plain version's cache at
+    slots 0, 115 and CTX - 1, and its times."""
+    from whisper_burn_tpu_torch.ops.cache import write_cache_slot, write_cache_slot_plain
+
+    dev = torch.device("cuda")
+    L, d = cfg.n_text_layer, cfg.n_text_state
+    pos = round(mean_decode_pos(MAX_TOKENS - 1))
+    cache = torch.randint(0, 256, (L, streams, CTX, d // 2), generator=gen, device=dev, dtype=torch.uint8)
+    new = torch.randint(0, 256, (L, streams, 1, d // 2), generator=gen, device=dev, dtype=torch.uint8)
+    for p in (0, pos, CTX - 1):
+        out, ref = cache.clone(), cache.clone()
+        write_cache_slot(out, new, p)
+        write_cache_slot_plain(ref, new, p)
+        if not torch.equal(out, ref):
+            raise AssertionError(f"write_cache_slot uint8 {streams} at {p} differs from the plain version")
+    del out, ref
+    idx = torch.tensor([pos], device=dev)
+    return isolated_row(
+        f"write_cache_slot/uint8/{streams}" + ("/pipeline" if path == "pipeline" else ""), path,
+        "whisper_burn_tpu_torch/csrc/cache_slot.cu", "whisper_burn_tpu/ops/pallas_cache.py:33 (K9)",
+        ["write_cache_slot", [L, streams, CTX, d // 2, 1]],
+        lambda: write_cache_slot(cache, new, pos), lambda: write_cache_slot_plain(cache, new, pos),
+        lambda: cache.index_copy_(2, idx, new), 0.0, bound(2 * L * streams * (d // 2), 0.0),
+        "index_copy_ along T", "exact", f"L={L} B={streams} ctx={CTX} W={d // 2} uint8 (int4 pairs)",
+    )
+
+
+def int4_kernel_checks(cfg, gen) -> list[dict]:
+    """The kernels of the int4 self-KV modes and of the head-blocked encoder
+    attention at their paths' Large-V3 shapes: G over the int4 and the mixed
+    self caches at 8 streams (int4self_greedy, mixed_greedy), H at 40
+    (int4self_beam, mixed_beam), at positions 4, 115 and 227 of ctx 256; F
+    on uint8 rows of 640 bytes at 8 and 40 streams; D' at B=8 x 1500
+    frames at Large-V3 and Medium widths (its own op's path)."""
+    from whisper_burn_tpu_torch.ops.encoder_attention import (
+        HEADS, encoder_attention_heads, encoder_attention_heads_kernel, encoder_attention_heads_plain,
+        encoder_attention_plain,
+    )
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    d, h = cfg.n_text_state, cfg.n_text_head
+    rows = [int4_self_row(cfg, gen, mode, merged, b, f"{mode}_{kind}")
+            for mode in ("int4self", "mixed") for merged, b, kind in ((True, BATCH, "greedy"), (False, STREAMS, "beam"))]
+    rows += [slot_uint8_row(cfg, gen, streams, path)
+             for path, streams in (("int4self_greedy", BATCH), ("int4self_beam", STREAMS))]
+
+    # kernel D' through its op: B=8 x 1500 frames, T padded to 1536, at
+    # Large-V3 and Medium widths
+    t, tp = cfg.n_audio_ctx, -(-cfg.n_audio_ctx // 128) * 128
+    for width, dd, hh in (("Large-V3", d, h), ("Medium", 1024, 16)):
+        qkv = [torch.randn((BATCH, t, dd), generator=gen, device=dev).to(bf) for _ in range(3)]
+        for dtype, b_chk, rel in ((bf, BATCH, 1e-2), (torch.float32, 2, 1e-5)):
+            xs = [a[:b_chk].to(dtype) for a in qkv]
+            out = encoder_attention_heads(*xs, hh)
+            ref = encoder_attention_plain(*xs, hh, t)
+            e = max_err(out, ref)
+            check(f"{HEADS} {width} {dtype}", e, ref, rel)
+            if dtype == bf:
+                err = e
+        lay = lambda x: torch.nn.functional.pad(x.reshape(BATCH, t, hh, 64).transpose(1, 2), (0, 0, 0, tp - t))
+        qh, kh = lay(qkv[0]).contiguous(), lay(qkv[1]).contiguous()
+        vh = qkv[2].reshape(BATCH, t, hh, 64).transpose(1, 2).contiguous()
+        vT = torch.nn.functional.pad(vh.transpose(2, 3), (0, tp - t)).contiguous()
+        del qkv
+        ms, sig = device_ms(lambda: encoder_attention_heads_kernel(qh, kh, vT, t), 5, 1, ours=True)
+        # q and the output over all Tp rows, k and v over the valid ones, bf16
+        b_ms, b_by = bound(BATCH * (2 * tp + 2 * t) * dd * 2, 4.0 * BATCH * hh * tp * t * 64)
+        rows.append(dict(
+            name=f"{HEADS}/{width}", route="cuda", source="whisper_burn_tpu_torch/csrc/encoder_attention.cu",
+            path="encoder_attention_heads", replaces="whisper_burn_tpu/ops/pallas_encoder_attention.py:48 (K10)",
+            shape_key=[HEADS, [BATCH, tp, dd]], sig=sig, max_abs_err=err, isolated_ms=ms,
+            plain_ms=device_ms(lambda: encoder_attention_heads_plain(qh, kh, vT, t), 3, 1), bound_ms=b_ms,
+            bound_by=b_by,
+            library_ms=device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh[:, :, :t], vh), 5, 1),
+            library_call="scaled_dot_product_attention over the 1500 valid keys (head-major, v untransposed)",
+            tol="bf16 1e-2 and f32 1e-5 of max|out|",
+            shape=f"B={BATCH} T={tp} valid={t} D={dd} H={hh}, q/k [B, H, T, 64], v/out [B, H, 64, T]",
+        ))
+        del qh, kh, vh, vT
+    return rows
+
+
+def pipeline_kernel_checks(params, cfg, gen) -> list[dict]:
+    """The kernels at the pipeline path's own shapes, each row counted from
+    that path's run: transcribe_long's 3 windows bucketed to B = 4 and
+    transcribe_batch's 5 utterances bucketed to B = 8, in the int4 self
+    mode with W8A8 and its "openai" front end (exact GELU). Kernel A at the decode step's M = B rows, the prompt
+    prefill's 4B, and the language-detection pass's one [SOT] row per
+    stream (its four layer shapes are the decode step's at M = B, so those
+    rows share their launch counts); D over B x 1536 frames; C over the
+    B-entry int4 cross cache; G over the int4 self cache; F on its uint8
+    rows."""
+    rows, pcfg = [], cfg.replace(gelu="erf")
+    for b in (4, BATCH):
+        prefix = f"pipeline/B={b}/"
+        rows += q4_rows(decode_linears(params, pcfg, b, prefix) + prefill_linears(params, pcfg, 4 * b, prefix)
+                        + prefill_linears(params, pcfg, b, prefix + "detect_"), gen, "pipeline")
+        rows += [
+            encoder_attention_row(cfg, gen, b, "pipeline", f"encoder_attention/{prefix[:-1]}"),
+            cross_int4_row(cfg, gen, b, 1, "pipeline", f"decode_cross_attention/{prefix[:-1]}"),
+            int4_self_row(cfg, gen, "int4self", True, b, "pipeline"),
+            slot_uint8_row(cfg, gen, b, "pipeline"),
+        ]
+    return rows
+
+
 # --------------------------------------------------------------------------
 # phase 3: the main paths
 
@@ -787,36 +968,39 @@ def audio_path(label, params, cfg, compute, mel_frontend, audios, beam=False, re
 
 def self_kernel(compute, beam: bool) -> str:
     """The self-attention kernel of a decode step: B (int8 greedy), B'
-    (float greedy), E (int8 beam) or E' (float beam)."""
-    from whisper_burn_tpu_torch.ops.decode_attention import LAYER, LAYER_U, MERGED, SELF
+    (float greedy), G (int4 or mixed greedy), E (int8 beam), E' (float
+    beam) or H (int4 or mixed beam)."""
+    from whisper_burn_tpu_torch.ops.decode_attention import LAYER, LAYER4, LAYER_U, MERGED, MERGED4, SELF
 
+    if compute.self_v_packed:
+        return LAYER4 if beam else MERGED4
     if beam:
         return LAYER if compute.quantized_self_kv else LAYER_U
     return SELF if compute.quantized_self_kv else MERGED
 
 
-def predicted_launches(cfg, compute, batch: int, steps: int, beam: bool) -> dict:
+def predicted_launches(cfg, compute, batch: int, steps: int, beam: bool, detect: bool = False) -> dict:
     """Launches per request the shapes predict. Kernel A: the six linears of
-    each layer per step and in the prefill, the int8 logits too with
-    ``quantized_logits``; without W8A8 also the encoder's four linears per
-    layer and the cross fill's one while their rows (B x 1536 and B x 1500)
-    are below LARGE_M. One self- and one cross-attention launch per layer
-    and step (C over int4, C' over int8 or float caches); two slot writes
-    (F) per step where the row is not stored by kernel B; D once per
-    encoder layer."""
+    each layer per step and in the prefill (and in the language-detection
+    pass with ``detect``), the int8 logits too with ``quantized_logits``;
+    without W8A8 also the encoder's four linears per layer and the cross
+    fill's one while their rows (B x 1536 and B x 1500) are below LARGE_M.
+    One self- and one cross-attention launch per layer and step (C over
+    int4, C' over int8 or float caches); two slot writes (F) per step where
+    the row is not stored by kernel B; D once per encoder layer."""
     from whisper_burn_tpu_torch.ops.cache import FN as SLOT
-    from whisper_burn_tpu_torch.ops.decode_attention import CROSS, CROSS_U
+    from whisper_burn_tpu_torch.ops.decode_attention import CROSS, CROSS_U, SELF
     from whisper_burn_tpu_torch.ops.q4_matmul import LARGE_M
 
     L, La = cfg.n_text_layer, cfg.n_audio_layer
     t_enc = -(-cfg.n_audio_ctx // 128) * 128
-    a = (6 * L + int(compute.quantized_logits)) * (1 + steps)
+    a = (6 * L + int(compute.quantized_logits)) * (1 + steps) + 6 * L * detect
     if not compute.w8a8:
         a += 4 * La * (batch * t_enc < LARGE_M) + L * (batch * cfg.n_audio_ctx < LARGE_M)
     self_fn = self_kernel(compute, beam)
     want = {"q4_matmul": a, self_fn: L * steps, CROSS if compute.kv_packed else CROSS_U: L * steps,
             "encoder_attention": La}
-    if beam or not compute.quantized_self_kv:
+    if self_fn != SELF:
         want[SLOT] = 2 * steps
     return want
 
@@ -899,6 +1083,79 @@ def run_path(path: MainPath, cfg) -> tuple[dict, dict]:
         if not min(checks, 1) <= syncs <= max(checks, 1):
             raise AssertionError(f"{path.label} request {r}: {syncs} host syncs for {checks} done checks")
         check_result(path, r, res, cfg)
+    return dict(_build.LAUNCHES), shape_counts()
+
+
+def pipeline_path(raw, cfg, compute) -> tuple[dict, dict]:
+    """The pipeline as a user calls it: ``WhisperPipeline((cfg, raw params),
+    compute=compute)`` on numpy audio made from the seed, the language
+    detected; ``transcribe_batch`` of 5 x 30 s (bucketed to 8) and
+    ``transcribe_long`` of 75 s (3 windows, bucketed to 4), each twice (a
+    warm-up and one timed call), each call's launches held against the
+    padded batch's prediction."""
+    from whisper_burn_tpu_torch.ops import _build
+    from whisper_burn_tpu_torch.transcribe import WhisperPipeline
+
+    L = cfg.n_text_layer
+    pipe = WhisperPipeline((cfg, raw), tokenizer=None, compute=compute)
+    rng = np.random.default_rng(SEED + 10)
+    utterances = [(rng.standard_normal(480_000) * 0.1).astype(np.float32) for _ in range(5)]
+    long_audio = (rng.standard_normal(75 * 16_000) * 0.1).astype(np.float32)
+    calls = (
+        ("transcribe_batch", lambda: pipe.transcribe_batch(utterances), 150.0, 5, 8, MAX_TOKENS),
+        ("transcribe_long", lambda: [pipe.transcribe_long(long_audio)], 75.0, 1, 4, 3 * MAX_TOKENS),
+    )
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for call, run, audio_s, n_results, padded, max_len in calls:
+        for r in range(NEW_PATH_REQUESTS):
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()}
+            steps = got.get(self_kernel(compute, False), 0) // L
+            want = predicted_launches(cfg, compute, padded, steps, False, detect=True)
+            log({"path": "pipeline", "call": call, "request": r, "timed": r > 0, "wall_ms": wall * 1e3,
+                 "audio_s_per_s": audio_s / wall, "batch": padded, "decode_steps": steps,
+                 "n_tokens": [len(x.tokens) for x in res], "lang_tokens": [x.lang_token for x in res],
+                 "launches": got, "expected_launches": want})
+            if got != want:
+                raise AssertionError(f"pipeline {call} {r}: launches {got} differ from the prediction {want}")
+            if len(res) != n_results or not 1 <= steps <= MAX_TOKENS - 1:
+                raise AssertionError(f"pipeline {call} {r}: {len(res)} results, {steps} decode steps")
+            if call == "transcribe_batch" and any(len(x.tokens) == MAX_TOKENS for x in res) and steps != MAX_TOKENS - 1:
+                raise AssertionError(f"pipeline {call} {r}: an utterance ran to the cap in {steps} steps")
+            for x in res:
+                if not (len(x.tokens) <= max_len and all(0 <= int(i) < cfg.n_vocab for i in x.tokens)
+                        and cfg.lang_token_start <= x.lang_token < cfg.lang_token_end and x.inference_ms > 0):
+                    raise AssertionError(f"pipeline {call} {r}: a result out of range: {x.lang_token}, {x.tokens[:8]}")
+    return dict(_build.LAUNCHES), shape_counts()
+
+
+def encoder_heads_path() -> tuple[dict, dict]:
+    """Kernel D' through its own entry point, the op
+    ``encoder_attention_heads`` (no model path reaches it): B=8 x 1500
+    frames of seeded bf16 q/k/v at Large-V3 and Medium widths, two calls
+    each; outputs finite and of the input's shape."""
+    from whisper_burn_tpu_torch.ops import _build
+    from whisper_burn_tpu_torch.ops.encoder_attention import encoder_attention_heads
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 20)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for width, d, h in (("Large-V3", 1280, 20), ("Medium", 1024, 16)):
+        x = torch.randn((3, BATCH, 1500, d), generator=g, device="cuda").to(torch.bfloat16)
+        for r in range(NEW_PATH_REQUESTS):
+            t0 = time.perf_counter()
+            out = encoder_attention_heads(x[0], x[1], x[2], h)
+            torch.cuda.synchronize()
+            log({"path": "encoder_attention_heads", "width": width, "request": r,
+                 "wall_ms": (time.perf_counter() - t0) * 1e3, "launches": dict(_build.LAUNCHES)})
+            if out is None or out.shape != x[0].shape or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"encoder_attention_heads {width}: {None if out is None else out.shape}")
     return dict(_build.LAUNCHES), shape_counts()
 
 
@@ -1008,7 +1265,7 @@ def traced_path(path: MainPath, cfg, sigs: dict, max_tokens: int) -> tuple[dict,
     host and on the device, and each decode step split into the kernels,
     the beam's cache reorder, the logits, other device work and idle."""
     from whisper_burn_tpu_torch.ops.cache import FN as SLOT
-    from whisper_burn_tpu_torch.ops.decode_attention import LAYER, LAYER_U, MERGED, SELF
+    from whisper_burn_tpu_torch.ops.decode_attention import LAYER, LAYER4, LAYER_U, MERGED, MERGED4, SELF
 
     def run():
         t0 = time.perf_counter()
@@ -1022,7 +1279,7 @@ def traced_path(path: MainPath, cfg, sigs: dict, max_tokens: int) -> tuple[dict,
         not ctx) and slot writes (one row per layer and stream) stand for
         the main path's ctx-CTX rows."""
         kernel, shape = json.loads(key)
-        if kernel in (SELF, MERGED, LAYER, LAYER_U):
+        if kernel in (SELF, MERGED, LAYER, LAYER_U, MERGED4, LAYER4):
             shape[1] = CTX
         if kernel == SLOT:
             shape[2] = CTX
@@ -1061,15 +1318,16 @@ def small_end_to_end(compute) -> dict:
     """Greedy tokens, teacher-forced logits (ungrouped and grouped) and beam
     search at a small config in ``compute`` (f32), on the CPU through the
     plain versions and on the card through the kernels: the same tokens, the
-    logits to 1e-4, the beam scores to 1e-4. With an int8 cross cache the
-    card's teacher-forced steps start from the CPU run's caches (its cross
-    fill, and its self cache before each step): the int8 steps are fine
-    enough that the two runs' last-bit differences put codes at rounding
-    ties, and one moved code shifts every later logit by about 3e-4. Before
-    each such copy the card's cross fill and the self-cache rows written
-    since the last copy are held against the CPU run's: int8 codes within
-    one step at no more than 1e-3 of places, scales to 1e-5 (as
-    tests/test_torch_modes.py holds them against the JAX package)."""
+    logits to 1e-4, the beam scores to 1e-4. With an int8 cross cache or an
+    int4 self cache the card's teacher-forced steps start from the CPU
+    run's caches (its cross fill, and its self cache before each step): the
+    two runs' last-bit differences put codes at rounding ties, and one
+    moved code shifts every later logit by about 3e-4. Before each such
+    copy the card's cross fill and the self-cache rows written since the
+    last copy are held against the CPU run's: int8 or int4 codes within one
+    step at no more than 1e-3 of places, scales to 1e-5 (as
+    tests/test_torch_modes.py and tests/test_torch_int4self.py hold them
+    against the JAX package)."""
     from whisper_burn_tpu_torch.audio.mel import MelFrontend
     from whisper_burn_tpu_torch.models.beam import beam_decode
     from whisper_burn_tpu_torch.models.config import EOT, SOT, WhisperConfig
@@ -1090,10 +1348,15 @@ def small_end_to_end(compute) -> dict:
     # every kernel the mode's paths launch
     kernels = {"q4_matmul", "encoder_attention", self_kernel(compute, False), self_kernel(compute, True),
                CROSS if compute.kv_packed else CROSS_U, SLOT}
-    resync = compute.quantized_kv and not compute.kv_packed
+    resync = (compute.quantized_kv and not compute.kv_packed) or compute.self_v_packed
     snaps = {}  # the CPU run's cache states, by (cache, step)
     mismatch = collections.defaultdict(float)  # the largest share of int8 codes that differ, by cache tensor
     runs = {}
+
+    def codes(x):
+        """Signed codes: int8 as is, uint8 nibble pairs unpacked."""
+        return torch.cat([(x & 15).int() - 8, (x >> 4).int() - 8], dim=-1) if x.dtype == torch.uint8 else x.int()
+
     for dev in ("cpu", "cuda"):
 
         def sync(cache, key, rows):
@@ -1106,8 +1369,8 @@ def small_end_to_end(compute) -> dict:
                 for name, ref in snaps[key].items():
                     ours = getattr(cache, name)
                     a, r = (x[:, :, rows] if name.startswith("self") else x for x in (ours.cpu(), ref))
-                    if r.dtype == torch.int8:
-                        diff = (a.int() - r.int()).abs()
+                    if r.dtype in (torch.int8, torch.uint8):
+                        diff = (codes(a) - codes(r)).abs()
                         share = (diff > 0).float().mean().item() if diff.numel() else 0.0
                         mismatch[name] = max(mismatch[name], share)
                         if diff.numel() and (diff.max().item() > 1 or share > 1e-3):
@@ -1216,10 +1479,10 @@ def main() -> int:
     serving = Compute.fastest(kv_bits=4).replace(quantized_logits=True, w8a8=True)
     int8 = Compute.fastest().replace(quantized_logits=True, w8a8=True)
     fast = Compute.fast()
-    raw = device_fabricated_params(cfg, seed=SEED, device="cuda")
-    params = prepare_params(raw, serving)  # serves int8 too: prepare_params reads no cache mode
+    int4self, mixed = serving.replace(self_kv_bits=4), serving.replace(self_kv_vbits=4)
+    raw = device_fabricated_params(cfg, seed=SEED, device="cuda")  # the pipeline prepares its own
+    params = prepare_params(raw, serving)  # serves every cache mode: prepare_params reads none
     fast_params = prepare_params(raw, fast)  # Q4 encoder weights (no W8A8 copies), bf16 embedding
-    del raw
     torch.cuda.synchronize()
     phases["params_s"] = time.perf_counter() - t0
     log({"phase": "params", "seconds": phases["params_s"],
@@ -1241,6 +1504,10 @@ def main() -> int:
         audio_path("int8_beam", params, cfg, int8, mel_frontend, audios, beam=True),
         audio_path("fast_greedy", fast_params, cfg, fast, mel_frontend, audios),
         audio_path("fast_beam", fast_params, cfg, fast, mel_frontend, audios, beam=True),
+        audio_path("int4self_greedy", params, cfg, int4self, mel_frontend, audios),
+        audio_path("int4self_beam", params, cfg, int4self, mel_frontend, audios, beam=True),
+        audio_path("mixed_greedy", params, cfg, mixed, mel_frontend, audios),
+        audio_path("mixed_beam", params, cfg, mixed, mel_frontend, audios, beam=True),
     ]
     launches, counts = {}, {}
     for path in paths + ["entry"]:
@@ -1256,6 +1523,16 @@ def main() -> int:
         log({"phase": f"{path.label}_path", "seconds": phases[f"{path.label}_path_s"],
              "launches": launches[path.label], "peak_device_bytes": torch.cuda.max_memory_allocated()})
     del fn, args
+    # the pipeline in the int4 self mode, and kernel D' through its op
+    for label, run in (("pipeline", lambda: pipeline_path(raw, cfg, int4self)),
+                       ("encoder_attention_heads", encoder_heads_path)):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        launches[label], counts[label] = run()
+        phases[f"{label}_path_s"] = time.perf_counter() - t0
+        log({"phase": f"{label}_path", "seconds": phases[f"{label}_path_s"], "launches": launches[label],
+             "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    del raw
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1263,7 +1540,8 @@ def main() -> int:
     gen.manual_seed(SEED)
     rows = kernel_checks(params, cfg, gen)
     beam_rows, reorder = beam_kernel_checks(params, cfg, gen)
-    rows += beam_rows + mode_kernel_checks(fast_params, cfg, gen)
+    rows += beam_rows + mode_kernel_checks(fast_params, cfg, gen) + int4_kernel_checks(cfg, gen)
+    rows += pipeline_kernel_checks(params, cfg, gen)
     phases["kernels_s"] = time.perf_counter() - t0
     log({"phase": "kernels", "seconds": phases["kernels_s"], "beam_reorder_isolated": reorder})
     sigs, rows_by_key = {}, {}
@@ -1271,14 +1549,18 @@ def main() -> int:
         key = json.dumps(row["shape_key"])
         row["launches"] = counts[row["path"]].get(key, 0)
         if row["launches"] <= 0:
-            raise AssertionError(f"{row['name']} was not launched on the {row['path']} path")
+            raise AssertionError(f"{row['name']} ({key}) was not launched on the {row['path']} path, "
+                                 f"which launched {sorted(counts[row['path']])}")
         (sig,) = row.pop("sig")
-        sigs[key], rows_by_key[key] = sig, row
+        # a pipeline row may share its key with the row of a traced path,
+        # which keeps it (the same kernel at the same shape and grid)
+        sigs.setdefault(key, sig)
+        rows_by_key.setdefault(key, row)
 
     by_label = {p.label: p for p in paths}
     traced = {}
     for label, tokens in (("greedy", MAX_TOKENS), ("beam", TRACED_TOKENS), ("fast_greedy", TRACED_TOKENS),
-                          ("fast_beam", TRACED_TOKENS)):
+                          ("fast_beam", TRACED_TOKENS), ("int4self_greedy", TRACED_TOKENS)):
         t0 = time.perf_counter()
         traced[label] = traced_path(by_label[label], cfg, sigs, tokens)
         phases[f"traced_{label}_s"] = time.perf_counter() - t0
@@ -1308,6 +1590,8 @@ def main() -> int:
         ("int4", serving.replace(w8a8=False, dtype=torch.float32)),
         ("parity", Compute.parity()),
         ("int8", Compute.fastest().replace(dtype=torch.float32)),
+        ("int4self", int4self.replace(w8a8=False, dtype=torch.float32)),
+        ("mixed", mixed.replace(w8a8=False, dtype=torch.float32)),
     ):
         # f32; W8A8 off: its per-row int8 rounding turns one-ulp differences
         # at a rounding tie into a whole code step (tests/test_torch_slice.py)

@@ -12,19 +12,30 @@ chip_smoke.py runs the same checks at the main path's Large-V3 shapes.
 import pytest
 import torch
 
+from whisper_burn_tpu_torch.models.decoder import self_kv_groups
 from whisper_burn_tpu_torch.ops import _build
 from whisper_burn_tpu_torch.ops.cache import write_cache_slot, write_cache_slot_plain
 from whisper_burn_tpu_torch.ops.decode_attention import (
     decode_attention_layer,
+    decode_attention_layer_int4,
+    decode_attention_layer_int4_plain,
     decode_attention_layer_plain,
     decode_attention_merged,
+    decode_attention_merged_int4,
+    decode_attention_merged_int4_plain,
     decode_attention_merged_plain,
     decode_cross_attention,
     decode_cross_attention_plain,
     decode_self_attention,
     decode_self_attention_plain,
 )
-from whisper_burn_tpu_torch.ops.encoder_attention import encoder_attention, encoder_attention_plain
+from whisper_burn_tpu_torch.ops.encoder_attention import (
+    encoder_attention,
+    encoder_attention_heads,
+    encoder_attention_heads_kernel,
+    encoder_attention_heads_plain,
+    encoder_attention_plain,
+)
 from whisper_burn_tpu_torch.ops.q4_kernel import q4_matmul, q4_matmul_plain
 
 pytestmark = pytest.mark.cuda
@@ -168,3 +179,77 @@ def test_encoder_attention_kernel(gen, t, valid):
     q, k, v = (torch.randn((2, t, 256), generator=gen, device="cuda") for _ in range(3))
     out = encoder_attention(q, k, v, 4, valid=valid)
     assert _rel_err(out, encoder_attention_plain(q, k, v, 4, valid)) <= 1e-5
+
+
+def _int4_cache(gen, fmt, l_dim, b, ctx, d):
+    """A uint8-valued self cache: int4 keys and values with 2 * ng group
+    scales, int8 keys with 1 + ng (mixed), one scalar a side, or none."""
+    ng = self_kv_groups(d)
+    v = torch.randint(0, 256, (l_dim, b, ctx, d // 2), generator=gen, device="cuda", dtype=torch.uint8)
+    if fmt == "mixed":
+        k = torch.randint(-127, 128, (l_dim, b, ctx, d), generator=gen, device="cuda", dtype=torch.int8)
+    else:
+        k = torch.randint(0, 256, (l_dim, b, ctx, d // 2), generator=gen, device="cuda", dtype=torch.uint8)
+    sw = {"groups": 2 * ng, "mixed": 1 + ng, "scalar": 2, "unscaled": 0}[fmt]
+    sc = torch.rand((l_dim, b, ctx, sw), generator=gen, device="cuda") * 0.04 + 0.01 if sw else None
+    return k, v, sc
+
+
+@pytest.mark.parametrize("fmt", ["groups", "mixed", "scalar", "unscaled"])
+@pytest.mark.parametrize("pos", [0, 37, 63])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_merged_attention_int4_kernel(gen, fmt, pos, dtype):
+    """Kernel G over a uint8-valued cache: the plain version's output,
+    nothing stored; f32 math both ways, sums in another order."""
+    l_dim, b, ctx, d, h = 2, 3, 64, 640, 10
+    k, v, sc = _int4_cache(gen, fmt, l_dim, b, ctx, d)
+    q, kn, vn = (torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
+    k0, v0 = k.clone(), v.clone()
+    _build.reset_launches()
+    out = decode_attention_merged_int4(q, k, v, sc, 1, pos, h, kn, vn)
+    assert _build.LAUNCHES["decode_attention_merged_int4"] == 1
+    ref = decode_attention_merged_int4_plain(q, k, v, sc, 1, pos, h, kn, vn)
+    assert _rel_err(out, ref) <= 1e-5
+    assert torch.equal(k, k0) and torch.equal(v, v0)
+
+
+@pytest.mark.parametrize("fmt", ["groups", "mixed", "scalar", "unscaled"])
+@pytest.mark.parametrize("ctx,valid", [(64, 0), (64, 37), (448, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_layer_int4_kernel(gen, fmt, ctx, valid, dtype):
+    """Kernel H over a uint8-valued cache: acc, m, l of the plain version."""
+    l_dim, b, d, h = 2, 3, 256, 4
+    k, v, sc = _int4_cache(gen, fmt, l_dim, b, ctx, d)
+    q = torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype)
+    _build.reset_launches()
+    out = decode_attention_layer_int4(q, k, v, sc, 1, valid, h)
+    assert _build.LAUNCHES["decode_attention_layer_int4"] == 1
+    ref = decode_attention_layer_int4_plain(q, k, v, sc, 1, valid, h)
+    for a, r in zip(out, ref):
+        assert (a - r).abs().max().item() <= 1e-5 * max(r.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("b,t,d,h", [(2, 128, 128, 2), (1, 300, 256, 4), (2, 1500, 128, 2)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_encoder_attention_heads_kernel(gen, b, t, d, h, dtype, tol):
+    """Kernel D' on its head-major layout, through the op and directly."""
+    q, k, v = (torch.randn((b, t, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
+    _build.reset_launches()
+    out = encoder_attention_heads(q, k, v, h)
+    assert _build.LAUNCHES["encoder_attention_heads"] == 1
+    assert _rel_err(out, encoder_attention_plain(q, k, v, h, t)) <= tol
+    tp = -(-t // 128) * 128
+    qh, kh = (torch.randn((b, h, tp, 64), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    vT = torch.randn((b, h, 64, tp), generator=gen, device="cuda").to(dtype)
+    out = encoder_attention_heads_kernel(qh, kh, vT, t)
+    assert _rel_err(out[..., :t], encoder_attention_heads_plain(qh, kh, vT, t)[..., :t]) <= tol
+
+
+def test_encoder_attention_heads_wide_heads_raise(gen):
+    """128-wide heads, which the gate admits: the kernel takes 64-wide heads
+    only, and a CUDA tensor raises rather than taking the plain version."""
+    q = torch.randn((1, 130, 1280), generator=gen, device="cuda")
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="64-wide heads"):
+        encoder_attention_heads(q, q, q, 10)
+    assert sum(_build.LAUNCHES.values()) == 0

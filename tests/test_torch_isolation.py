@@ -84,23 +84,41 @@ def test_cpu_tensors_take_plain_version_without_launch():
     assert sum(_build.LAUNCHES.values()) == 0
 
 
-@pytest.mark.parametrize(
-    "kw, item",
-    [({"self_kv_bits": 4}, "K11"), ({"self_kv_vbits": 4}, "K11"), ({"tp": 2}, "item 15")],
-)
+@pytest.mark.parametrize("kw, item", [({"tp": 2}, "item 15")])
 def test_modes_outside_the_slice_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         Compute.fastest(kv_bits=4).replace(**kw)
 
 
-@pytest.mark.parametrize("compute, cross, self_kv", [
-    (Compute.fast(), torch.bfloat16, torch.bfloat16),
-    (Compute.fastest(), torch.int8, torch.int8),
-    (Compute.fastest(kv_bits=4), torch.uint8, torch.int8),
-], ids=["fast", "fastest", "fastest-kv4"])
-def test_init_cache_allocates_each_mode(compute, cross, self_kv):
+@pytest.mark.parametrize("kw, keys, values", [
+    ({"self_kv_bits": 4}, torch.uint8, torch.uint8),
+    ({"self_kv_vbits": 4}, torch.int8, torch.uint8),
+    ({"self_kv_bits": 4, "self_kv_vbits": 4}, torch.uint8, torch.uint8),
+])
+def test_int4_self_modes_construct(kw, keys, values):
+    """The int4 self-KV modes construct, with the JAX package's storage dtypes."""
+    compute = Compute.fastest(kv_bits=4).replace(**kw)
+    assert (compute.self_kv_storage_dtype, compute.self_v_storage_dtype) == (keys, values)
+    assert compute.self_v_packed and compute.self_kv_packed == (keys == torch.uint8)
+
+
+def test_int4_keys_with_int8_values_raise():
+    with pytest.raises(ValueError, match="self_kv_vbits"):
+        Compute.fastest(kv_bits=4).replace(self_kv_bits=4, self_kv_vbits=8)
+
+
+@pytest.mark.parametrize("compute, cross, self_kv, lanes", [
+    (Compute.fast(), torch.bfloat16, (torch.bfloat16, torch.bfloat16), 0),
+    (Compute.fastest(), torch.int8, (torch.int8, torch.int8), 2),
+    (Compute.fastest(kv_bits=4), torch.uint8, (torch.int8, torch.int8), 2),
+    (Compute.fastest(kv_bits=4).replace(self_kv_bits=4), torch.uint8, (torch.uint8, torch.uint8), 4),
+    (Compute.fastest(kv_bits=4).replace(self_kv_vbits=4), torch.uint8, (torch.int8, torch.uint8), 3),
+], ids=["fast", "fastest", "fastest-kv4", "int4self", "mixed"])
+def test_init_cache_allocates_each_mode(compute, cross, self_kv, lanes):
     """Cross keys transposed [L, B, D, T] (int4: D/2 packed), values
-    [L, B, T, D] (int4: T/2); scales only for quantized caches."""
+    [L, B, T, D] (int4: T/2); self K/V [L, B, ctx, D] (int4: D/2 packed);
+    scales only for quantized caches, a self side's lanes 1 (int8) or its
+    groups (int4: 2 at D = 64)."""
     cfg = WhisperConfig.tiny_test()
     l, d, t = cfg.n_text_layer, cfg.n_text_state, 16  # n_audio_ctx 12, 8-aligned
     cache = init_cache(cfg, 2, compute, 64, "cpu")
@@ -108,14 +126,16 @@ def test_init_cache_allocates_each_mode(compute, cross, self_kv):
     assert (cache.cross_k.dtype, cache.cross_v.dtype) == (cross, cross)
     assert cache.cross_k.shape == (l, 2, d // 2 if packed else d, t)
     assert cache.cross_v.shape == (l, 2, t // 2 if packed else t, d)
-    assert (cache.self_k.dtype, cache.self_v.dtype) == (self_kv, self_kv)
-    assert cache.self_k.shape == cache.self_v.shape == (l, 2, 64, d)
+    assert (cache.self_k.dtype, cache.self_v.dtype) == self_kv
+    width = lambda dt: d // 2 if dt == torch.uint8 else d
+    assert cache.self_k.shape == (l, 2, 64, width(self_kv[0]))
+    assert cache.self_v.shape == (l, 2, 64, width(self_kv[1]))
     quantized = cross != torch.bfloat16
     for scale in (cache.cross_k_scale, cache.cross_v_scale):
         assert (scale is not None) == quantized
         assert scale is None or (scale.shape, scale.dtype) == ((l, d), torch.float32)
-    if self_kv == torch.int8:
-        assert (cache.self_kv_scale.shape, cache.self_kv_scale.dtype) == ((l, 2, 64, 2), torch.float32)
+    if lanes:
+        assert (cache.self_kv_scale.shape, cache.self_kv_scale.dtype) == ((l, 2, 64, lanes), torch.float32)
     else:
         assert cache.self_kv_scale is None
 

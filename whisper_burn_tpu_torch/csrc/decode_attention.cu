@@ -1,4 +1,5 @@
-// Kernels B, B', C, C', E and E': one-query decode attention over the caches.
+// Kernels B, B', C, C', E, E', G and H: one-query decode attention over the
+// caches.
 //
 // Kernel B, decode_self_attention, replaces the merged + store form of
 // whisper_burn_tpu/ops/pallas_attention.py:_kernel (via
@@ -35,6 +36,28 @@
 // float cache without scales (decode_attention_layer(kv_scale4=None)).
 // Bound and design: those of kernel B, whose cached-key part they share
 // (attend_cached).
+//
+// Kernels G (decode_attention_merged_int4) and H
+// (decode_attention_layer_int4) replace _kernel's int4 self-KV branches
+// (K11, whisper_burn_tpu/ops/pallas_attention.py:174-258 with voff at
+// :337-338): G in the merged form without the store
+// (decode_attention_merged over a uint8 cache), H in the general,
+// unnormalized form (decode_attention_layer). Values are int4 pairs packed
+// along D ([L, B, ctx, D/2] uint8, channels j and j + D/2 in the low and
+// high nibble of byte j, biased by 8); keys the same, or int8 codes (the
+// mixed mode). Per-token scales [L, B, ctx, sw] f32, K lanes first: with
+// channel groups a head's 64 channels share one group, so each (token,
+// head) has one K scale and one V scale, and the math is kernel E's with
+// those lanes (Lane::of); the scalar-scale form reads lanes 0 and 1, the
+// unscaled form none. The TPU kernel rounds the dequantized keys to the
+// compute dtype before its dot and folds the bias out as 8 * sum(q); here
+// the dot runs in f32 on the unbiased codes. Bound: the cache read
+// (pos * D bytes of int4 K and V per stream and layer, 1.5x that in the
+// mixed mode, plus sw * 4 scale bytes a token). Design: attend_cached on a
+// Nibbles accessor, one block per (stream, head): a lane loads two bytes,
+// a warp one head's 64 key bytes, so each packed byte is read twice, by
+// the blocks of the two heads that share it (the second read mostly from
+// L2); a head pair per block would read it once and is later work.
 //
 // Kernel C, decode_cross_attention, replaces
 // whisper_burn_tpu/ops/pallas_attention.py:_kt_kernel (int4, normalized).
@@ -129,28 +152,79 @@ __device__ float block_reduce(float v, float* scratch) {
 
 constexpr int SELF_THREADS = 128;
 
-// The cached-key part of kernels B, B', E and E' for one (stream, head)
-// block of SELF_THREADS threads: scores of keys t < valid of the cache rows
-// from row0 on (qs holds the head's 64 query values, s has room for `valid`
-// floats), their softmax weights and the weighted value sum. With SCALED
-// the int8 codes take their per-token scales kvs; without it the cache
-// holds the values. Every thread gets the running max m and the normalizer
-// l (V scale left out); thread tid < 64 gets channel c0 + tid's sum of
-// p[t] * sv[t] * v[t] in acc.
-template <typename C, bool SCALED>
-__device__ void attend_cached(const C* kc, const C* vc, const float* kvs, size_t row0,
-                              int c0, int valid, int D, const float* qs, float* s,
-                              float* scratch, float* part, float& m_out, float& l_out,
-                              float& acc_out) {
+// One head's 64 channels of a self cache, as the self-attention blocks read
+// them: two(row, c) gives channels c and c + 1 (c even), one(row, c)
+// channel c, as floats. Rows<C>: int8 codes or f32/bf16 values, D to a
+// row. Nibbles: int4 pairs biased by 8, D/2 bytes to a row; channel j of a
+// head in the low (shift 0) or high (shift 4) nibble of byte b0 + j.
+template <typename C>
+struct Rows {
+  const C* p;
+  int D, c0;
+  __device__ float2 two(size_t row, int c) const { return load2(p + row * D + c0 + c); }
+  __device__ float one(size_t row, int c) const { return to_f(p[row * D + c0 + c]); }
+};
+
+struct Nibbles {
+  const uint8_t* p;
+  int D2, b0, shift;
+  __device__ float2 two(size_t row, int c) const {
+    const uchar2 v = *reinterpret_cast<const uchar2*>(p + row * D2 + b0 + c);
+    return make_float2((float)(((v.x >> shift) & 15) - 8), (float)(((v.y >> shift) & 15) - 8));
+  }
+  __device__ float one(size_t row, int c) const {
+    return (float)(((p[row * D2 + b0 + c] >> shift) & 15) - 8);
+  }
+};
+
+// head h of a cache: heads 0 .. H/2 - 1 in the low nibbles, the rest in the
+// high ones (channel pairs j, j + D/2 share a byte)
+__device__ __forceinline__ Rows<int8_t> head_of(const int8_t* p, int D, int H, int h) {
+  return {p, D, h * DH};
+}
+__device__ __forceinline__ Nibbles head_of(const uint8_t* p, int D, int H, int h) {
+  const int h2 = H / 2;
+  return {p, D / 2, (h % h2) * DH, h < h2 ? 0 : 4};
+}
+
+// A head's per-token scale: Lane reads lane `lane` of rows `sw` floats
+// wide; One is the scale of an unscaled cache. of() picks the lane of head
+// h: off + (h * 64) / gs for groups of gs channels, off itself for gs = 0.
+struct Lane {
+  const float* p;
+  int sw, lane;
+  static __device__ Lane of(const float* p, int sw, int off, int gs, int h) {
+    return {p, sw, off + (gs ? h * DH / gs : 0)};
+  }
+  __device__ float at(size_t row) const { return p[row * sw + lane]; }
+};
+
+struct One {
+  static __device__ One of(const float*, int, int, int, int) { return {}; }
+  __device__ float at(size_t) const { return 1.f; }
+};
+
+// The cached-key part of kernels B, B', E, E', G and H for one (stream,
+// head) block of SELF_THREADS threads: scores of keys t < valid of the
+// cache rows from row0 on (qs holds the head's 64 query values, s has room
+// for `valid` floats), their softmax weights and the weighted value sum.
+// Keys and values come through the accessors ka and va, their per-token
+// scales through ks and vs. Every thread gets the running max m and the
+// normalizer l (V scale left out); thread tid < 64 gets channel tid's sum
+// of p[t] * sv[t] * v[t] in acc.
+template <class KA, class VA, class KS, class VS>
+__device__ void attend_cached(KA ka, VA va, KS ks, VS vs, size_t row0, int valid,
+                              const float* qs, float* s, float* scratch, float* part,
+                              float& m_out, float& l_out, float& acc_out) {
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int nwarps = SELF_THREADS / 32;
   const float scale = rsqrtf((float)DH);
 
   for (int t = warp; t < valid; t += nwarps) {
-    const float2 kk = load2(kc + (row0 + t) * D + c0 + 2 * lane);
+    const float2 kk = ka.two(row0 + t, 2 * lane);
     float d = qs[2 * lane] * kk.x + qs[2 * lane + 1] * kk.y;
     d = warp_sum(d);
-    if (lane == 0) s[t] = SCALED ? d * scale * kvs[(row0 + t) * 2] : d * scale;
+    if (lane == 0) s[t] = d * scale * ks.at(row0 + t);
   }
   __syncthreads();
   float m = NEG_BIG;
@@ -160,7 +234,7 @@ __device__ void attend_cached(const C* kc, const C* vc, const float* kvs, size_t
   for (int t = tid; t < valid; t += SELF_THREADS) {
     const float p = expf(s[t] - m);
     l += p;
-    s[t] = SCALED ? p * kvs[(row0 + t) * 2 + 1] : p;  // V scale weights the value sum only
+    s[t] = p * vs.at(row0 + t);  // V scale weights the value sum only
   }
   l = block_reduce<false>(l, scratch);
   __syncthreads();
@@ -168,8 +242,7 @@ __device__ void attend_cached(const C* kc, const C* vc, const float* kvs, size_t
   // value sum: channel c = tid % 64, keys split in two halves by tid / 64
   const int c = tid % DH, half = tid / DH;
   float acc = 0.f;
-  for (int t = half; t < valid; t += SELF_THREADS / DH)
-    acc += s[t] * to_f(vc[(row0 + t) * D + c0 + c]);
+  for (int t = half; t < valid; t += SELF_THREADS / DH) acc += s[t] * va.one(row0 + t, c);
   part[tid] = acc;
   __syncthreads();
   m_out = m;
@@ -177,13 +250,13 @@ __device__ void attend_cached(const C* kc, const C* vc, const float* kvs, size_t
   acc_out = tid < DH ? part[tid] + part[tid + DH] : 0.f;
 }
 
-// Kernels B and B' for block (stream b, head h): attend_cached over keys
-// t < pos, then the current token's raw k_new / v_new merged in. Threads
-// tid < 64 return channel h * 64 + tid of the normalized output.
-template <typename T, typename C, bool SCALED>
-__device__ float attend_merged(const T* q, const C* kc, const C* vc, const float* kvs,
-                               const T* k_new, const T* v_new, int layer, int pos, int B,
-                               int ctx, int D, float* s, float* qs, float* scratch, float* part) {
+// Kernels B, B' and G for block (stream b, head h): attend_cached over
+// keys t < pos, then the current token's raw k_new / v_new merged in.
+// Threads tid < 64 return channel h * 64 + tid of the normalized output.
+template <typename T, class KA, class VA, class KS, class VS>
+__device__ float attend_merged(const T* q, KA ka, VA va, KS ks, VS vs, const T* k_new,
+                               const T* v_new, int layer, int pos, int B, int ctx, int D,
+                               float* s, float* qs, float* scratch, float* part) {
   const int b = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x;
   const int c0 = h * DH;
@@ -193,7 +266,7 @@ __device__ float attend_merged(const T* q, const C* kc, const C* vc, const float
   if (tid < DH) qs[tid] = to_f(q[(size_t)b * D + c0 + tid]);
   __syncthreads();
   float m, l, acc;
-  attend_cached<C, SCALED>(kc, vc, kvs, row0, c0, pos, D, qs, s, scratch, part, m, l, acc);
+  attend_cached(ka, va, ks, vs, row0, pos, qs, s, scratch, part, m, l, acc);
   // the current token's score
   float e = tid < DH ? qs[tid] * to_f(k_new[(size_t)b * D + c0 + tid]) : 0.f;
   e = block_reduce<false>(e, scratch) * scale;
@@ -220,8 +293,9 @@ self_attn_kernel(const T* __restrict__ q, int8_t* kc, int8_t* vc, float* kvs,
   const int tid = threadIdx.x;
   const size_t row0 = ((size_t)layer * B + b) * ctx;
   const size_t col = (size_t)b * D + h * DH + tid;
-  const float o = attend_merged<T, int8_t, true>(q, kc, vc, kvs, k_new, v_new, layer, pos, B, ctx,
-                                                  D, s, qs, scratch, part);
+  const Rows<int8_t> ka{kc, D, h * DH}, va{vc, D, h * DH};
+  const float o = attend_merged(q, ka, va, Lane{kvs, 2, 0}, Lane{kvs, 2, 1}, k_new, v_new, layer,
+                                pos, B, ctx, D, s, qs, scratch, part);
   if (tid < DH) {
     out[col] = o;
     // store the current token at pos (no block reads row pos)
@@ -240,17 +314,39 @@ merged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* _
   __shared__ float qs[DH];
   __shared__ float scratch[32];
   __shared__ float part[SELF_THREADS];
-  const float o = attend_merged<T, T, false>(q, kc, vc, nullptr, k_new, v_new, layer, pos, B, ctx,
-                                             D, s, qs, scratch, part);
-  if (threadIdx.x < DH) out[(size_t)blockIdx.x * D + blockIdx.y * DH + threadIdx.x] = o;
+  const int c0 = blockIdx.y * DH;
+  const float o = attend_merged(q, Rows<T>{kc, D, c0}, Rows<T>{vc, D, c0}, One{}, One{}, k_new,
+                                v_new, layer, pos, B, ctx, D, s, qs, scratch, part);
+  if (threadIdx.x < DH) out[(size_t)blockIdx.x * D + c0 + threadIdx.x] = o;
 }
 
-// Kernels E and E' for block (stream b, head h): attend_cached over keys
-// t < valid, written unnormalized
-template <typename T, typename C, bool SCALED>
-__device__ void layer_attn(const T* q, const C* kc, const C* vc, const float* kvs, float* acc_out,
-                           float* m_out, float* l_out, int layer, int valid, int B, int ctx, int D,
-                           int H, float* s, float* qs, float* scratch, float* part) {
+// Kernel G for block (stream b, head h): keys KC (uint8 int4 pairs, or
+// int8 codes in the mixed mode) and int4 values, per-token scales SC (Lane,
+// or One for the unscaled int4 form); lanes as in Lane::of.
+template <typename T, typename KC, class SC>
+__global__ void __launch_bounds__(SELF_THREADS)
+merged_int4_kernel(const T* __restrict__ q, const KC* __restrict__ kc,
+                   const uint8_t* __restrict__ vc, const float* __restrict__ kvs,
+                   const T* __restrict__ k_new, const T* __restrict__ v_new,
+                   float* __restrict__ out, int layer, int pos, int B, int ctx, int D, int H,
+                   int sw, int kgs, int vgs, int voff) {
+  extern __shared__ float s[];  // [ctx] scores, then probabilities
+  __shared__ float qs[DH];
+  __shared__ float scratch[32];
+  __shared__ float part[SELF_THREADS];
+  const int h = blockIdx.y;
+  const float o = attend_merged(q, head_of(kc, D, H, h), head_of(vc, D, H, h),
+                                SC::of(kvs, sw, 0, kgs, h), SC::of(kvs, sw, voff, vgs, h), k_new,
+                                v_new, layer, pos, B, ctx, D, s, qs, scratch, part);
+  if (threadIdx.x < DH) out[(size_t)blockIdx.x * D + h * DH + threadIdx.x] = o;
+}
+
+// Kernels E, E' and H for block (stream b, head h): attend_cached over
+// keys t < valid, written unnormalized
+template <typename T, class KA, class VA, class KS, class VS>
+__device__ void layer_attn(const T* q, KA ka, VA va, KS ks, VS vs, float* acc_out, float* m_out,
+                           float* l_out, int layer, int valid, int B, int ctx, int D, int H,
+                           float* s, float* qs, float* scratch, float* part) {
   const int b = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x;
   const int c0 = h * DH;
@@ -259,7 +355,7 @@ __device__ void layer_attn(const T* q, const C* kc, const C* vc, const float* kv
   if (tid < DH) qs[tid] = to_f(q[(size_t)b * D + c0 + tid]);
   __syncthreads();
   float m, l, acc;
-  attend_cached<C, SCALED>(kc, vc, kvs, row0, c0, valid, D, qs, s, scratch, part, m, l, acc);
+  attend_cached(ka, va, ks, vs, row0, valid, qs, s, scratch, part, m, l, acc);
   if (tid < DH) acc_out[(size_t)b * D + c0 + tid] = acc;
   if (tid == 0) {
     m_out[b * H + h] = m;
@@ -277,8 +373,9 @@ layer_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
   __shared__ float qs[DH];
   __shared__ float scratch[32];
   __shared__ float part[SELF_THREADS];
-  layer_attn<T, int8_t, true>(q, kc, vc, kvs, acc_out, m_out, l_out, layer, valid, B, ctx, D, H,
-                              s, qs, scratch, part);
+  const int c0 = blockIdx.y * DH;
+  layer_attn(q, Rows<int8_t>{kc, D, c0}, Rows<int8_t>{vc, D, c0}, Lane{kvs, 2, 0}, Lane{kvs, 2, 1},
+             acc_out, m_out, l_out, layer, valid, B, ctx, D, H, s, qs, scratch, part);
 }
 
 template <typename T>
@@ -291,8 +388,66 @@ layer_unscaled_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T
   __shared__ float qs[DH];
   __shared__ float scratch[32];
   __shared__ float part[SELF_THREADS];
-  layer_attn<T, T, false>(q, kc, vc, nullptr, acc_out, m_out, l_out, layer, valid, B, ctx, D, H,
-                          s, qs, scratch, part);
+  const int c0 = blockIdx.y * DH;
+  layer_attn(q, Rows<T>{kc, D, c0}, Rows<T>{vc, D, c0}, One{}, One{}, acc_out, m_out, l_out, layer,
+             valid, B, ctx, D, H, s, qs, scratch, part);
+}
+
+// Kernel H for block (stream b, head h): the caches and scales of kernel G
+template <typename T, typename KC, class SC>
+__global__ void __launch_bounds__(SELF_THREADS)
+layer_int4_kernel(const T* __restrict__ q, const KC* __restrict__ kc,
+                  const uint8_t* __restrict__ vc, const float* __restrict__ kvs,
+                  float* __restrict__ acc_out, float* __restrict__ m_out,
+                  float* __restrict__ l_out, int layer, int valid, int B, int ctx, int D, int H,
+                  int sw, int kgs, int vgs, int voff) {
+  extern __shared__ float s[];  // [ctx] scores, then probabilities
+  __shared__ float qs[DH];
+  __shared__ float scratch[32];
+  __shared__ float part[SELF_THREADS];
+  const int h = blockIdx.y;
+  layer_attn(q, head_of(kc, D, H, h), head_of(vc, D, H, h), SC::of(kvs, sw, 0, kgs, h),
+             SC::of(kvs, sw, voff, vgs, h), acc_out, m_out, l_out, layer, valid, B, ctx, D, H, s,
+             qs, scratch, part);
+}
+
+// launch G (MERGED) or H over one of the three int4 self-cache forms:
+// int4 keys with scales, int4 keys without, int8 keys with (mixed)
+template <bool MERGED, typename T, typename KC, class SC>
+int launch_int4(const void* q, const void* kc, const void* vc, const void* kvs, const void* k_new,
+                const void* v_new, float* o0, float* o1, float* o2, int layer, int valid, int B,
+                int ctx, int D, int H, int sw, int kgs, int vgs, int voff,
+                cudaStream_t st) {
+  dim3 grid(B, H);
+  const size_t smem = (size_t)ctx * sizeof(float);
+  const T* qt = static_cast<const T*>(q);
+  const KC* k = static_cast<const KC*>(kc);
+  const uint8_t* v = static_cast<const uint8_t*>(vc);
+  const float* sc = static_cast<const float*>(kvs);
+  if constexpr (MERGED) {
+    merged_int4_kernel<T, KC, SC><<<grid, SELF_THREADS, smem, st>>>(
+        qt, k, v, sc, static_cast<const T*>(k_new), static_cast<const T*>(v_new), o0, layer, valid,
+        B, ctx, D, H, sw, kgs, vgs, voff);
+  } else {
+    layer_int4_kernel<T, KC, SC><<<grid, SELF_THREADS, smem, st>>>(
+        qt, k, v, sc, o0, o1, o2, layer, valid, B, ctx, D, H, sw, kgs, vgs, voff);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool MERGED, typename T>
+int launch_int4_form(int k_int4, const void* q, const void* kc, const void* vc, const void* kvs,
+                     const void* k_new, const void* v_new, float* o0, float* o1, float* o2,
+                     int layer, int valid, int B, int ctx, int D, int H, int sw, int kgs, int vgs,
+                     int voff, cudaStream_t st) {
+  if (!k_int4)
+    return launch_int4<MERGED, T, int8_t, Lane>(q, kc, vc, kvs, k_new, v_new, o0, o1, o2, layer,
+                                                valid, B, ctx, D, H, sw, kgs, vgs, voff, st);
+  if (sw)
+    return launch_int4<MERGED, T, uint8_t, Lane>(q, kc, vc, kvs, k_new, v_new, o0, o1, o2, layer,
+                                                 valid, B, ctx, D, H, sw, kgs, vgs, voff, st);
+  return launch_int4<MERGED, T, uint8_t, One>(q, kc, vc, kvs, k_new, v_new, o0, o1, o2, layer,
+                                              valid, B, ctx, D, H, sw, kgs, vgs, voff, st);
 }
 
 constexpr int CROSS_THREADS = 512;
@@ -569,6 +724,49 @@ extern "C" int decode_attention_layer_unscaled(const void* q, int bf16, const vo
         static_cast<const float*>(vc), a, mo, lo, layer, valid, B, ctx, D, H);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// q, k_new, v_new: [B, D] f32 or bf16 (bf16 flag); kc: uint8 [L, B, ctx,
+// D/2] int4 pairs (k_int4) or int8 [L, B, ctx, D]; vc: uint8 [L, B, ctx,
+// D/2]; kvs: f32 [L, B, ctx, sw] (null with sw = 0: an unscaled int4
+// cache); a head's scale lanes as in Lane::of (keys from lane 0 in groups
+// of kgs channels, values from lane voff in groups of vgs); out: f32
+// [B, D], normalized; nothing is stored. Head width 64, H even, a scale
+// group a whole number of heads. Needs 0 <= pos < ctx and ctx * 4 bytes of
+// dynamic shared memory within the 48 KB default.
+extern "C" int decode_attention_merged_int4(const void* q, int bf16, const void* kc,
+                                            const void* vc, const void* kvs, const void* k_new,
+                                            const void* v_new, void* out, int layer, int pos,
+                                            int B, int ctx, int D, int H, int k_int4, int sw,
+                                            int kgs, int vgs, int voff, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (bf16)
+    return launch_int4_form<true, __nv_bfloat16>(k_int4, q, kc, vc, kvs, k_new, v_new, o, nullptr,
+                                                 nullptr, layer, pos, B, ctx, D, H, sw, kgs, vgs,
+                                                 voff, st);
+  return launch_int4_form<true, float>(k_int4, q, kc, vc, kvs, k_new, v_new, o, nullptr, nullptr,
+                                       layer, pos, B, ctx, D, H, sw, kgs, vgs, voff, st);
+}
+
+// The caches and scales of decode_attention_merged_int4, over keys
+// t < valid: acc f32 [B, D], m, l f32 [B, H], unnormalized (l without the
+// V scales). Needs 0 <= valid <= ctx.
+extern "C" int decode_attention_layer_int4(const void* q, int bf16, const void* kc, const void* vc,
+                                           const void* kvs, void* acc, void* m, void* l,
+                                           int layer, int valid, int B, int ctx, int D, int H,
+                                           int k_int4, int sw, int kgs, int vgs,
+                                           int voff, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* a = static_cast<float*>(acc);
+  float* mo = static_cast<float*>(m);
+  float* lo = static_cast<float*>(l);
+  if (bf16)
+    return launch_int4_form<false, __nv_bfloat16>(k_int4, q, kc, vc, kvs, nullptr, nullptr, a, mo,
+                                                  lo, layer, valid, B, ctx, D, H, sw, kgs, vgs,
+                                                  voff, st);
+  return launch_int4_form<false, float>(k_int4, q, kc, vc, kvs, nullptr, nullptr, a, mo, lo, layer,
+                                        valid, B, ctx, D, H, sw, kgs, vgs, voff, st);
 }
 
 // q: [B, D] f32 or bf16, B query streams, G of them per cache entry (B % G

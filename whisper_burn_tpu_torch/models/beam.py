@@ -41,7 +41,7 @@ import torch
 from torch.profiler import record_function
 
 from whisper_burn_tpu_torch.models.config import EOT, MAX_TOKENS, MIN_TOKENS, WhisperConfig
-from whisper_burn_tpu_torch.models.decoder import decode_step
+from whisper_burn_tpu_torch.models.decoder import KVCache, decode_step
 from whisper_burn_tpu_torch.models.whisper import (
     DONE_CHECK_EVERY,
     PROMPT_LEN,
@@ -81,6 +81,16 @@ def _length_norm(n: int, length_penalty: float) -> float:
 def _take_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``rows [B, N, T]`` at ``idx [B, K]`` along N -> ``[B, K, T]``."""
     return torch.gather(rows, 1, idx[..., None].expand(-1, -1, rows.shape[-1]))
+
+
+def reorder_self_cache(cache: KVCache, src: torch.Tensor) -> None:
+    """Stream ``i`` of the self caches takes stream ``src[i]``'s rows and
+    scales (the streams follow their parent beams): any cache dtype (int8,
+    uint8 int4 pairs, float) and any scale-lane count."""
+    cache.self_k = cache.self_k.index_select(1, src)
+    cache.self_v = cache.self_v.index_select(1, src)
+    if cache.self_kv_scale is not None:
+        cache.self_kv_scale = cache.self_kv_scale.index_select(1, src)
 
 
 def beam_decode(
@@ -187,10 +197,7 @@ def beam_decode(
                 src = (first + new_parent).reshape(bw)
                 tokens = tokens.index_select(0, src)
                 tokens[:, k] = new_tok.reshape(bw).to(torch.int32)
-                cache.self_k = cache.self_k.index_select(1, src)
-                cache.self_v = cache.self_v.index_select(1, src)
-                if cache.self_kv_scale is not None:
-                    cache.self_kv_scale = cache.self_kv_scale.index_select(1, src)
+                reorder_self_cache(cache, src)
 
             # an utterance is done when its pool is full and (the heuristic)
             # its best running candidate, normalized at the current length,

@@ -4,7 +4,9 @@ Port of ``whisper_burn_tpu/models/decoder.py``, in each cache mode the
 ``Compute`` presets give: the cross cache int4 pairs (``fastest(kv_bits=4)``)
 or int8 (``fastest()``), both with per-channel scales, or unquantized in the
 compute dtype (``parity()``, ``fast()``); the self cache int8 with per-token
-scales (``fastest``) or unquantized.
+scales (``fastest``), int4 keys and values with per-token, per-channel-group
+scales (``self_kv_bits=4``), int8 keys and int4 values (``self_kv_vbits=4``,
+the mixed mode), or unquantized.
 
 * token embedding + learned positions by absolute position
 * pre-norm blocks: self-attention (causal) -> cross-attention -> FFN
@@ -33,13 +35,20 @@ branches, by ``batch_groups`` and the self cache's mode:
   function at any ctx, so the port always takes it here.
 * ``1``, float: kernel B', the same merge without scales and without the
   store; the rows are written after the layer loop as below.
-* ``> 1`` (beam search): the deferred-write branch. Kernel E (int8) or E'
-  (float) attends over the cached keys, unnormalized,
-  :func:`flash_merge_extra_key` merges the current token's raw K/V.
+* ``1``, int4 or mixed (uint8 values): kernel G, the merge of B' over the
+  packed cache with its group scales, without the store
+  (``merged_store_ok`` is false for a uint8 cache). The JAX package serves
+  it in-kernel only where ctx is one key tile and unpacks in XLA
+  otherwise, the same function; the port takes kernel G at every ctx.
+* ``> 1`` (beam search): the deferred-write branch. Kernel E (int8), E'
+  (float) or H (int4 or mixed) attends over the cached keys,
+  unnormalized, and :func:`flash_merge_extra_key` merges the current
+  token's raw K/V.
 
 Where the row is not stored in the kernel, the new rows of every layer are
 written at ``pos`` after the layer loop by kernel F: quantized per token
-first for an int8 cache (the scales by a slice assignment), cast to the
+first for a quantized cache (int8, or int4 groups packed by
+:func:`_quantize_tokens4`; the scales by a slice assignment), cast to the
 cache's dtype otherwise.
 
 The caches are updated in place.
@@ -59,7 +68,9 @@ from whisper_burn_tpu_torch.ops.compute import Compute
 from whisper_burn_tpu_torch.ops.cache import write_cache_slot
 from whisper_burn_tpu_torch.ops.decode_attention import (
     decode_attention_layer,
+    decode_attention_layer_int4,
     decode_attention_merged,
+    decode_attention_merged_int4,
     decode_cross_attention,
     decode_self_attention,
     flash_merge_extra_key,
@@ -85,7 +96,10 @@ class KVCache:
     compute dtype. A quantized cross cache has per-(layer, channel) f32
     scales ``[L, D]``. Self K/V are ``[L, B, ctx, D]``, int8 with per-token
     absmax/127 scales ``[L, B, ctx, 2]`` (K in lane 0, V in lane 1), or in
-    the compute dtype with no scales.
+    the compute dtype with no scales. An int4 side is ``[L, B, ctx, D/2]``
+    uint8 (channels j and j + D/2 in one byte) and takes
+    :func:`self_kv_groups` scale lanes instead of one: ``[L, B, ctx,
+    kw + vw]``, K lanes first.
     """
 
     self_k: torch.Tensor
@@ -107,6 +121,8 @@ def cross_cache_len(cfg: WhisperConfig) -> int:
 
 def init_cache(cfg: WhisperConfig, batch: int, compute: Compute, ctx: int, device) -> KVCache:
     l, d, t = cfg.n_text_layer, cfg.n_text_state, cross_cache_len(cfg)
+    kw = self_kv_groups(d) if compute.self_kv_packed else 1  # scale lanes of the keys
+    vw = self_kv_groups(d) if compute.self_v_packed else 1
     zeros = lambda *shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
     kv_dt = compute.cross_kv_dtype
     if compute.kv_packed:
@@ -114,11 +130,10 @@ def init_cache(cfg: WhisperConfig, batch: int, compute: Compute, ctx: int, devic
     else:
         cross_k, cross_v = zeros(l, batch, d, t, dtype=kv_dt), zeros(l, batch, t, d, dtype=kv_dt)
     scale = lambda: torch.ones((l, d), dtype=torch.float32, device=device) if compute.quantized_kv else None
-    self_dt = torch.int8 if compute.quantized_self_kv else compute.self_kv_dtype or compute.dtype
     return KVCache(
-        self_k=zeros(l, batch, ctx, d, dtype=self_dt),
-        self_v=zeros(l, batch, ctx, d, dtype=self_dt),
-        self_kv_scale=zeros(l, batch, ctx, 2, dtype=torch.float32) if compute.quantized_self_kv else None,
+        self_k=zeros(l, batch, ctx, d // 2 if compute.self_kv_packed else d, dtype=compute.self_kv_storage_dtype),
+        self_v=zeros(l, batch, ctx, d // 2 if compute.self_v_packed else d, dtype=compute.self_v_storage_dtype),
+        self_kv_scale=zeros(l, batch, ctx, kw + vw, dtype=torch.float32) if compute.quantized_self_kv else None,
         cross_k=cross_k,
         cross_v=cross_v,
         cross_k_scale=scale(),
@@ -169,6 +184,41 @@ def _quantize_tokens(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     xf = x.float()
     scale = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-8) / 127.0
     return torch.round(xf / scale).to(torch.int8), scale
+
+
+def self_kv_group_size(d: int) -> int:
+    """Channel-group width of the int4 self-KV scales: the largest power of
+    two <= 128 dividing the nibble-half width D/2 (a group never spans the
+    two halves)."""
+    d2 = d // 2
+    for gsz in (128, 64, 32, 16, 8, 4, 2, 1):
+        if d2 % gsz == 0:
+            return gsz
+    return max(d2, 1)
+
+
+def self_kv_groups(d: int) -> int:
+    """Number of int4 self-KV scale groups for channel width ``d``: even,
+    ``ng/2`` over each nibble half."""
+    return 2 * max(1, (d // 2) // self_kv_group_size(d))
+
+
+def _quantize_tokens4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token, per-channel-group int4: ``[..., D]`` -> (uint8 ``[..., D/2]``
+    biased-nibble pairs by :func:`pack_int4`, f32 scales ``[..., ng]`` =
+    group absmax / 7). Groups run in natural channel order: the first
+    ``ng/2`` cover the low-nibble channels ``[0, D/2)``."""
+    d = x.shape[-1]
+    gsz, ng = self_kv_group_size(d), self_kv_groups(d)
+    xg = x.float().reshape(*x.shape[:-1], ng, gsz)
+    scale = torch.clamp_min(xg.abs().amax(dim=-1), 1e-8) / 7.0
+    q = torch.clamp(torch.round(xg / scale[..., None]), -8, 7).reshape(x.shape).to(torch.int8)
+    return pack_int4(q, -1), scale
+
+
+def _quantize_self(x: torch.Tensor, packed: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows of a quantized self cache: int4 groups when ``packed``, else int8."""
+    return _quantize_tokens4(x) if packed else _quantize_tokens(x)
 
 
 def pack_int4(q4: torch.Tensor, dim: int) -> torch.Tensor:
@@ -252,8 +302,8 @@ def prefill(
 ) -> torch.Tensor:
     """Prompt pass over ``tokens [B, T]`` at cache positions ``[0, T)``;
     returns the last position's logits.
-    Writes the self K/V into ``cache`` (quantized per token for an int8
-    cache) unless ``write_cache`` is False (language detection, with
+    Writes the self K/V into ``cache`` (quantized per token for an int8 or
+    int4 cache) unless ``write_cache`` is False (language detection, with
     ``logit_rows``). Its linears run at M = B*T through kernel A; its
     attentions are plain PyTorch over the dequantized cross cache, as the
     JAX package leaves them to XLA."""
@@ -286,7 +336,8 @@ def prefill(
     if write_cache:
         for layer, (k, v) in enumerate(new_kv):
             if cache.self_kv_scale is not None:
-                (k, ksc), (v, vsc) = _quantize_tokens(k), _quantize_tokens(v)
+                k, ksc = _quantize_self(k, cache.self_k.dtype == torch.uint8)
+                v, vsc = _quantize_self(v, cache.self_v.dtype == torch.uint8)
                 cache.self_kv_scale[layer, :, :t] = torch.cat([ksc, vsc], dim=-1)
             cache.self_k[layer, :, :t] = k
             cache.self_v[layer, :, :t] = v
@@ -310,6 +361,8 @@ def decode_step(
         )
     deferred = batch_groups > 1
     quantized_self = cache.self_kv_scale is not None
+    k_packed, v_packed = cache.self_k.dtype == torch.uint8, cache.self_v.dtype == torch.uint8
+    store_in_kernel = quantized_self and not v_packed and not deferred  # kernel B
     dec = params["decoder"]
     blocks = dec["blocks"]
     n_heads = cfg.n_text_head
@@ -318,21 +371,19 @@ def decode_step(
     for layer in range(cfg.n_text_layer):
         h = layer_norm(x, *_ln(blocks, "attn_ln", layer))
         q, k_new, v_new = qkv_proj(blocks, h, compute, layer=layer)
+        self_cache = (q, cache.self_k, cache.self_v, cache.self_kv_scale, layer, pos, n_heads)
         if deferred:
-            state = decode_attention_layer(
-                q, cache.self_k, cache.self_v, cache.self_kv_scale, layer, pos, n_heads
-            )
-            a = flash_merge_extra_key(*state, q, k_new, v_new, n_heads)
-        elif quantized_self:
+            attend = decode_attention_layer_int4 if v_packed else decode_attention_layer
+            a = flash_merge_extra_key(*attend(*self_cache), q, k_new, v_new, n_heads)
+        elif store_in_kernel:
             kq, ksc = _quantize_tokens(k_new)
             vq, vsc = _quantize_tokens(v_new)
-            a = decode_self_attention(
-                q, cache.self_k, cache.self_v, cache.self_kv_scale, layer, pos, n_heads,
-                k_new, v_new, kq, vq, torch.cat([ksc, vsc], dim=-1),
-            )
+            a = decode_self_attention(*self_cache, k_new, v_new, kq, vq, torch.cat([ksc, vsc], dim=-1))
+        elif v_packed:
+            a = decode_attention_merged_int4(*self_cache, k_new, v_new)
         else:
             a = decode_attention_merged(q, cache.self_k, cache.self_v, layer, pos, n_heads, k_new, v_new)
-        if deferred or not quantized_self:
+        if not store_in_kernel:
             new_k.append(k_new)
             new_v.append(v_new)
         x = x + apply_reduce_linear(blocks["attn_o"], a.to(compute.dtype), compute, layer=layer)
@@ -350,10 +401,10 @@ def decode_step(
 
         h = layer_norm(x, *_ln(blocks, "mlp_ln", layer))
         x = x + apply_ffn(blocks, h, cfg.gelu, compute, layer=layer)
-    if new_k:  # one slot across all layers: [L, B, 1, D] rows, [L, B, 1, 1] scales
+    if new_k:  # one slot across all layers: [L, B, 1, D(/2)] rows, [L, B, 1, kw + vw] scales
         ks, vs = torch.stack(new_k), torch.stack(new_v)
         if quantized_self:
-            (ks, ksc), (vs, vsc) = _quantize_tokens(ks), _quantize_tokens(vs)
+            (ks, ksc), (vs, vsc) = _quantize_self(ks, k_packed), _quantize_self(vs, v_packed)
             cache.self_kv_scale[:, :, pos] = torch.cat([ksc, vsc], dim=-1)[:, :, 0]
         write_cache_slot(cache.self_k, ks.to(cache.self_k.dtype), pos)
         write_cache_slot(cache.self_v, vs.to(cache.self_v.dtype), pos)

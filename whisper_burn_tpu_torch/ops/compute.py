@@ -41,6 +41,9 @@ class Compute:
     * ``fast()``: bfloat16 activations with float32 accumulation.
     * ``fastest(kv_bits)``: bf16 + quantized cross-KV (int8, or int4 pairs
       with ``kv_bits=4``) + per-token int8 self-KV — the serving mode.
+    * ``.replace(self_kv_bits=4)``: int4 self keys and values with
+      per-token, per-channel-group scales; ``.replace(self_kv_vbits=4)``:
+      int8 self keys, int4 values (the mixed mode).
     """
 
     dtype: torch.dtype = torch.float32
@@ -101,8 +104,22 @@ class Compute:
 
     @property
     def self_v_packed(self) -> bool:
+        """int4 values (the mixed int8-K / int4-V mode when keys are not)."""
         vbits = self.self_kv_bits if self.self_kv_vbits is None else self.self_kv_vbits
         return self.quantized_self_kv and vbits == 4
+
+    @property
+    def self_kv_storage_dtype(self) -> torch.dtype:
+        """The self cache's key dtype: uint8 nibble pairs for int4 keys."""
+        if self.self_kv_packed:
+            return torch.uint8
+        if self.quantized_self_kv:
+            return torch.int8
+        return self.dtype if self.self_kv_dtype is None else self.self_kv_dtype
+
+    @property
+    def self_v_storage_dtype(self) -> torch.dtype:
+        return torch.uint8 if self.self_v_packed else self.self_kv_storage_dtype
 
     def __post_init__(self) -> None:
         vbits = self.self_kv_bits if self.self_kv_vbits is None else self.self_kv_vbits
@@ -111,11 +128,6 @@ class Compute:
                 "self_kv_vbits wider than self_kv_bits is unsupported "
                 "(int4 keys require int4 values; the supported mixed mode "
                 "is int8 keys + int4 values: self_kv_bits=8, self_kv_vbits=4)"
-            )
-        if self.self_kv_bits != 8 or self.self_kv_vbits is not None:
-            raise NotImplementedError(
-                "int4 self-KV (self_kv_bits=4 / self_kv_vbits) is not ported "
-                "yet: ROADMAP Queue 2, K11"
             )
         if self.tp != 1:
             raise NotImplementedError(

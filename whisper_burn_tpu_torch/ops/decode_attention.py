@@ -1,4 +1,4 @@
-"""Kernels B, B', C, C', E and E': decode attention over the caches.
+"""Kernels B, B', C, C', E, E', G and H: decode attention over the caches.
 
 Counterpart of ``whisper_burn_tpu/ops/pallas_attention.py``; source
 ``csrc/decode_attention.cu``.
@@ -15,6 +15,14 @@ Counterpart of ``whisper_burn_tpu/ops/pallas_attention.py``; source
   without them; the XLA epilogues that follow it there,
   :func:`flash_merge_extra_key` and :func:`normalize`, are plain PyTorch
   here too.
+* :func:`decode_attention_merged_int4` (kernel G) replaces ``_kernel``'s
+  int4 self-KV branches (K11) in the merged form without the store
+  (``decode_attention_merged`` over a uint8 cache,
+  ``pallas_attention.py:522``): int4 keys and values, or int8 keys and
+  int4 values (the mixed mode), with the current token's raw K/V merged.
+* :func:`decode_attention_layer_int4` (kernel H) replaces the same
+  branches in the general, unnormalized form (``decode_attention_layer``
+  over a uint8 cache, ``pallas_attention.py:426``), as kernel E.
 * :func:`decode_cross_attention` replaces ``_kt_kernel`` with
   ``normalized=True`` (K3), ``batch_groups`` query streams per cache
   entry: kernel C over the int4 cross cache, kernel C' over an int8 or
@@ -22,8 +30,18 @@ Counterpart of ``whisper_burn_tpu/ops/pallas_attention.py``; source
 
 Each reads one layer of a stacked cache by index, so no slice is copied,
 and each is bound on the H100 by the cache bytes it reads (see the source
-note for how each design keeps every byte read once). CPU tensors take the
-plain versions; CUDA tensors launch the kernel or raise.
+note for how each design keeps every byte read once; G and H read each
+packed byte twice, once for each of the two heads that share it). CPU
+tensors take the plain versions; CUDA tensors launch the kernel or raise.
+
+The int4 self cache (``models/decoder._quantize_tokens4``) packs channel
+``j`` and ``j + D/2`` of a token into one byte, low nibble first, biased by
+8. Its per-token scales ``[L, B, ctx, sw]`` f32 hold K lanes first, then V
+lanes: ``sw = 2·ng`` (int4 keys and values, ``ng`` channel groups a side
+in natural channel order), ``1 + ng`` (mixed: the int8 keys' scalar in
+lane 0), or ``2`` (one scalar a side); an int4 cache may also come without
+scales. :func:`int4_lanes` reads that layout, or raises where the kernels
+do not serve it (odd head counts, groups that split a head).
 """
 
 from __future__ import annotations
@@ -39,6 +57,7 @@ NAME = "decode_attention"
 SELF, LAYER, CROSS = "decode_self_attention", "decode_attention_layer", "decode_cross_attention"
 MERGED, LAYER_U = "decode_attention_merged", "decode_attention_layer_unscaled"
 CROSS_U = "decode_cross_attention_unpacked"
+MERGED4, LAYER4 = "decode_attention_merged_int4", "decode_attention_layer_int4"
 FLOATS = (torch.float32, torch.bfloat16)
 HEAD_DIM = 64
 NEG_BIG = -1e30
@@ -56,6 +75,8 @@ def _fn(fn: str):
             LAYER_U: [p, i, p, p, p, p, p, i, i, i, i, i, i, p],
             CROSS: [p, i, p, p, p, i, i, i, i, i, i, i, p],
             CROSS_U: [p, i, i, p, p, p, i, i, i, i, i, i, i, p],
+            MERGED4: [p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p],
+            LAYER4: [p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p],
         }[fn]
         _FNS[fn] = _build.declare(_build.library(NAME), fn, args)
     return _FNS[fn]
@@ -280,6 +301,163 @@ def decode_attention_merged(
     _build.check(err, MERGED)
     _build.count_launch(MERGED, (b, ctx, d))
     return out
+
+
+def packed_scales_ok(kv_scale, ds_k: int, ds_v: int, k_packed: bool, v_packed: bool) -> bool:
+    """Counterpart of ``pallas_attention._packed_scales_ok``: the scale
+    row's width must match the cache dtypes, 2 (a scalar a side), ``2·ng``
+    (int4 keys and values, ``ng/2`` groups dividing the stored half width)
+    or ``1 + ng`` (mixed: the int8 keys' scalar, then the values' groups)."""
+    sw = kv_scale.shape[-1]
+    if k_packed and v_packed:
+        if sw == 2:
+            return True
+        ng = sw // 2
+        return sw % 2 == 0 and ng % 2 == 0 and ds_k % (ng // 2) == 0
+    if v_packed:
+        ng = sw - 1
+        return sw >= 3 and ng % 2 == 0 and ds_v % (ng // 2) == 0
+    return sw == 2
+
+
+def int4_lanes(fn: str, q, k_cache, v_cache, kv_scale, n_heads: int) -> tuple[int, int, int, int, int]:
+    """The layout of a uint8-valued self cache, as kernels G and H take it:
+    ``(k_int4, sw, kgs, vgs, voff)``. Keys are int4 pairs (``k_int4``) or
+    int8; ``sw`` is the scale row's width (0 without scales); the key scale
+    of channel ``c`` sits in lane ``c // kgs`` (``kgs`` channels a group)
+    or lane 0 with ``kgs = 0``, the value scale in lane ``voff + c // vgs``
+    or ``voff``. Raises ``ValueError`` for a layout the kernels do not
+    serve: odd head counts (a head would straddle the two nibble halves),
+    groups narrower than a head, a mixed cache without scales."""
+    b, _, d = q.shape
+    if v_cache.dtype != torch.uint8 or k_cache.dtype not in (torch.uint8, torch.int8):
+        raise ValueError(f"{fn}: uint8 values with uint8 or int8 keys, got {k_cache.dtype}, {v_cache.dtype}")
+    k4 = k_cache.dtype == torch.uint8
+    l_dim, kb, ctx, ds_k = k_cache.shape
+    if (kb, ds_k) != (b, d // 2 if k4 else d) or v_cache.shape != (l_dim, b, ctx, d // 2):
+        raise ValueError(f"{fn}: cache shapes do not match the query")
+    if n_heads % 2:
+        raise ValueError(f"{fn}: an int4 self cache needs an even head count, got {n_heads}")
+    if kv_scale is None:
+        if not k4:
+            raise ValueError(f"{fn}: int8 keys with int4 values carry scales")
+        return 1, 0, 0, 0, 0
+    sw = kv_scale.shape[-1]
+    if kv_scale.shape != (l_dim, b, ctx, sw) or not packed_scales_ok(kv_scale, ds_k, d // 2, k4, True):
+        raise ValueError(f"{fn}: scales {tuple(kv_scale.shape)} do not fit the cache")
+    if k4 and sw == 2:
+        return 1, 2, 0, 0, 1
+    ng = sw // 2 if k4 else sw - 1
+    gs = d // ng
+    if gs % HEAD_DIM:
+        raise ValueError(f"{fn}: scale groups of {gs} channels split a head")
+    return (1, sw, gs, gs, ng) if k4 else (0, sw, 0, gs, 1)
+
+
+def dequantize_self_rows(k, v, scales, lanes) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows ``[..., D/2]`` (int4) or ``[..., D]`` (int8) of a uint8-valued
+    self cache and their scales ``[..., sw]`` (None without scales) ->
+    keys and values ``[..., D]`` f32 by the layout of :func:`int4_lanes`:
+    channel ``c`` is ``code · scale[off + c // gs]``."""
+    k_int4, sw, kgs, vgs, voff = lanes
+    kf = unpack_int4(k, -1, torch.float32) if k_int4 else k.float()
+    vf = unpack_int4(v, -1, torch.float32)
+    if not sw:
+        return kf, vf
+
+    def expand(off, gs):
+        if not gs:
+            return scales[..., off : off + 1]
+        return scales[..., off : off + kf.shape[-1] // gs].repeat_interleave(gs, dim=-1)
+
+    return kf * expand(0, kgs), vf * expand(voff, vgs)
+
+
+def decode_attention_layer_int4_plain(q, k_cache, v_cache, kv_scale, layer, valid, n_heads):
+    lanes = int4_lanes(LAYER4, q, k_cache, v_cache, kv_scale, n_heads)
+    sc = None if kv_scale is None else kv_scale[layer, :, :valid]
+    kf, vf = dequantize_self_rows(k_cache[layer, :, :valid], v_cache[layer, :, :valid], sc, lanes)
+    return decode_attention_layer_plain(q, kf[None], vf[None], None, 0, valid, n_heads)
+
+
+def decode_attention_merged_int4_plain(q, k_cache, v_cache, kv_scale, layer, pos, n_heads, k_new, v_new):
+    state = decode_attention_layer_int4_plain(q, k_cache, v_cache, kv_scale, layer, pos, n_heads)
+    return flash_merge_extra_key(*state, q, k_new, v_new, n_heads)
+
+
+def _int4_call(fn, q, k_cache, v_cache, kv_scale, layer, valid, n_heads, top, extra):
+    """Check the inputs of kernel G (``fn = MERGED4``, ``extra = (k_new,
+    v_new)``) or H (``LAYER4``, ``extra = ()``) and launch it; returns its
+    outputs, or None for CPU tensors (the caller takes the plain version)."""
+    b, _, d = q.shape
+    l_dim, _, ctx, _ = k_cache.shape
+    _check_heads(d, n_heads)
+    lanes = int4_lanes(fn, q, k_cache, v_cache, kv_scale, n_heads)
+    if not (0 <= valid <= ctx - top and 0 <= layer < l_dim):
+        raise ValueError(f"{fn}: position {valid} / layer {layer} out of range")
+    if any(t.shape != (b, 1, d) for t in extra):
+        raise ValueError(f"{fn}: current-token rows must be [B, 1, D]")
+    if q.device.type == "cpu":
+        return None
+    q, extra = q.contiguous(), tuple(t.contiguous() for t in extra)
+    scales = () if kv_scale is None else (kv_scale,)
+    _build.require_cuda(q, k_cache, v_cache, *scales, *extra)
+    if q.dtype not in FLOATS or any(t.dtype != q.dtype for t in extra):
+        raise ValueError(f"{fn}: q (and k_new, v_new) f32 or bf16, of one dtype")
+    if scales and kv_scale.dtype != torch.float32:
+        raise ValueError(f"{fn}: f32 scales")
+    if ctx * 4 > _MAX_SMEM:
+        raise ValueError(f"{fn}: ctx {ctx} exceeds the score buffer")
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=q.device)
+    # G: the normalized output; H: acc, m, l
+    outs = (f32(b, 1, d),) if extra else (f32(b, 1, d), f32(b, 1, n_heads), f32(b, 1, n_heads))
+    err = _fn(fn)(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(), v_cache.data_ptr(),
+        kv_scale.data_ptr() if scales else None, *(t.data_ptr() for t in extra + outs),
+        layer, valid, b, ctx, d, n_heads, *lanes, _build.stream_ptr(q.device),
+    )
+    _build.check(err, fn)
+    _build.count_launch(fn, (b, ctx, d, lanes[1]))
+    return outs
+
+
+def decode_attention_layer_int4(
+    q: torch.Tensor,  # [B, 1, D] compute dtype
+    k_cache: torch.Tensor,  # uint8 [L, B, ctx, D/2] int4 pairs, or int8 [L, B, ctx, D] (mixed)
+    v_cache: torch.Tensor,  # uint8 [L, B, ctx, D/2]
+    kv_scale: torch.Tensor | None,  # f32 [L, B, ctx, sw], K lanes then V lanes (int4_lanes)
+    layer: int,
+    valid: int,
+    n_heads: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`decode_attention_layer` over a uint8-valued self cache (kernel
+    H): the unnormalized ``(acc, m, l)`` over keys ``t < valid``, with the
+    values' scales in ``acc`` and left out of ``l``."""
+    outs = _int4_call(LAYER4, q, k_cache, v_cache, kv_scale, layer, valid, n_heads, 0, ())
+    if outs is None:
+        return decode_attention_layer_int4_plain(q, k_cache, v_cache, kv_scale, layer, valid, n_heads)
+    return outs
+
+
+def decode_attention_merged_int4(
+    q: torch.Tensor,  # [B, 1, D] compute dtype
+    k_cache: torch.Tensor,  # uint8 [L, B, ctx, D/2] or int8 [L, B, ctx, D]
+    v_cache: torch.Tensor,  # uint8 [L, B, ctx, D/2]
+    kv_scale: torch.Tensor | None,  # f32 [L, B, ctx, sw]
+    layer: int,
+    pos: int,
+    n_heads: int,
+    k_new: torch.Tensor,  # [B, 1, D] the current token's raw K, not yet cached
+    v_new: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`decode_attention_merged` over a uint8-valued self cache
+    (kernel G): keys ``t < pos`` and the current token's raw K/V in one
+    softmax, the normalized f32 ``[B, 1, D]``. Stores nothing: the caller
+    quantizes and writes the token's row after its layer loop."""
+    outs = _int4_call(MERGED4, q, k_cache, v_cache, kv_scale, layer, pos, n_heads, 1, (k_new, v_new))
+    if outs is None:
+        return decode_attention_merged_int4_plain(q, k_cache, v_cache, kv_scale, layer, pos, n_heads, k_new, v_new)
+    return outs[0]
 
 
 def unpack_int4(p: torch.Tensor, dim: int, dtype: torch.dtype) -> torch.Tensor:

@@ -1,13 +1,43 @@
-"""Serving-time parameter preparation (port of the JAX package's
-``transcribe.prepare_params`` and ``transcribe.quantize_logit_embedding``;
-the pipeline itself is ROADMAP Queue 1, item 10)."""
+"""End-to-end transcription: audio -> mel -> encode -> decode -> text.
+
+Port of ``whisper_burn_tpu/transcribe.py``: :func:`prepare_params`,
+:func:`quantize_logit_embedding`, :func:`stitch_texts` and
+:class:`WhisperPipeline`, the entry point a user calls (resample to 16 kHz
+-> pad/truncate to one 30 s window -> log-mel -> greedy or beam decode ->
+ids below EOT -> BPE text), with batches bucketed to powers of two and
+long audio in overlapping windows.
+
+What the JAX module has and this one does not:
+
+* ``enable_compilation_cache``, JAX's persistent cache of compiled XLA
+  programs, has no counterpart: PyTorch runs eagerly, and the CUDA kernels
+  are built once per source into ``build/kernels`` (``ops/_build.py``);
+* a ``LoadedModel`` (the GGUF loader) as the model waits for ROADMAP
+  Queue 1, item 12: the model is a ``(WhisperConfig, params)`` tuple;
+* a device ``mesh`` (tensor and data parallelism) waits for item 15.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import time
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
 import torch
 
+from whisper_burn_tpu_torch.audio.io import AudioBuffer
+from whisper_burn_tpu_torch.audio.mel import WHISPER_HOP, MelFrontend, pad_or_trim
+from whisper_burn_tpu_torch.audio.resample import resample_to_16k
+from whisper_burn_tpu_torch.languages import lang_token_id
+from whisper_burn_tpu_torch.models.beam import beam_decode
+from whisper_burn_tpu_torch.models.config import MAX_TOKENS, WhisperConfig
 from whisper_burn_tpu_torch.models.params import attach_w8a8, fuse_attention_params
-from whisper_burn_tpu_torch.ops.compute import Compute
+from whisper_burn_tpu_torch.models.whisper import greedy_decode
+from whisper_burn_tpu_torch.ops.compute import Compute, resolve_device
+from whisper_burn_tpu_torch.tokenizer import WhisperTokenizer
+from whisper_burn_tpu_torch.utils.profiling import StageTimer, ThroughputMeter
 
 LOGIT_N_ALIGN = 512
 
@@ -62,3 +92,246 @@ def prepare_params(params: dict, compute: Compute) -> dict:
         return out
 
     return cast(params)
+
+
+@dataclass
+class TranscribeResult:
+    text: str
+    # the batch's wall time divided by its real (unpadded) size
+    inference_ms: float
+    tokens: np.ndarray  # generated ids (EOT-trimmed)
+    lang_token: int
+
+
+def _norm_word(w: str) -> str:
+    return w.strip(".,!?;:\"'").lower()
+
+
+def stitch_texts(texts: Sequence[str], min_match: int = 2, max_match: int = 24) -> str:
+    """Merge transcripts of overlapping audio windows into one text.
+
+    Consecutive windows share ``overlap_seconds`` of audio, so the head of
+    each transcript repeats the tail of the previous one. For each join,
+    find the longest ``k`` (``min_match <= k <= max_match``) where the last
+    ``k`` words of the accumulated text equal the first ``k`` words of the
+    next transcript (case/punctuation-insensitive) and drop that duplicated
+    prefix. If no aligned run exists (silence in the overlap, or decode
+    divergence) the texts are joined as-is — never dropping unseen words.
+
+    A word *split* by the previous window's hard cut is decoded whole by
+    the next window; because the split fragment rarely matches, alignment
+    is also attempted with the previous window's final word excluded, and
+    that (likely fragmentary) word is dropped when the next window's
+    overlap region covers it.
+    """
+    out_words: list[str] = []
+    for text in texts:
+        words = text.split()
+        if not out_words:
+            out_words = words
+            continue
+        if not words:
+            continue
+
+        def match_len(base: list[str]) -> int:
+            limit = min(len(base), len(words), max_match)
+            for k in range(limit, min_match - 1, -1):
+                if [_norm_word(w) for w in base[-k:]] == [_norm_word(w) for w in words[:k]]:
+                    return k
+            return 0
+
+        k = match_len(out_words)
+        if k:
+            out_words.extend(words[k:])
+            continue
+        # boundary-split word: retry with the (fragmentary) final word of
+        # the previous window removed
+        k = match_len(out_words[:-1])
+        if k:
+            out_words = out_words[:-1] + words[k:]
+        else:
+            out_words.extend(words)
+    return " ".join(out_words).strip()
+
+
+def _to_device(tree: dict, device: torch.device) -> dict:
+    """Parameters (tensors or numpy arrays) on ``device``, dtypes kept."""
+    return {k: _to_device(v, device) if isinstance(v, dict) else torch.as_tensor(v).to(device) for k, v in tree.items()}
+
+
+class WhisperPipeline:
+    """Parameters prepared once on one device, and the calls that serve
+    audio through them: :meth:`transcribe`, :meth:`transcribe_batch`,
+    :meth:`transcribe_long`.
+
+    ``model`` is ``(cfg, params)``; the parameters go through
+    :func:`prepare_params` for ``compute`` (``Compute.parity()`` unless
+    given) on ``device``, which is ``cuda`` unless the caller passes
+    another (``resolve_device``: no CUDA device raises). ``frontend``
+    "openai" takes the Slaney-normed mel and exact GELU, "reference" the
+    unnormalized mel and tanh GELU. ``beam_width > 1`` decodes by beam
+    search. A batch is always padded to the next power of two with silence
+    and language 50259, as the JAX pipeline does: a quantized cross cache
+    takes its scales over the whole batch, so the padding is part of the
+    result. ``profile`` keeps per-stage wall times (audio prep, device
+    step, detokenize) and throughput, read with :meth:`profile_report`.
+    """
+
+    def __init__(
+        self,
+        model: tuple[WhisperConfig, dict],
+        tokenizer: WhisperTokenizer | None = None,
+        compute: Compute | None = None,
+        frontend: str = "openai",
+        max_tokens: int = MAX_TOKENS,
+        beam_width: int = 1,
+        task: str = "transcribe",
+        mesh=None,
+        profile: bool = False,
+        device: str | torch.device | None = None,
+    ):
+        if mesh is not None:
+            raise NotImplementedError("a device mesh is not ported yet: ROADMAP Queue 1, item 15")
+        cfg, params = model
+        if frontend == "openai":
+            cfg = cfg.replace(gelu="erf")
+            mel_norm = "slaney"
+        elif frontend == "reference":
+            cfg = cfg.replace(gelu="tanh")
+            mel_norm = None
+        else:
+            raise ValueError(f"unknown frontend {frontend!r}")
+        self.device = resolve_device(device)
+        self.config = cfg
+        self.compute = compute or Compute.parity()
+        self.tokenizer = tokenizer
+        self.max_tokens = max_tokens
+        self.beam_width = beam_width
+        self.task = task
+        self.params = prepare_params(_to_device(params, self.device), self.compute)
+        self.mel = MelFrontend(n_mels=cfg.n_mels, norm=mel_norm)
+        # 30 s (480,000 samples) for real models; from the audio context so
+        # small test configs work too (frames = 2 * n_audio_ctx)
+        self.chunk_samples = cfg.n_audio_ctx * 2 * WHISPER_HOP
+        self.profile = profile
+        self.stage_timer = StageTimer(sync=True, device=self.device) if profile else None
+        self.throughput = ThroughputMeter() if profile else None
+
+    def _decode(self, samples: np.ndarray, lang_tokens: np.ndarray, detect: bool):
+        audio = torch.from_numpy(samples).to(self.device)
+        langs = torch.from_numpy(lang_tokens).to(self.device)
+        features = self.mel(audio)  # [B, n_mels, 2 * n_audio_ctx]
+        cfg, compute = self.config, self.compute
+        if self.beam_width > 1:
+            return beam_decode(
+                self.params, cfg, features, langs, compute, beam_width=self.beam_width,
+                detect=detect, max_tokens=self.max_tokens, task=self.task,
+            )
+        return greedy_decode(
+            self.params, cfg, features, langs, compute, detect=detect, max_tokens=self.max_tokens, task=self.task
+        )
+
+    # -- public API --------------------------------------------------------
+
+    def transcribe(self, audio: AudioBuffer | np.ndarray, language: str | None = "auto") -> TranscribeResult:
+        """Transcribe one utterance (<= 30 s; longer input is truncated like
+        the reference — use :meth:`transcribe_long` for full coverage)."""
+        return self.transcribe_batch([audio], [language])[0]
+
+    def transcribe_batch(
+        self,
+        audios: Sequence[AudioBuffer | np.ndarray],
+        languages: Sequence[str | None] | None = None,
+    ) -> list[TranscribeResult]:
+        """Transcribe a batch of utterances in one decode."""
+        stage = self.stage_timer.stage if self.profile else (lambda name: contextlib.nullcontext())
+        if self.profile:
+            self.throughput.begin()
+
+        b = len(audios)
+        if languages is None:
+            languages = ["auto"] * b
+        with stage("audio_prep"):
+            samples = np.stack([self._prep_audio(a) for a in audios])
+        lang_tokens = np.array([self._lang_token(l) for l in languages], np.int32)
+        detect = bool((lang_tokens < 0).any())
+
+        padded_b = 1 << (b - 1).bit_length()  # next power of two
+        if padded_b != b:
+            pad = padded_b - b
+            samples = np.concatenate([samples, np.zeros((pad,) + samples.shape[1:], samples.dtype)])
+            lang_tokens = np.concatenate([lang_tokens, np.full(pad, 50259, np.int32)])
+
+        start = time.perf_counter()
+        with stage("device_step"):
+            result = self._decode(samples, lang_tokens, detect)
+            tokens = result.tokens.cpu().numpy()  # waits for the device
+        ms = (time.perf_counter() - start) * 1000.0 / b  # amortized per utterance
+        n_gen = result.n_generated.cpu().numpy()
+        langs = result.lang_tokens.cpu().numpy()
+
+        out = []
+        with stage("detokenize"):
+            for i in range(b):
+                ids = tokens[i, : n_gen[i]]
+                text = self.tokenizer.decode_transcription(ids) if self.tokenizer else ""
+                out.append(TranscribeResult(text, ms, ids, int(langs[i])))
+        if self.profile:
+            self.throughput.end(audio_seconds=b * samples.shape[1] / 16000.0, tokens=int(n_gen[:b].sum()))
+        return out
+
+    def transcribe_long(
+        self,
+        audio: AudioBuffer | np.ndarray,
+        language: str | None = "auto",
+        overlap_seconds: float = 5.0,
+    ) -> TranscribeResult:
+        """Chunked transcription for audio of any length.
+
+        Windows of 30 s with ``overlap_seconds`` of shared audio between
+        consecutive windows, decoded as one batch, then stitched word by
+        word (:func:`stitch_texts`); ``overlap_seconds=0`` concatenates."""
+        samples = self._to_16k(audio)
+        n = len(samples)
+        overlap = min(int(overlap_seconds * 16000), self.chunk_samples // 2)
+        stride = self.chunk_samples - overlap if n > self.chunk_samples else self.chunk_samples
+        starts = list(range(0, max(n - overlap, 1), stride))
+        chunks = [samples[i : i + self.chunk_samples] for i in starts]
+        results = self.transcribe_batch([np.asarray(c, np.float32) for c in chunks], [language] * len(chunks))
+        texts = [r.text for r in results]
+        text = stitch_texts(texts) if overlap and len(texts) > 1 else " ".join(t for t in texts if t).strip()
+        return TranscribeResult(
+            text=text,
+            inference_ms=sum(r.inference_ms for r in results),
+            tokens=np.concatenate([r.tokens for r in results]),
+            lang_token=results[0].lang_token,
+        )
+
+    def profile_report(self) -> str:
+        """Per-stage timings + throughput counters (requires profile=True)."""
+        if not self.profile:
+            return "profiling disabled (construct with profile=True)"
+        lines = [self.stage_timer.report()]
+        lines.append(
+            f"throughput: {self.throughput.audio_s_per_s:.1f} audio-s/s, "
+            f"{self.throughput.tokens_per_s:.1f} tok/s over "
+            f"{self.throughput.wall_seconds:.2f}s"
+        )
+        return "\n".join(lines)
+
+    # -- helpers -----------------------------------------------------------
+
+    def _to_16k(self, audio: AudioBuffer | np.ndarray) -> np.ndarray:
+        if isinstance(audio, AudioBuffer):
+            if audio.sample_rate != 16000:
+                audio = resample_to_16k(audio)
+            return audio.samples
+        return np.asarray(audio, np.float32)
+
+    def _prep_audio(self, audio: AudioBuffer | np.ndarray) -> np.ndarray:
+        return pad_or_trim(self._to_16k(audio), self.chunk_samples)
+
+    def _lang_token(self, language: str | None) -> int:
+        if language is None or language == "auto":
+            return -1
+        return lang_token_id(language, n_lang=self.config.n_lang)
