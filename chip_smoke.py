@@ -33,7 +33,11 @@ Phases, each timed and each fatal on failure:
    launches are held against the counts the shapes predict, and its host
    syncs counted (at most one per done check);
 4. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the main paths' Large-V3 shapes (kernel A at M = 8, 32 and
+   the card, at the main paths' Large-V3 shapes (kernel A, the Q4 matmul,
+   in its two regimes: the weight read, K split over a thread block
+   cluster with each weight byte read once, for f32 x and bf16 x of few
+   rows, and 128 x 128 mma.sync tiles for bf16 x of many rows; each row
+   names its regime. Kernel A at M = 8, 32 and
    40 rows, and at the entry's 1, 4, 1500 cross-fill and 1536 encoder rows;
    B and B' at 4, 115 and 227 cached keys, B' also at the entry's one
    stream and 4, 11 and 18; C and C' (int8 and bf16) ungrouped and with 5
@@ -92,6 +96,7 @@ CTX = 256  # the self cache of 224 tokens: 4 + 224 rounded up to 64
 SEED = 0
 TRACE_DIR = Path(__file__).resolve().parent / "build" / "traces"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+TRACE_ATTEMPTS = 3  # traces device_ms takes before it gives up on lost records
 # the hand-written kernels as the trace names them, by counter name
 KERNEL_OF = {"q4_matmul": "q4_matmul", "decode_self_attention": "self_attn",
              "decode_attention_merged": "merged_attn", "decode_attention_layer": "layer_attn",
@@ -148,9 +153,12 @@ def device_ms(fn, iters: int, warmup: int = 3, ours: bool = False):
     """Device milliseconds per call of ``fn`` from a trace of ``iters``
     calls: the summed durations of what it runs on the card, host dispatch
     excluded. With ``ours``, the mean duration of the hand-written kernel's
-    launches and their signatures. The trace may lose a launch's record
-    (the first of a session most often), so two calls run in the session
-    before the timed window, and ``ours`` averages the records it got."""
+    launches and their signatures. The trace may lose launch records (the
+    first of a session most often; kernel A's short cluster launches lost
+    12 of 64), so two calls run in the session before the timed window,
+    ``ours`` averages the records it got, at least half of them, and a
+    trace that lost the window's device range or more records is taken
+    again, up to ``TRACE_ATTEMPTS`` times."""
     from torch.profiler import record_function
 
     for _ in range(warmup):
@@ -162,16 +170,22 @@ def device_ms(fn, iters: int, warmup: int = 3, ours: bool = False):
             for _ in range(iters):
                 fn()
 
-    _, dev, ranges = traced(window)
-    (lo, hi), = [(e["ts"], e["ts"] + e["dur"]) for e in ranges
+    for _ in range(TRACE_ATTEMPTS):
+        _, dev, ranges = traced(window)
+        spans = [(e["ts"], e["ts"] + e["dur"]) for e in ranges
                  if e["cat"] == "gpu_user_annotation" and e["name"] == "chip_smoke.window"]
-    dev = [e for e in dev if lo <= e["ts"] <= hi]
-    if not ours:
-        return sum(e["dur"] for e in dev) / iters / 1e3
-    mine = [e for e in dev if OURS.search(e["name"])]
-    if not iters - 2 <= len(mine) <= iters:
-        raise AssertionError(f"{len(mine)} kernel launches traced for {iters} calls")
-    return sum(e["dur"] for e in mine) / len(mine) / 1e3, {signature(e) for e in mine}
+        if len(spans) != 1:
+            problem = f"{len(spans)} device ranges of the timed window"
+            continue
+        (lo, hi), = spans
+        dev = [e for e in dev if lo <= e["ts"] <= hi]
+        if not ours:
+            return sum(e["dur"] for e in dev) / iters / 1e3
+        mine = [e for e in dev if OURS.search(e["name"])]
+        if iters // 2 <= len(mine) <= iters:
+            return sum(e["dur"] for e in mine) / len(mine) / 1e3, {signature(e) for e in mine}
+        problem = f"{len(mine)} kernel launches traced for {iters} calls"
+    raise AssertionError(f"{problem}, in each of {TRACE_ATTEMPTS} traces")
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -219,7 +233,9 @@ def check(name: str, err: float, ref: torch.Tensor, rel: float) -> None:
 
 def q4_rows(cases, gen, path: str) -> list[dict]:
     """Kernel A at each (site, rows, linear, gelu, out dtype, replaces) of
-    ``cases`` against its plain version in bf16 and f32, and its times."""
+    ``cases`` against its plain version in bf16 and f32, its times, and the
+    regime its bf16 launches take (the f32 check runs the weight-read
+    regime's f32 form)."""
     from whisper_burn_tpu_torch.ops import q4_kernel
     from whisper_burn_tpu_torch.ops.q4_matmul import dequant_weight
 
@@ -261,6 +277,7 @@ def q4_rows(cases, gen, path: str) -> list[dict]:
         b_ms, b_by = bound(nbytes, 2.0 * m * k * n)
         rows.append(dict(
             name=f"q4_matmul/{site}", route="cuda", source=q4, replaces=replaces, path=path,
+            regime=q4_kernel.regime(m, x.dtype),
             shape_key=["q4_matmul", [m, k, n, epi]], sig=sig, max_abs_err=err_bf16, isolated_ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             library_call="torch.matmul(x, w) on a pre-dequantized bf16 weight (no bias, no GELU)",
@@ -1171,7 +1188,8 @@ def traced_run(run, sigs: dict, alias=lambda key: key):
     the device durations (µs) of the hand-written kernels' launches by
     (kernel, shape), matched one by one to the launch log by their
     signatures ``sigs`` (from the kernel phase), the records the trace
-    lost per kernel, the device events, the ranges and the launch log.
+    lost per kernel and the ms those launches took (each at its shape's
+    mean), the device events, the ranges and the launch log.
     ``alias`` maps a logged (kernel, shape) key to the key of its row."""
     from whisper_burn_tpu_torch.ops import _build
 
@@ -1187,21 +1205,29 @@ def traced_run(run, sigs: dict, alias=lambda key: key):
     # record in the trace (launches of one signature share a shape, but
     # for attn_o / fc2, where two lost records in a row could swap them)
     ours = sorted((e for e in dev if OURS.search(e["name"])), key=lambda e: e["args"]["correlation"])
-    durations, lost = collections.defaultdict(list), {}
+    durations, lost, lost_ms = collections.defaultdict(list), {}, {}
     for name, kernel in KERNEL_OF.items():
         traced_ = [e for e in ours if OURS.search(e["name"]).group(1) == kernel]
         logged = [alias(json.dumps([name, list(shape)])) for n, shape in launch_log if n == name]
-        j = 0
+        j, missed = 0, []
         for key in logged:
             if j < len(traced_) and signature(traced_[j]) == sigs[key]:
                 durations[key].append(traced_[j]["dur"])
                 j += 1
+            else:
+                missed.append(key)
         if j != len(traced_):
             raise AssertionError(f"{name}: {len(traced_) - j} traced launches match no logged launch")
-        lost[name] = len(logged) - j
-        if lost[name] > max(1, len(logged) // 100):
+        lost[name] = len(missed)
+        # the profiler loses records of kernel A's short cluster launches
+        # most; every other kernel may lose one in a hundred
+        limit = len(logged) // (5 if kernel == "q4_matmul" else 100)
+        if lost[name] > max(1, limit):
             raise AssertionError(f"{name}: the trace lost {lost[name]} of {len(logged)} launch records")
-    return res, wall, durations, lost, dev, ranges, launch_log
+        # a lost launch counted at its shape's mean (the kernel's longest if none of its shape survived)
+        means = {key: sum(durations[key]) / len(durations[key]) for key in set(logged) if durations.get(key)}
+        lost_ms[name] = sum(means.get(key, max(means.values(), default=0.0)) for key in missed) / 1e3
+    return res, wall, durations, lost, lost_ms, dev, ranges, launch_log
 
 
 def stage_split(ranges, entry: str) -> tuple[dict, dict]:
@@ -1285,7 +1311,7 @@ def traced_path(path: MainPath, cfg, sigs: dict, max_tokens: int) -> tuple[dict,
             shape[2] = CTX
         return json.dumps([kernel, shape])
 
-    res, wall, durations, lost, dev, ranges, launch_log = traced_run(run, sigs, alias)
+    res, wall, durations, lost, lost_ms, dev, ranges, launch_log = traced_run(run, sigs, alias)
     entry = "beam_decode" if path.beam else "greedy_decode"
     stages, spans = stage_split(ranges, entry)
     self_fn = self_kernel(path.compute, path.beam)
@@ -1306,7 +1332,11 @@ def traced_path(path: MainPath, cfg, sigs: dict, max_tokens: int) -> tuple[dict,
         **decode_split(dev, spans["decode"], steps, reorder, logits),
         "request_device_busy_ms": sum(e["dur"] for e in dev) / 1e3,
         "trace_records_lost": lost,
+        "trace_records_lost_ms": lost_ms,
     }
+    # the kernels' time a step, the lost records' launches counted as if
+    # all ran in the decode span: the most the records could understate it
+    breakdown["decode_step_kernels_max_ms"] = breakdown["decode_step_kernels_ms"] + sum(lost_ms.values()) / steps
     return durations, breakdown
 
 

@@ -36,7 +36,7 @@ from whisper_burn_tpu_torch.ops.encoder_attention import (
     encoder_attention_heads_plain,
     encoder_attention_plain,
 )
-from whisper_burn_tpu_torch.ops.q4_kernel import q4_matmul, q4_matmul_plain
+from whisper_burn_tpu_torch.ops.q4_kernel import q4_matmul, q4_matmul_plain, regime
 
 pytestmark = pytest.mark.cuda
 
@@ -54,19 +54,59 @@ def _rel_err(out, ref):
     return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
-# M = 40: beam search's decode rows (8 utterances x 5 beams), five 8-row blocks
-@pytest.mark.parametrize("m,k,n,gelu", [(1, 256, 768, None), (37, 1280, 1284, "tanh"), (40, 1280, 1280, None), (300, 512, 256, "erf")])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
-def test_q4_matmul_kernel(gen, m, k, n, gelu, dtype, tol):
+# Kernel A's two regimes: weight read (f32 x; bf16 x of few rows) with K
+# split over a cluster, tensor cores (bf16 x of many rows). Shapes: M = 1
+# with K 5120 split 8 ways, decode qkv at 8 rows, 37 and 40 rows (beam
+# search's 8 x 5) with N = 1284 not a multiple of the column tile, the
+# cross fill's 1500 and the encoder's 1536 rows (ragged against the
+# 128-row tile), and K = 288, not a multiple of any K tile; 20 and 63 rows
+# take two and four 16-row tiles in the bf16 weight-read form.
+Q4_SHAPES = [(1, 256, 768), (1, 5120, 1280), (8, 1280, 3840), (20, 512, 1284), (37, 1280, 1284),
+             (40, 1280, 1280), (40, 1280, 1284), (63, 1280, 768), (300, 512, 256), (300, 288, 256),
+             (1500, 1280, 2560), (1536, 5120, 1280)]
+EPILOGUES = [(False, None), (True, None), (True, "tanh"), (True, "erf")]
+
+
+def _q4_inputs(gen, m, k, n, dtype):
     qw = torch.randint(-8, 8, (3, k, n), generator=gen, device="cuda", dtype=torch.int8)
     sc = torch.rand((3, k // 32, n), generator=gen, device="cuda") * 0.01
     b = torch.randn((3, n), generator=gen, device="cuda") * 0.1
     x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    return x, qw, sc, b
+
+
+@pytest.mark.parametrize("m,k,n", Q4_SHAPES)
+@pytest.mark.parametrize("with_bias,gelu", EPILOGUES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_q4_matmul_kernel(gen, m, k, n, with_bias, gelu, dtype, tol):
+    x, qw, sc, b = _q4_inputs(gen, m, k, n, dtype)
+    bias = b if with_bias else None
     _build.reset_launches()
-    out = q4_matmul(x, qw, sc, layer=2, bias=b, gelu=gelu)
+    out = q4_matmul(x, qw, sc, layer=2, bias=bias, gelu=gelu)
     assert _build.LAUNCHES["q4_matmul"] == 1
-    ref = q4_matmul_plain(x, qw[2], sc[2], b[2], gelu, dtype)
+    torch.cuda.synchronize()
+    ref = q4_matmul_plain(x, qw[2], sc[2], b[2] if with_bias else None, gelu, dtype)
+    assert out.shape == (m, n) and out.dtype == dtype
     assert _rel_err(out, ref) <= tol
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [(1, 5120, 1280, torch.bfloat16), (8, 1280, 3840, torch.float32),
+                                         (40, 1280, 1284, torch.bfloat16), (1536, 1280, 3840, torch.bfloat16)])
+def test_q4_matmul_bitwise_repeatable(gen, m, k, n, dtype):
+    """A fixed order of summation (no float atomics): two calls on the same
+    inputs give the same bits, in both regimes."""
+    x, qw, sc, b = _q4_inputs(gen, m, k, n, dtype)
+    first = q4_matmul(x, qw, sc, layer=1, bias=b, gelu="tanh", out_dtype=torch.float32)
+    second = q4_matmul(x, qw, sc, layer=1, bias=b, gelu="tanh", out_dtype=torch.float32)
+    assert torch.equal(first, second)
+
+
+def test_q4_matmul_regimes(gen):
+    """f32 x always reads weights on CUDA cores; bf16 x goes to tensor cores
+    from the threshold up, the entry's 1500 and 1536 rows among them."""
+    assert regime(1536, torch.float32) == "weight_read"
+    assert regime(1, torch.bfloat16) == regime(8, torch.bfloat16) == "weight_read"
+    assert regime(1500, torch.bfloat16) == regime(1536, torch.bfloat16) == "tensor_core"
 
 
 @pytest.mark.parametrize("pos", [0, 1, 63])

@@ -140,10 +140,10 @@ def decode_attention_layer(
     (f32 or bf16, of the query's dtype) none, ``sk = sv = 1`` (kernel E')."""
     b, _, d = q.shape
     ctx = k_cache.shape[2]
-    _check_heads(d, n_heads)
     _check_self_cache("decode_attention_layer", q, k_cache, v_cache, kv_scale, layer, valid, 0)
     if q.device.type == "cpu":
         return decode_attention_layer_plain(q, k_cache, v_cache, kv_scale, layer, valid, n_heads)
+    _check_heads(d, n_heads)
     q = q.contiguous()
     scaled = kv_scale is not None
     _build.require_cuda(q, k_cache, v_cache, *([kv_scale] if scaled else []))
@@ -224,7 +224,6 @@ def decode_self_attention(
     ``pos`` of ``layer`` in place."""
     b, _, d = q.shape
     ctx = k_cache.shape[2]
-    _check_heads(d, n_heads)
     _check_self_cache("decode_self_attention", q, k_cache, v_cache, kv_scale, layer, pos, 1)
     for t in (k_new, v_new, kq, vq):
         if t.shape != (b, 1, d):
@@ -235,6 +234,7 @@ def decode_self_attention(
         return decode_self_attention_plain(
             q, k_cache, v_cache, kv_scale, layer, pos, n_heads, k_new, v_new, kq, vq, new_scale
         )
+    _check_heads(d, n_heads)
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     kq, vq, new_scale = kq.contiguous(), vq.contiguous(), new_scale.contiguous()
     _build.require_cuda(q, k_cache, v_cache, kv_scale, k_new, v_new, kq, vq, new_scale)
@@ -279,12 +279,12 @@ def decode_attention_merged(
     caller writes the token's row after its layer loop."""
     b, _, d = q.shape
     ctx = k_cache.shape[2]
-    _check_heads(d, n_heads)
     _check_self_cache("decode_attention_merged", q, k_cache, v_cache, None, layer, pos, 1)
     if k_new.shape != (b, 1, d) or v_new.shape != (b, 1, d):
         raise ValueError("decode_attention_merged: current-token rows must be [B, 1, D]")
     if q.device.type == "cpu":
         return decode_attention_merged_plain(q, k_cache, v_cache, layer, pos, n_heads, k_new, v_new)
+    _check_heads(d, n_heads)
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     _build.require_cuda(q, k_cache, v_cache, k_new, v_new)
     _check_float_cache("decode_attention_merged", q, k_cache)
@@ -349,7 +349,7 @@ def int4_lanes(fn: str, q, k_cache, v_cache, kv_scale, n_heads: int) -> tuple[in
         return 1, 2, 0, 0, 1
     ng = sw // 2 if k4 else sw - 1
     gs = d // ng
-    if gs % HEAD_DIM:
+    if gs % (d // n_heads):
         raise ValueError(f"{fn}: scale groups of {gs} channels split a head")
     return (1, sw, gs, gs, ng) if k4 else (0, sw, 0, gs, 1)
 
@@ -391,7 +391,6 @@ def _int4_call(fn, q, k_cache, v_cache, kv_scale, layer, valid, n_heads, top, ex
     outputs, or None for CPU tensors (the caller takes the plain version)."""
     b, _, d = q.shape
     l_dim, _, ctx, _ = k_cache.shape
-    _check_heads(d, n_heads)
     lanes = int4_lanes(fn, q, k_cache, v_cache, kv_scale, n_heads)
     if not (0 <= valid <= ctx - top and 0 <= layer < l_dim):
         raise ValueError(f"{fn}: position {valid} / layer {layer} out of range")
@@ -399,6 +398,7 @@ def _int4_call(fn, q, k_cache, v_cache, kv_scale, layer, valid, n_heads, top, ex
         raise ValueError(f"{fn}: current-token rows must be [B, 1, D]")
     if q.device.type == "cpu":
         return None
+    _check_heads(d, n_heads)
     q, extra = q.contiguous(), tuple(t.contiguous() for t in extra)
     scales = () if kv_scale is None else (kv_scale,)
     _build.require_cuda(q, k_cache, v_cache, *scales, *extra)
@@ -505,7 +505,6 @@ def decode_cross_attention(
     b, _, d = q.shape
     l_dim, kb, dk, t = kT.shape
     packed = kT.dtype == torch.uint8
-    _check_heads(d, n_heads)
     if batch_groups < 1 or (kb * batch_groups, dk * (2 if packed else 1)) != (b, d):
         raise ValueError(f"decode_cross_attention: {b} query streams for {kb} cache entries x {batch_groups}")
     v_shape = (l_dim, kb, t // 2, d) if packed else (l_dim, kb, t, d)
@@ -515,6 +514,7 @@ def decode_cross_attention(
         raise ValueError(f"decode_cross_attention: valid {valid} / layer {layer} out of range")
     if q.device.type == "cpu":
         return decode_cross_attention_plain(q, kT, v, layer, valid, n_heads, batch_groups)
+    _check_heads(d, n_heads)
     q = q.contiguous()
     _build.require_cuda(q, kT, v)
     if q.dtype not in FLOATS:

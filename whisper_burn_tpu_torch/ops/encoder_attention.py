@@ -63,12 +63,12 @@ def encoder_attention(
     valid = t if valid is None else valid
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("encoder_attention: q, k, v must share [B, T, D]")
-    if d != n_heads * HEAD_DIM:
-        raise ValueError(f"encoder_attention needs 64-wide heads, got D={d}, H={n_heads}")
     if not 0 < valid <= t:
         raise ValueError(f"encoder_attention: valid {valid} out of (0, {t}]")
     if q.device.type == "cpu":
         return encoder_attention_plain(q, k, v, n_heads, valid)
+    if d != n_heads * HEAD_DIM:
+        raise ValueError(f"encoder_attention: the kernel takes 64-wide heads, got D={d}, H={n_heads}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _build.require_cuda(q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:

@@ -11,10 +11,17 @@ no slice is copied. The fused FFN is two launches: fc1 with the bias+GELU
 epilogue, fc2 with +bias. Its hidden ``[M, 4D]`` activation passes through
 device memory, which the TPU kernel avoided (PERF.md).
 
-On the H100 the decode-shape launches (M = batch) are bound by the weight
-read; the kernel reads each int8 code once per 8-row tile of x (see the
-source note). CPU tensors take :func:`q4_matmul_plain`; CUDA tensors
-launch the kernel or raise.
+One launch per call, in one of two regimes the C entry point picks from M
+and x's dtype (:func:`regime`): the weight-read regime (f32 x, and bf16 x
+below 64 rows: the decode shapes, bound by the weight read) splits K over
+a thread block cluster and reads each weight byte from HBM once whatever
+M, its products in f32 for f32 x and on tensor cores for bf16 x; the
+tensor-core regime (bf16 x of 64 rows and more: the encoder and cross
+fill, bound by operations) dequantizes to bf16 into 128 x 128
+``mma.sync`` tiles. The source note says how each meets its bound. Two
+calls on the same inputs give the same bits (no float atomics). CPU
+tensors take :func:`q4_matmul_plain`; CUDA tensors launch the kernel or
+raise.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from whisper_burn_tpu_torch.models.layers import gelu as _gelu
 from whisper_burn_tpu_torch.ops import _build
 
 NAME = "q4_matmul"
+REGIMES = ("weight_read", "tensor_core")
 _EPILOGUE = {None: 1, "tanh": 2, "erf": 3}
 _FN = None
 
@@ -54,6 +62,14 @@ def _fn():
             _build.library(NAME), NAME, [p, i, p, p, p, p, i, i, i, i, i, p]
         )
     return _FN
+
+
+def regime(m: int, x_dtype: torch.dtype) -> str:
+    """The regime a launch of ``m`` rows of ``x_dtype`` takes on the card,
+    as the C entry point picks it."""
+    lib = _build.library(NAME)
+    pick = _build.declare(lib, "q4_matmul_regime", [ctypes.c_int, ctypes.c_int])
+    return REGIMES[pick(m, int(x_dtype == torch.bfloat16))]
 
 
 def q4_matmul(
@@ -96,6 +112,8 @@ def q4_matmul(
         raise ValueError("q4_matmul takes and gives f32 or bf16")
     if n % 4:
         raise ValueError(f"q4_matmul needs N % 4 == 0, got N={n}")
+    if x2.data_ptr() % 16 or qw.data_ptr() % 16 or scales.data_ptr() % 16:
+        raise ValueError("q4_matmul copies x, codes and scales in 16-byte pieces: pass aligned tensors")
     m = x2.shape[0]
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m:
