@@ -42,7 +42,8 @@ Phases, each timed and each fatal on failure:
    B and B' at 4, 115 and 227 cached keys, B' also at the entry's one
    stream and 4, 11 and 18; C and C' (int8 and bf16) ungrouped and with 5
    streams per cross-cache entry, C' bf16 also at the entry's one entry;
-   D and D' (Large-V3 and Medium widths); E and E' at 4, 115 and 227 valid
+   D (also at the entry's B = 1) and D' (Large-V3 and Medium widths); E
+   and E' at 4, 115 and 227 valid
    keys; G (8 streams) and H (40) over the int4 and the mixed self caches
    at 4, 115 and 227; F in int8, bf16 and uint8 exactly, at 8, 40 and the
    entry's one stream; and the pipeline's own shapes at B = 4 and 8: A at
@@ -57,7 +58,8 @@ Phases, each timed and each fatal on failure:
    stages ``greedy_decode`` and ``beam_decode`` mark, and the decode step
    split into the hand-written kernels, the beam's self-cache reorder (its
    ``beam_decode.reorder`` ranges), the logits (``decode_step.logits``),
-   other device work and idle; a kernel row of a path without a traced
+   other device work and idle (and one line of the encoder's device ms
+   in each traced request); a kernel row of a path without a traced
    request takes its isolated time;
 5. end to end at a small config in f32, for the int4 serving modes (int8,
    int4 and mixed self caches), ``Compute.parity()`` and
@@ -581,8 +583,8 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
     at its decode step's one row and its prefill's four; B' (fast_greedy and
     entry), E' (fast_beam), C' over the int8 and bf16 cross caches,
     ungrouped and grouped (int8_greedy, int8_beam, fast_greedy, fast_beam,
-    entry), and F over the bf16 self caches (fast_greedy, fast_beam,
-    entry)."""
+    entry), F over the bf16 self caches (fast_greedy, fast_beam,
+    entry), and D at the entry's B = 1."""
     from whisper_burn_tpu_torch.entry import MAX_TOKENS as ENTRY_TOKENS
     from whisper_burn_tpu_torch.ops.cache import write_cache_slot, write_cache_slot_plain
     from whisper_burn_tpu_torch.ops.decode_attention import (
@@ -751,6 +753,8 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
             ))
             del kTb, vb
         del kT, v, kd, vd
+    # kernel D at the entry's one utterance
+    rows.append(encoder_attention_row(cfg, gen, 1, "entry", "encoder_attention/entry"))
     return rows
 
 
@@ -1613,6 +1617,9 @@ def main() -> int:
             if k in rows_by_key and is_decode_row(rows_by_key[k])
         ) / steps
         log({"phase": f"traced_{label}", "seconds": phases[f"traced_{label}_s"], **bd})
+    # the encoder's device ms of each traced request: serving (greedy,
+    # beam, int4self_greedy; W8A8) and fast() (fast_greedy, fast_beam)
+    log({"phase": "encoder_device_ms", **{label: bd["stages"]["device_ms"]["encode"] for label, (_, bd) in traced.items()}})
     del params, fast_params
     torch.cuda.empty_cache()
 

@@ -214,11 +214,26 @@ def test_cache_slot_kernel(gen, dtype, width):
     assert torch.equal(cache, ref)
 
 
-@pytest.mark.parametrize("t,valid", [(128, 100), (200, 200)])
-def test_encoder_attention_kernel(gen, t, valid):
-    q, k, v = (torch.randn((2, t, 256), generator=gen, device="cuda") for _ in range(3))
-    out = encoder_attention(q, k, v, 4, valid=valid)
-    assert _rel_err(out, encoder_attention_plain(q, k, v, 4, valid)) <= 1e-5
+# Kernel D: T not a multiple of the 128-query tile (200), a valid that
+# leaves one key in the last 64-key tile (129), the encoder's 1536 rows
+# with 1500 valid at Large-V3's 20 heads and Medium's 16, and B = 1
+ENCODER_SHAPES = [(2, 128, 100, 256, 4), (2, 200, 200, 256, 4), (2, 256, 129, 256, 4),
+                  (2, 1536, 1500, 1280, 20), (1, 1536, 1500, 1024, 16), (1, 300, 300, 1280, 20)]
+
+
+@pytest.mark.parametrize("b,t,valid,d,h", ENCODER_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_encoder_attention_kernel(gen, b, t, valid, d, h, dtype, tol):
+    """f32 on CUDA cores (sums in another order); bf16 on tensor cores,
+    p rounded against the running max where the plain version rounds
+    against the row's final max. One launch a call; the rows past
+    ``valid`` are computed and finite."""
+    q, k, v = (torch.randn((b, t, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
+    _build.reset_launches()
+    out = encoder_attention(q, k, v, h, valid=valid)
+    assert _build.LAUNCHES["encoder_attention"] == 1
+    assert _rel_err(out, encoder_attention_plain(q, k, v, h, valid)) <= tol
+    assert bool(torch.isfinite(out[:, valid:]).all())
 
 
 def _int4_cache(gen, fmt, l_dim, b, ctx, d):
@@ -269,10 +284,13 @@ def test_attention_layer_int4_kernel(gen, fmt, ctx, valid, dtype):
         assert (a - r).abs().max().item() <= 1e-5 * max(r.abs().max().item(), 1.0)
 
 
-@pytest.mark.parametrize("b,t,d,h", [(2, 128, 128, 2), (1, 300, 256, 4), (2, 1500, 128, 2)])
+@pytest.mark.parametrize("b,t,d,h", [(2, 128, 128, 2), (1, 300, 256, 4), (2, 1500, 128, 2), (2, 129, 256, 4),
+                                     (1, 1500, 1280, 20), (1, 1500, 1024, 16)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 def test_encoder_attention_heads_kernel(gen, b, t, d, h, dtype, tol):
-    """Kernel D' on its head-major layout, through the op and directly."""
+    """Kernel D' on its head-major layout, through the op and directly:
+    the pad keys ``t..Tp`` masked (t = 129 leaves one key in the last
+    64-key tile), one launch a call, the pad rows' outputs finite."""
     q, k, v = (torch.randn((b, t, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
     _build.reset_launches()
     out = encoder_attention_heads(q, k, v, h)
@@ -282,7 +300,20 @@ def test_encoder_attention_heads_kernel(gen, b, t, d, h, dtype, tol):
     qh, kh = (torch.randn((b, h, tp, 64), generator=gen, device="cuda").to(dtype) for _ in range(2))
     vT = torch.randn((b, h, 64, tp), generator=gen, device="cuda").to(dtype)
     out = encoder_attention_heads_kernel(qh, kh, vT, t)
+    assert _build.LAUNCHES["encoder_attention_heads"] == 2
     assert _rel_err(out[..., :t], encoder_attention_heads_plain(qh, kh, vT, t)[..., :t]) <= tol
+    assert bool(torch.isfinite(out).all())
+
+
+def test_encoder_attention_heads_kernel_ragged_tp_raises(gen):
+    """vT's rows must be 16-byte multiples for the kernel's copies: a Tp
+    that is not a multiple of 8 raises on a CUDA tensor, with no launch."""
+    qh = torch.randn((1, 2, 100, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    vT = torch.randn((1, 2, 64, 100), generator=gen, device="cuda").to(torch.bfloat16)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        encoder_attention_heads_kernel(qh, qh, vT, 90)
+    assert sum(_build.LAUNCHES.values()) == 0
 
 
 def test_encoder_attention_heads_wide_heads_raise(gen):

@@ -85,3 +85,44 @@ def test_head_major_plain_matches_packed_plain():
     out = ea.encoder_attention_heads(q, k, v, h)
     ref = ea.encoder_attention_plain(q, k, v, h, t)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("t,valid", [(128, 100), (256, 129), (256, 200)])
+def test_bf16_plain_versions_round_p_as_the_pallas_kernels(t, valid):
+    """Both plain versions in bf16 against K6 (``encoder_attention_packed``)
+    and K10 (``_attn_call``, the head-major layout) in interpret mode, keys
+    ``t >= valid`` masked (129: one key in the last 64-key tile). Each
+    rounds the unnormalized ``exp(s - max)`` to bf16 before the value
+    product and divides by the f32 row sum after it, so the outputs are
+    equal but where XLA's and PyTorch's f32 exp or summation order differ
+    by an ulp at a bf16 rounding boundary (of ``p`` or of the output): at
+    most one bf16 step of an element, 2e-3 of max|out|, in at most 1% of
+    the elements. The softmax normalized before the value product (the
+    plain versions' earlier form) misses both bounds."""
+    rng = np.random.default_rng(5)
+    b, d, h = 2, 256, 4
+    q, k, v = (rng.standard_normal((b, t, d)).astype(np.float32) for _ in range(3))
+    jb = lambda x: jnp.asarray(x, jnp.bfloat16)
+    tb = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(torch.bfloat16)
+
+    def within(out, ref):
+        out, ref = out.float().numpy(), np.asarray(ref.astype(jnp.float32))
+        return np.abs(out - ref).max() <= 2e-3 * np.abs(ref).max(), (out != ref).mean() <= 0.01
+
+    def close(out, ref):
+        assert within(out, ref) == (True, True)
+
+    ref = jea.encoder_attention_packed(jb(q), jb(k), jb(v), h, valid=valid, interpret=True)
+    out = ea.encoder_attention(tb(q), tb(k), tb(v), h, valid=valid)
+    assert out.dtype == torch.bfloat16
+    close(out, ref)
+    split = lambda x: tb(x).float().reshape(b, t, h, 64).transpose(1, 2)
+    s = (split(q) @ split(k).transpose(-1, -2) / 8.0).masked_fill(torch.arange(t) >= valid, float("-inf"))
+    normalized_first = (torch.softmax(s, dim=-1) @ split(v)).transpose(1, 2).reshape(b, t, d).to(torch.bfloat16)
+    assert within(normalized_first, ref) == (False, False)
+    heads = lambda x: x.reshape(b, t, h, 64).transpose(0, 2, 1, 3)
+    qh, kh, vT = heads(q), heads(k), heads(v).transpose(0, 1, 3, 2)
+    ref = jea._attn_call(jb(qh), jb(kh), jb(vT), n_heads=h, valid=valid, interpret=True)
+    out = ea.encoder_attention_heads_kernel(tb(qh), tb(kh), tb(vT), valid)
+    assert out.dtype == torch.bfloat16
+    close(out, ref)

@@ -44,7 +44,8 @@ def test_package_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-SCRIPT_NAMES = ("request_walls", "cross_attention_times", "self_attention_times", "q4_matmul_times")
+SCRIPT_NAMES = ("request_walls", "cross_attention_times", "self_attention_times", "q4_matmul_times",
+                "encoder_attention_times")
 SCRIPTS = [ROOT / "chip_smoke.py", *(ROOT / "scripts" / f"torch_{n}.py" for n in SCRIPT_NAMES)]
 
 

@@ -18,7 +18,10 @@ source ``csrc/encoder_attention.cu``.
   :func:`supported` accepts. It is an op of its own, as there.
 
 On the H100 both are bound by operations; the kernel is a flash loop that
-never materializes the ``[T, T]`` scores (source note). CPU tensors take
+never materializes the ``[T, T]`` scores, on tensor cores for bf16 and on
+CUDA cores for f32 (source note). The plain versions round the
+unnormalized ``exp(s - max)`` to the input dtype before the value product
+and divide by the f32 row sum after it, as K6 and K10 do. CPU tensors take
 the plain versions; CUDA tensors launch the kernel or raise.
 """
 
@@ -38,13 +41,23 @@ _MAX_T = 2048  # the JAX kernel's limit (its f32 [T, T] score block in VMEM)
 _FNS: dict[str, object] = {}
 
 
+def _softmax_parts(s, valid, dtype):
+    """Scores ``[..., T, T]`` (f32) with keys ``t >= valid`` masked -> the
+    unnormalized ``exp(s - max)`` rounded to ``dtype`` (as K6 and K10 round
+    ``p`` to the value dtype before the value product) and the f32 row sums
+    of the unrounded values."""
+    s = s.masked_fill(torch.arange(s.shape[-1], device=s.device) >= valid, float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return p.to(dtype).float(), p.sum(dim=-1, keepdim=True)
+
+
 def encoder_attention_plain(q, k, v, n_heads, valid):
     b, t, d = q.shape
     dh = d // n_heads
     split = lambda x: x.float().reshape(b, t, n_heads, dh).transpose(1, 2)
     s = split(q) @ split(k).transpose(-1, -2) / math.sqrt(dh)  # [B, H, T, T]
-    s = s.masked_fill(torch.arange(t, device=q.device) >= valid, float("-inf"))
-    out = torch.softmax(s, dim=-1) @ split(v)
+    p, l = _softmax_parts(s, valid, v.dtype)
+    out = (p @ split(v)) / l
     return out.transpose(1, 2).reshape(b, t, d).to(q.dtype)
 
 
@@ -114,8 +127,8 @@ def encoder_attention_heads_plain(q, k, vT, valid):
     """Head-major q, k ``[B, H, Tp, dh]``, vT ``[B, H, dh, Tp]`` ->
     ``[B, H, dh, Tp]`` in q's dtype; keys ``t >= valid`` masked."""
     s = q.float() @ k.float().transpose(-1, -2) / math.sqrt(q.shape[-1])  # [B, H, Tp, Tp]
-    s = s.masked_fill(torch.arange(q.shape[2], device=q.device) >= valid, float("-inf"))
-    return (vT.float() @ torch.softmax(s, dim=-1).transpose(-1, -2)).to(q.dtype)
+    p, l = _softmax_parts(s, valid, vT.dtype)
+    return ((vT.float() @ p.transpose(-1, -2)) / l.transpose(-1, -2)).to(q.dtype)
 
 
 def encoder_attention_heads_kernel(q: torch.Tensor, k: torch.Tensor, vT: torch.Tensor, valid: int) -> torch.Tensor:
@@ -132,6 +145,8 @@ def encoder_attention_heads_kernel(q: torch.Tensor, k: torch.Tensor, vT: torch.T
         return encoder_attention_heads_plain(q, k, vT, valid)
     if dh != HEAD_DIM:
         raise ValueError(f"{HEADS}: the kernel takes 64-wide heads, got {dh}")
+    if tp % 8:
+        raise ValueError(f"{HEADS}: the kernel takes Tp a multiple of 8 (16-byte rows of vT), got {tp}")
     q, k, vT = q.contiguous(), k.contiguous(), vT.contiguous()
     _build.require_cuda(q, k, vT)
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or vT.dtype != q.dtype:
