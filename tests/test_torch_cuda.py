@@ -324,3 +324,141 @@ def test_encoder_attention_heads_wide_heads_raise(gen):
     with pytest.raises(ValueError, match="64-wide heads"):
         encoder_attention_heads(q, q, q, 10)
     assert sum(_build.LAUNCHES.values()) == 0
+
+
+# Kernels B, B', E, E', G and H (one loop, csrc/decode_attention.cu
+# attend_cached) at Large-V3's layout: D 1280, 20 heads (G and H: head
+# pairs h, h + 10, one scale lane for two heads), ctx 256, 3 streams. The
+# positions leave the 8 warps' runs of keys and their 16-key steps uneven
+# (0, 1, 7, 8, 9), take the mean decode position (115) and reach the
+# cache's end (226, 255). Each output is held to 1e-5 of its scale (f32
+# math both ways, sums in another order), and two launches are bitwise
+# equal (a fixed order of merging, no atomics).
+LV3_STREAMS, LV3_CTX, LV3_D, LV3_H = 3, 256, 1280, 20
+LV3_POS = [0, 1, 7, 8, 9, 115, 226, 255]
+
+
+def _close_parts(out, ref):
+    for a, r in zip(out, ref):
+        assert (a - r).abs().max().item() <= 1e-5 * max(r.abs().max().item(), 1.0)
+
+
+def _bitwise_twice(call, first):
+    """A second launch gives bitwise equal outputs."""
+    as_tuple = lambda x: x if isinstance(x, tuple) else (x,)
+    assert all(torch.equal(a, r) for a, r in zip(as_tuple(first), as_tuple(call())))
+
+
+@pytest.mark.parametrize("pos", LV3_POS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_self_attention_kernel_large_v3(gen, pos, dtype):
+    """Kernel B: the output, the stored row and scales exactly as the plain
+    version's, and no other row of the caches touched."""
+    l_dim, b, ctx, d, h = 2, LV3_STREAMS, LV3_CTX, LV3_D, LV3_H
+    kc = torch.randint(-127, 128, (l_dim, b, ctx, d), generator=gen, device="cuda", dtype=torch.int8)
+    vc = torch.randint(-127, 128, (l_dim, b, ctx, d), generator=gen, device="cuda", dtype=torch.int8)
+    sc = torch.rand((l_dim, b, ctx, 2), generator=gen, device="cuda") * 0.02 + 1e-3
+    q, kn, vn = (torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
+    kq = torch.randint(-127, 128, (b, 1, d), generator=gen, device="cuda", dtype=torch.int8)
+    vq = torch.randint(-127, 128, (b, 1, d), generator=gen, device="cuda", dtype=torch.int8)
+    nsc = torch.rand((b, 1, 2), generator=gen, device="cuda") * 0.02 + 1e-3
+    caches = [(kc.clone(), vc.clone(), sc.clone()) for _ in range(2)]
+    call = lambda: decode_self_attention(q, *caches[0], 1, pos, h, kn, vn, kq, vq, nsc)
+    _build.reset_launches()
+    out = call()
+    assert _build.LAUNCHES["decode_self_attention"] == 1
+    ref = decode_self_attention_plain(q, *caches[1], 1, pos, h, kn, vn, kq, vq, nsc)
+    assert _rel_err(out, ref) <= 1e-5
+    for got, want, orig in zip(caches[0], caches[1], (kc, vc, sc)):
+        assert torch.equal(got, want)
+        rest = got.clone()
+        rest[1, :, pos] = orig[1, :, pos]
+        assert torch.equal(rest, orig)
+    _bitwise_twice(call, out)  # row pos is stored again, never read
+
+
+@pytest.mark.parametrize("pos", LV3_POS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_merged_attention_kernel_large_v3(gen, pos, dtype):
+    """Kernel B' over a float cache of the query's dtype, nothing stored."""
+    l_dim, b, ctx, d, h = 2, LV3_STREAMS, LV3_CTX, LV3_D, LV3_H
+    kc, vc = (torch.randn((l_dim, b, ctx, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    q, kn, vn = (torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
+    k0, v0 = kc.clone(), vc.clone()
+    call = lambda: decode_attention_merged(q, kc, vc, 1, pos, h, kn, vn)
+    _build.reset_launches()
+    out = call()
+    assert _build.LAUNCHES["decode_attention_merged"] == 1
+    assert _rel_err(out, decode_attention_merged_plain(q, kc, vc, 1, pos, h, kn, vn)) <= 1e-5
+    assert torch.equal(kc, k0) and torch.equal(vc, v0)
+    _bitwise_twice(call, out)
+
+
+@pytest.mark.parametrize("valid", LV3_POS)
+@pytest.mark.parametrize("scaled", [True, False], ids=["E", "E'"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_layer_kernel_large_v3(gen, valid, scaled, dtype):
+    """Kernel E (int8 cache, per-token scales) and E' (float cache): acc, m
+    and l of the plain version."""
+    l_dim, b, ctx, d, h = 2, LV3_STREAMS, LV3_CTX, LV3_D, LV3_H
+    if scaled:
+        kc = torch.randint(-127, 128, (l_dim, b, ctx, d), generator=gen, device="cuda", dtype=torch.int8)
+        vc = torch.randint(-127, 128, (l_dim, b, ctx, d), generator=gen, device="cuda", dtype=torch.int8)
+        sc = torch.rand((l_dim, b, ctx, 2), generator=gen, device="cuda") * 0.02
+    else:
+        kc, vc = (torch.randn((l_dim, b, ctx, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
+        sc = None
+    q = torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype)
+    call = lambda: decode_attention_layer(q, kc, vc, sc, 1, valid, h)
+    _build.reset_launches()
+    out = call()
+    assert _build.LAUNCHES["decode_attention_layer" if scaled else "decode_attention_layer_unscaled"] == 1
+    _close_parts(out, decode_attention_layer_plain(q, kc, vc, sc, 1, valid, h))
+    _bitwise_twice(call, out)
+
+
+@pytest.mark.parametrize("fmt", ["groups", "mixed", "scalar", "unscaled"])
+@pytest.mark.parametrize("pos", LV3_POS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_merged_attention_int4_kernel_large_v3(gen, fmt, pos, dtype):
+    """Kernel G in its four cache forms, one block a head pair."""
+    l_dim, b, ctx, d, h = 2, LV3_STREAMS, LV3_CTX, LV3_D, LV3_H
+    k, v, sc = _int4_cache(gen, fmt, l_dim, b, ctx, d)
+    q, kn, vn = (torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
+    k0, v0 = k.clone(), v.clone()
+    call = lambda: decode_attention_merged_int4(q, k, v, sc, 1, pos, h, kn, vn)
+    _build.reset_launches()
+    out = call()
+    assert _build.LAUNCHES["decode_attention_merged_int4"] == 1
+    assert _rel_err(out, decode_attention_merged_int4_plain(q, k, v, sc, 1, pos, h, kn, vn)) <= 1e-5
+    assert torch.equal(k, k0) and torch.equal(v, v0)
+    _bitwise_twice(call, out)
+
+
+@pytest.mark.parametrize("fmt", ["groups", "mixed", "scalar", "unscaled"])
+@pytest.mark.parametrize("valid", LV3_POS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_layer_int4_kernel_large_v3(gen, fmt, valid, dtype):
+    """Kernel H in its four cache forms: acc, m and l of the plain version."""
+    l_dim, b, ctx, d, h = 2, LV3_STREAMS, LV3_CTX, LV3_D, LV3_H
+    k, v, sc = _int4_cache(gen, fmt, l_dim, b, ctx, d)
+    q = torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype)
+    call = lambda: decode_attention_layer_int4(q, k, v, sc, 1, valid, h)
+    _build.reset_launches()
+    out = call()
+    assert _build.LAUNCHES["decode_attention_layer_int4"] == 1
+    _close_parts(out, decode_attention_layer_int4_plain(q, k, v, sc, 1, valid, h))
+    _bitwise_twice(call, out)
+
+
+def test_self_attention_misaligned_cache_raises(gen):
+    """The loop reads cache rows 16 bytes at a time: a cache that does not
+    start on a 16-byte boundary raises, with no launch."""
+    l_dim, b, ctx, d, h = 2, 1, 64, 256, 4
+    flat = torch.zeros(l_dim * b * ctx * d + 1, device="cuda", dtype=torch.bfloat16)
+    kc = flat[1:].reshape(l_dim, b, ctx, d)  # 2 bytes past the allocation's start
+    q = torch.randn((b, 1, d), generator=gen, device="cuda").to(torch.bfloat16)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_attention_merged(q, kc, kc, 1, 5, h, q, q)
+    assert sum(_build.LAUNCHES.values()) == 0

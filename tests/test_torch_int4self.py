@@ -7,7 +7,8 @@ the CPU in f32, at the small config of tests/test_torch_slice.py.
   of the output's scale:
   int4 keys and values with group scales, int8 keys with int4 values (the
   mixed mode), int4 with one scalar scale a side, and unscaled int4, at
-  D = 256 and 640 (2 and 10 scale groups).
+  D = 256 and 640 (2 and 10 scale groups), and G at Large-V3's D = 1280
+  (20 heads in pairs h, h + 10; 10 groups, one scale lane for two heads).
 * ``_quantize_tokens4``, ``self_kv_groups`` and ``self_kv_group_size``:
   codes exactly, scales to 1e-7 relative.
 * ``Compute.fastest(kv_bits=4)`` with ``self_kv_bits=4`` (int4self) and
@@ -137,7 +138,7 @@ FORMATS = ["groups", "mixed", "scalar", "unscaled"]
 
 
 @pytest.mark.parametrize("pos", [0, 37, 63])
-@pytest.mark.parametrize("d,h", [(256, 4), (640, 10)])
+@pytest.mark.parametrize("d,h", [(256, 4), (640, 10), (1280, 20)])
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_merged_attention_int4_matches_pallas(fmt, d, h, pos):
     """Kernel G (decode_attention_merged over a uint8 cache, nothing stored)."""

@@ -121,8 +121,18 @@ def test_ffn_stacked_matches_pallas(kind):
 
 @pytest.mark.parametrize("pos", [0, 37, 63])
 def test_self_attention_with_store_matches_pallas(pos):
+    _self_attention_with_store(pos, 256, 4)
+
+
+@pytest.mark.parametrize("pos", [0, 37, 63])
+def test_self_attention_with_store_matches_pallas_large_v3_heads(pos):
+    """Kernel B's plain version at Large-V3's head layout (D 1280, 20 heads)."""
+    _self_attention_with_store(pos, 1280, 20)
+
+
+def _self_attention_with_store(pos, d, h):
     rng = np.random.default_rng(4)
-    l_dim, b, ctx, d, h, layer = 2, 2, 64, 256, 4, 1
+    l_dim, b, ctx, layer = 2, 2, 64, 1
     k8 = rng.integers(-127, 128, (l_dim, b, ctx, d), dtype=np.int8)
     v8 = rng.integers(-127, 128, (l_dim, b, ctx, d), dtype=np.int8)
     sc = rng.uniform(0.001, 0.02, (l_dim, b, ctx, 2)).astype(np.float32)

@@ -1,64 +1,72 @@
 // Kernels B, B', C, C', E, E', G and H: one-query decode attention over the
 // caches.
 //
-// Kernel B, decode_self_attention, replaces the merged + store form of
-// whisper_burn_tpu/ops/pallas_attention.py:_kernel (via
-// decode_attention_merged(kq=, vq=)). One query per stream attends over
-// layer `layer` of the int8 self cache [L, B, ctx, D] with per-token f32
-// scales [L, B, ctx, 2] (K in lane 0, V in lane 1) for keys t < pos, and
-// the current token's raw K/V are merged into the softmax. The output is
-// normalized f32. The current token's pre-quantized rows and scales are
-// then stored at pos in place (no key below pos is read-after-written).
-// Bound: the cache read (2 * pos * D bytes per stream and layer, memory).
-// Design: one block per (stream, head); a warp per key computes a 64-wide
-// dot with two channels per lane, so a warp reads one key row of the head
-// (64 bytes in int8); scores stay in shared memory; the value sum runs with
-// one thread per channel on coalesced rows.
+// The self-attention kernels (B, B', E, E', G, H) replace the forms of
+// whisper_burn_tpu/ops/pallas_attention.py:_kernel that attend one query
+// per stream over layer `layer` of a self cache [L, B, ctx, .] for keys
+// t < pos (or valid). Scores are (q.k) * 64^-1/2 * sk[t]; each key's
+// softmax weight p[t] multiplies sv[t] * v[t]; the dot runs in f32 on the
+// cache's values or unbiased codes, q converted from bf16 or f32.
 //
-// Kernel B', decode_attention_merged, replaces the same _kernel through
-// decode_attention_merged without kq/vq and without scales: the same merged
-// attention over a float (f32 or bf16) self cache, unscaled, and no store
-// (the decode step writes the row after its layer loop with kernel F, as
-// the JAX package does). Bound and design: those of kernel B, at two or
-// four bytes a cached value.
+// - B, decode_self_attention (K2, merged + store, via
+//   decode_attention_merged(kq=, vq=)): int8 cache with per-token f32
+//   scales [L, B, ctx, 2] (K lane 0, V lane 1); the current token's raw
+//   K/V are merged into the softmax and the output is normalized f32. The
+//   block of (b, h) then stores the token's pre-quantized rows and scales
+//   at pos in place; no block reads row pos.
+// - B', decode_attention_merged (K2 without kq/vq and scales): the same
+//   merge over a float (f32 or bf16) cache, unscaled, nothing stored (the
+//   decode step writes the row after its layer loop with kernel F).
+// - E, decode_attention_layer (K8, the general form): int8 cache with
+//   per-token scales, keys t < valid, no current token and no store,
+//   returned unnormalized as (acc [B, D], m [B, H], l [B, H]) for the
+//   caller's flash merge (beam search's deferred cache write); l sums p[t]
+//   with the V scale left out. E', decode_attention_layer_unscaled: the
+//   same over a float cache without scales.
+// - G, decode_attention_merged_int4 (K11 merged, :174-258 with voff at
+//   :337-338), and H, decode_attention_layer_int4 (K11 general): values
+//   are int4 pairs packed along D ([L, B, ctx, D/2] uint8, channels j and
+//   j + D/2 in the low and high nibble of byte j, biased by 8), so heads h
+//   and h + H/2 share every byte; keys the same, or int8 codes (the mixed
+//   mode). Per-token scales [L, B, ctx, sw] f32, K lanes first: a head's
+//   64 channels lie in one channel group, so each (token, head) has one K
+//   and one V scale (Lane::of); the scalar-scale form reads lanes 0 and 1,
+//   the unscaled form none. The TPU kernel rounds the dequantized keys to
+//   the compute dtype before its dot and folds the bias out as 8 * sum(q);
+//   here the dot runs in f32 on the unbiased codes.
 //
-// Kernel E, decode_attention_layer, replaces the general form of the same
-// _kernel (via decode_attention_layer, int8 cache with per-token scales):
-// the same attention over keys t < valid, without the current token and
-// without the store, returned unnormalized as (acc [B, D], m [B, H],
-// l [B, H]) for the caller's flash merge (beam search's deferred cache
-// write). Scores are (q.k) * scale * sk[t]; acc sums p[t] * sv[t] * v[t];
-// l sums p[t] with the V scale left out. The TPU kernel walks key tiles
-// with a running max when ctx spans several; here the whole ctx of scores
-// sits in shared memory (ctx * 4 bytes, within the 48 KB default: ctx up
-// to 12288, above n_text_ctx 448), so one exact pass gives the same m, l
-// and acc. Kernel E' (decode_attention_layer_unscaled) is the same over a
-// float cache without scales (decode_attention_layer(kv_scale4=None)).
-// Bound and design: those of kernel B, whose cached-key part they share
-// (attend_cached).
+// Bound: the cache read, a few µs of launch and latency above it. At pos
+// keys a stream and layer: B 2 * pos * D bytes and 8 * pos of scales
+// (0.75 µs at B = 8, pos 115, D 1280), B' and E' 2 * pos * D elements, G
+// and H pos * D bytes of int4 K and V (1.5x that mixed) and sw * 4 scale
+// bytes a token (0.40 µs at B = 8).
 //
-// Kernels G (decode_attention_merged_int4) and H
-// (decode_attention_layer_int4) replace _kernel's int4 self-KV branches
-// (K11, whisper_burn_tpu/ops/pallas_attention.py:174-258 with voff at
-// :337-338): G in the merged form without the store
-// (decode_attention_merged over a uint8 cache), H in the general,
-// unnormalized form (decode_attention_layer). Values are int4 pairs packed
-// along D ([L, B, ctx, D/2] uint8, channels j and j + D/2 in the low and
-// high nibble of byte j, biased by 8); keys the same, or int8 codes (the
-// mixed mode). Per-token scales [L, B, ctx, sw] f32, K lanes first: with
-// channel groups a head's 64 channels share one group, so each (token,
-// head) has one K scale and one V scale, and the math is kernel E's with
-// those lanes (Lane::of); the scalar-scale form reads lanes 0 and 1, the
-// unscaled form none. The TPU kernel rounds the dequantized keys to the
-// compute dtype before its dot and folds the bias out as 8 * sum(q); here
-// the dot runs in f32 on the unbiased codes. Bound: the cache read
-// (pos * D bytes of int4 K and V per stream and layer, 1.5x that in the
-// mixed mode, plus sw * 4 scale bytes a token). Design: attend_cached on a
-// Nibbles accessor, one block per (stream, head): a lane loads two bytes,
-// a warp one head's 64 key bytes, so each packed byte is read twice, by
-// the blocks of the two heads that share it (the second read mostly from
-// L2); a head pair per block would read it once and is later work.
-//
+// Design, one loop for all six (attend_cached): one block of 8 warps per
+// (stream, head), for G and H per (stream, head pair h, h + H/2), so each
+// packed byte is read once. A lane loads 16 bytes of a key row and 16 of
+// its value row: an int8 or int4-pair head row (64 bytes) takes 4 lanes, a
+// bf16 one 8 and an f32 one 16, so a warp load instruction covers 8, 4 or
+// 2 keys, one a key slot. Warp w owns a contiguous run of keys and issues
+// the loads of 16 of them (keys, values and the scales the lanes use)
+// before it uses any; at ctx 256 that is one or two steps a warp. A key's
+// score is reduced over its lanes by 2-4 shuffles. Each slot keeps a
+// normalizer and an accumulator in registers under a running max that the
+// warp's slots share (online softmax, one rescale a step), so the slots
+// merge by butterfly sums without exponentials, and the 8 warps' states
+// (m, l, acc[64]) merge once through shared memory in warp order: one
+// barrier, no score buffer, no atomics, so two launches give bitwise equal
+// results. Codes become floats by a byte permute into 2^23's float and one
+// subtraction, int8 after an xor and int4 after a mask. The current
+// token's q, k and v (and B's row to store) are loaded before the cached
+// keys; the merged kernels then add the current token and normalize, and
+// B's block stores its row. At most 128 registers a thread, so two blocks
+// share a multiprocessor: the grid (B x H, or B x H/2 head pairs) is one
+// wave at the greedy paths' 8 streams. No cluster split: at ctx 256 a
+// block's loads are all in flight in one or two rounds, and a split would
+// add a cluster barrier to a latency-bound launch. Tried and slower on
+// the H100 (PERF.md, kernels B and G): each slot's state in shared memory, 32-key
+// steps, 16 warps a block for G, four partial sums in the dot.
+
 // Kernel C, decode_cross_attention, replaces
 // whisper_burn_tpu/ops/pallas_attention.py:_kt_kernel (int4, normalized).
 // Keys are int4 pairs packed along D, stored [L, B, D/2, T] (byte row j
@@ -97,20 +105,10 @@ namespace {
 
 constexpr int DH = 64;
 constexpr float NEG_BIG = -1e30f;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
-
-// two consecutive cache elements as floats (the pointer is aligned to two)
-__device__ __forceinline__ float2 load2(const int8_t* p) {
-  const char2 v = *reinterpret_cast<const char2*>(p);
-  return make_float2((float)v.x, (float)v.y);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
 
 // one 4-byte load: 4 / sizeof(C) consecutive cache elements as floats
 __device__ __forceinline__ void load4(const int8_t* p, float* o) {
@@ -125,13 +123,13 @@ __device__ __forceinline__ void load4(const float* p, float* o) { o[0] = *p; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
@@ -150,41 +148,100 @@ __device__ float block_reduce(float v, float* scratch) {
   return r;
 }
 
-constexpr int SELF_THREADS = 128;
+// ---- the self-attention loop (kernels B, B', E, E', G, H) ------------------
 
-// One head's 64 channels of a self cache, as the self-attention blocks read
-// them: two(row, c) gives channels c and c + 1 (c even), one(row, c)
-// channel c, as floats. Rows<C>: int8 codes or f32/bf16 values, D to a
-// row. Nibbles: int4 pairs biased by 8, D/2 bytes to a row; channel j of a
-// head in the low (shift 0) or high (shift 4) nibble of byte b0 + j.
-template <typename C>
-struct Rows {
-  const C* p;
-  int D, c0;
-  __device__ float2 two(size_t row, int c) const { return load2(p + row * D + c0 + c); }
-  __device__ float one(size_t row, int c) const { return to_f(p[row * D + c0 + c]); }
-};
+constexpr int SELF_WARPS = 8;
+constexpr int SELF_THREADS = 32 * SELF_WARPS;
 
-struct Nibbles {
-  const uint8_t* p;
-  int D2, b0, shift;
-  __device__ float2 two(size_t row, int c) const {
-    const uchar2 v = *reinterpret_cast<const uchar2*>(p + row * D2 + b0 + c);
-    return make_float2((float)(((v.x >> shift) & 15) - 8), (float)(((v.y >> shift) & 15) - 8));
-  }
-  __device__ float one(size_t row, int c) const {
-    return (float)(((p[row * D2 + b0 + c] >> shift) & 15) - 8);
-  }
-};
-
-// head h of a cache: heads 0 .. H/2 - 1 in the low nibbles, the rest in the
-// high ones (channel pairs j, j + D/2 share a byte)
-__device__ __forceinline__ Rows<int8_t> head_of(const int8_t* p, int D, int H, int h) {
-  return {p, D, h * DH};
+// Byte b of u (biased to unsigned, at most 255) as a float: it becomes the
+// low byte of 2^23's float, whose value is then 2^23 + b.
+__device__ __forceinline__ float biased_byte(uint32_t u, int b) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u + b));
 }
-__device__ __forceinline__ Nibbles head_of(const uint8_t* p, int D, int H, int h) {
-  const int h2 = H / 2;
-  return {p, D / 2, (h % h2) * DH, h < h2 ? 0 : 4};
+
+// 16 bytes of a cache row as floats: 16 int8 codes, 8 bf16 or 4 f32 values
+template <typename C>
+struct Unpack;
+template <>
+struct Unpack<int8_t> {
+  static __device__ __forceinline__ void run(const uint4& w, float* f) {
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) f[4 * k + b] = biased_byte(u[k] ^ 0x80808080u, b) - 8388736.0f;
+  }
+};
+template <>
+struct Unpack<__nv_bfloat16> {
+  static __device__ __forceinline__ void run(const uint4& w, float* f) {
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      f[2 * k] = __uint_as_float(u[k] << 16);
+      f[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
+    }
+  }
+};
+template <>
+struct Unpack<float> {
+  static __device__ __forceinline__ void run(const uint4& w, float* f) {
+    f[0] = __uint_as_float(w.x), f[1] = __uint_as_float(w.y);
+    f[2] = __uint_as_float(w.z), f[3] = __uint_as_float(w.w);
+  }
+};
+
+__device__ __forceinline__ uint4 load16(const void* p) { return *reinterpret_cast<const uint4*>(p); }
+
+// NH heads of a cache of D elements of C a row (int8 codes, or f32/bf16
+// values), head j's 64 channels from column c0[j]. A lane's load(row,
+// chunk) brings channels [chunk * CPL, (chunk + 1) * CPL) of every head,
+// 16 bytes each; unpack(raw, j, f) gives head j's as floats.
+template <typename C, int NH>
+struct Rows {
+  static constexpr int CPL = 16 / sizeof(C);
+  struct Raw {
+    uint4 w[NH];
+  };
+  const C* p;
+  int D;
+  int c0[NH];
+  __device__ Raw load(size_t row, int chunk) const {
+    Raw r;
+#pragma unroll
+    for (int j = 0; j < NH; ++j) r.w[j] = load16(p + row * D + c0[j] + chunk * CPL);
+    return r;
+  }
+  __device__ void unpack(const Raw& r, int j, float* f) const { Unpack<C>::run(r.w[j], f); }
+};
+
+// Heads h and h + H/2 of an int4 cache: int4 pairs biased by 8, D/2 bytes
+// a row, channel c of head h in the low nibble of byte b0 + c and of head
+// h + H/2 in the high one, so one 16-byte load serves both heads (NH = 2).
+struct Nibbles {
+  static constexpr int CPL = 16;
+  struct Raw {
+    uint4 w;
+  };
+  const uint8_t* p;
+  int D2, b0;
+  __device__ Raw load(size_t row, int chunk) const { return {load16(p + row * D2 + b0 + chunk * CPL)}; }
+  __device__ void unpack(const Raw& r, int j, float* f) const {
+    const uint32_t u[4] = {r.w.x, r.w.y, r.w.z, r.w.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) f[4 * k + b] = biased_byte((u[k] >> (4 * j)) & 0x0f0f0f0fu, b) - 8388616.0f;
+  }
+};
+
+// the keys (or values) of head pair h, h + H/2 of an int4-valued cache:
+// int4 pairs, or int8 codes (the mixed mode's keys)
+__device__ __forceinline__ Nibbles pair_of(const uint8_t* p, int D, int H, int h) {
+  return {p, D / 2, h * DH};
+}
+__device__ __forceinline__ Rows<int8_t, 2> pair_of(const int8_t* p, int D, int H, int h) {
+  return {p, D, {h * DH, (h + H / 2) * DH}};
 }
 
 // A head's per-token scale: Lane reads lane `lane` of rows `sw` floats
@@ -204,211 +261,323 @@ struct One {
   __device__ float at(size_t) const { return 1.f; }
 };
 
-// The cached-key part of kernels B, B', E, E', G and H for one (stream,
-// head) block of SELF_THREADS threads: scores of keys t < valid of the
-// cache rows from row0 on (qs holds the head's 64 query values, s has room
-// for `valid` floats), their softmax weights and the weighted value sum.
-// Keys and values come through the accessors ka and va, their per-token
-// scales through ks and vs. Every thread gets the running max m and the
-// normalizer l (V scale left out); thread tid < 64 gets channel tid's sum
-// of p[t] * sv[t] * v[t] in acc.
-template <class KA, class VA, class KS, class VS>
-__device__ void attend_cached(KA ka, VA va, KS ks, VS vs, size_t row0, int valid,
-                              const float* qs, float* s, float* scratch, float* part,
-                              float& m_out, float& l_out, float& acc_out) {
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int nwarps = SELF_THREADS / 32;
+// The block's running states per head, one a warp, merged in warp order.
+template <int NH>
+struct alignas(16) Partials {
+  float acc[SELF_WARPS][NH][DH];
+  float l[SELF_WARPS][NH];
+  float m[SELF_WARPS][NH];
+};
+
+// The one-pass loop of kernels B, B', E, E', G and H for the block of
+// stream blockIdx.x: the keys t < valid of cache rows row0 + t
+// for NH heads (head[j], query q[b, head[j] * 64 ..]). Keys and values
+// come through ka and va, their per-token scales through ks[j] and vs[j].
+// LPK lanes take one key (16 bytes each), so a warp load covers KPW keys,
+// one a key slot; warp w walks keys [w * per, (w + 1) * per) in steps of
+// 16 keys whose loads are all issued first, with an online softmax whose
+// max the warp's slots share, so the slots then merge by plain butterfly
+// sums. The warps' states land in `part`, synchronized. The m of a head
+// without keys is NEG_BIG, its l and acc 0.
+template <int NH, typename T, class KA, class VA, class KS, class VS>
+__device__ void attend_cached(const T* q, const int (&head)[NH], KA ka, VA va, const KS (&ks)[NH],
+                              const VS (&vs)[NH], size_t row0, int valid, int D,
+                              Partials<NH>& part) {
+  static_assert(KA::CPL == VA::CPL, "keys and values take the same lanes");
+  constexpr int CPL = KA::CPL;   // channels a lane
+  constexpr int LPK = DH / CPL;  // lanes a key
+  constexpr int KPW = 32 / LPK;  // keys a warp load: the key slots
+  constexpr int U = LPK / 2;     // warp loads a step: 16 keys
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int chunk = lane % LPK, slot = lane / LPK;
   const float scale = rsqrtf((float)DH);
 
-  for (int t = warp; t < valid; t += nwarps) {
-    const float2 kk = ka.two(row0 + t, 2 * lane);
-    float d = qs[2 * lane] * kk.x + qs[2 * lane + 1] * kk.y;
-    d = warp_sum(d);
-    if (lane == 0) s[t] = d * scale * ks.at(row0 + t);
+  float qf[NH][CPL], acc[NH][CPL], m[NH], l[NH];
+#pragma unroll
+  for (int j = 0; j < NH; ++j) {
+    const T* qh = q + (size_t)blockIdx.x * D + head[j] * DH + chunk * CPL;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) qf[j][i] = to_f(qh[i]), acc[j][i] = 0.f;
+    m[j] = NEG_BIG, l[j] = 0.f;
+  }
+
+  const int per = (valid + SELF_WARPS * KPW - 1) / (SELF_WARPS * KPW) * KPW;
+  const int t_end = min(valid, (warp + 1) * per);
+  for (int t0 = warp * per; t0 < t_end; t0 += U * KPW) {
+    typename KA::Raw kr[U] = {};
+    typename VA::Raw vr[U] = {};
+    float sk[U][NH] = {}, sv[U][NH] = {};
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = t0 + u * KPW + slot;
+      ok[u] = t < t_end;
+      if (ok[u]) {
+        const size_t row = row0 + t;
+        kr[u] = ka.load(row, chunk);
+        vr[u] = va.load(row, chunk);
+#pragma unroll
+        for (int j = 0; j < NH; ++j) sk[u][j] = ks[j].at(row), sv[u][j] = vs[j].at(row);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      float s[U];
+      float mc = m[j];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float kf[CPL];
+        ka.unpack(kr[u], j, kf);
+        float d = 0.f;
+#pragma unroll
+        for (int i = 0; i < CPL; ++i) d += qf[j][i] * kf[i];
+#pragma unroll
+        for (int o = LPK / 2; o > 0; o >>= 1) d += __shfl_xor_sync(FULL, d, o);
+        s[u] = ok[u] ? d * scale * sk[u][j] : NEG_BIG;
+        mc = fmaxf(mc, s[u]);
+      }
+#pragma unroll
+      for (int o = LPK; o < 32; o <<= 1) mc = fmaxf(mc, __shfl_xor_sync(FULL, mc, o));  // the warp's max
+      const float alpha = expf(m[j] - mc);
+      m[j] = mc;
+      l[j] *= alpha;
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) acc[j][i] *= alpha;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float p = ok[u] ? expf(s[u] - mc) : 0.f;
+        l[j] += p;
+        const float w = p * sv[u][j];  // the V scale weights the value sum only
+        float vf[CPL];
+        va.unpack(vr[u], j, vf);
+#pragma unroll
+        for (int i = 0; i < CPL; ++i) acc[j][i] += w * vf[i];
+      }
+    }
+  }
+
+  // the warp's key slots hold the same channels under one max: sum them
+#pragma unroll
+  for (int o = LPK; o < 32; o <<= 1) {
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      l[j] += __shfl_xor_sync(FULL, l[j], o);
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) acc[j][i] += __shfl_xor_sync(FULL, acc[j][i], o);
+    }
+  }
+  if (slot == 0) {
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+#pragma unroll
+      for (int i = 0; i < CPL; i += 4)
+        *reinterpret_cast<float4*>(&part.acc[warp][j][chunk * CPL + i]) =
+            make_float4(acc[j][i], acc[j][i + 1], acc[j][i + 2], acc[j][i + 3]);
+      if (chunk == 0) part.l[warp][j] = l[j], part.m[warp][j] = m[j];
+    }
   }
   __syncthreads();
-  float m = NEG_BIG;
-  for (int t = tid; t < valid; t += SELF_THREADS) m = fmaxf(m, s[t]);
-  m = block_reduce<true>(m, scratch);
-  float l = 0.f;
-  for (int t = tid; t < valid; t += SELF_THREADS) {
-    const float p = expf(s[t] - m);
-    l += p;
-    s[t] = p * vs.at(row0 + t);  // V scale weights the value sum only
+}
+
+// Head j's state over the block's warps, merged in warp order: M, L and
+// this lane's channels 2 * lane and 2 * lane + 1 of acc.
+template <int NH>
+__device__ void merge_warps(const Partials<NH>& part, int j, float& M, float& L, float2& a) {
+  const int c = 2 * (threadIdx.x % 32);
+  M = NEG_BIG;
+#pragma unroll
+  for (int w = 0; w < SELF_WARPS; ++w) M = fmaxf(M, part.m[w][j]);
+  L = 0.f, a = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int w = 0; w < SELF_WARPS; ++w) {
+    const float e = expf(part.m[w][j] - M);
+    const float2 x = *reinterpret_cast<const float2*>(&part.acc[w][j][c]);
+    L += part.l[w][j] * e;
+    a.x += x.x * e, a.y += x.y * e;
   }
-  l = block_reduce<false>(l, scratch);
-  __syncthreads();
-
-  // value sum: channel c = tid % 64, keys split in two halves by tid / 64
-  const int c = tid % DH, half = tid / DH;
-  float acc = 0.f;
-  for (int t = half; t < valid; t += SELF_THREADS / DH) acc += s[t] * va.one(row0 + t, c);
-  part[tid] = acc;
-  __syncthreads();
-  m_out = m;
-  l_out = l;
-  acc_out = tid < DH ? part[tid] + part[tid + DH] : 0.f;
 }
 
-// Kernels B, B' and G for block (stream b, head h): attend_cached over
-// keys t < pos, then the current token's raw k_new / v_new merged in.
-// Threads tid < 64 return channel h * 64 + tid of the normalized output.
-template <typename T, class KA, class VA, class KS, class VS>
-__device__ float attend_merged(const T* q, KA ka, VA va, KS ks, VS vs, const T* k_new,
-                               const T* v_new, int layer, int pos, int B, int ctx, int D,
-                               float* s, float* qs, float* scratch, float* part) {
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int c0 = h * DH;
-  const float scale = rsqrtf((float)DH);
-  const size_t row0 = ((size_t)layer * B + b) * ctx;  // first cache row of (layer, b)
+// The current token's q, k and v at this lane's two channels of head j =
+// warp < NH, loaded before the cached keys for the merged kernels' last
+// step.
+struct TokenCols {
+  float2 q, k, v;
+};
 
-  if (tid < DH) qs[tid] = to_f(q[(size_t)b * D + c0 + tid]);
-  __syncthreads();
-  float m, l, acc;
-  attend_cached(ka, va, ks, vs, row0, pos, qs, s, scratch, part, m, l, acc);
-  // the current token's score
-  float e = tid < DH ? qs[tid] * to_f(k_new[(size_t)b * D + c0 + tid]) : 0.f;
-  e = block_reduce<false>(e, scratch) * scale;
-  if (tid >= DH) return 0.f;
-  const float m2 = fmaxf(m, e);
-  const float alpha = expf(m - m2), beta = expf(e - m2);
-  const float l2 = l * alpha + beta;
-  const float vn = to_f(v_new[(size_t)b * D + c0 + tid]);
-  return (acc * alpha + beta * vn) / l2;
+template <int NH, typename T>
+__device__ TokenCols token_cols(const T* q, const T* k_new, const T* v_new, const int (&head)[NH],
+                                int D) {
+  const int j = threadIdx.x / 32;
+  TokenCols r{};
+  if (j < NH) {
+    const size_t col = (size_t)blockIdx.x * D + head[j] * DH + 2 * (threadIdx.x % 32);
+    r.q = make_float2(to_f(q[col]), to_f(q[col + 1]));
+    r.k = make_float2(to_f(k_new[col]), to_f(k_new[col + 1]));
+    r.v = make_float2(to_f(v_new[col]), to_f(v_new[col + 1]));
+  }
+  return r;
 }
 
+// Kernels B, B' and G after attend_cached: warp j < NH merges head j's
+// state with the current token and writes the normalized output, two
+// channels a lane.
+template <int NH>
+__device__ void finish_merged(const TokenCols& tok, const int (&head)[NH], int D,
+                              const Partials<NH>& part, float* out) {
+  const int j = threadIdx.x / 32;
+  if (j >= NH) return;
+  float M, L;
+  float2 a;
+  merge_warps(part, j, M, L, a);
+  const float e = warp_sum(tok.q.x * tok.k.x + tok.q.y * tok.k.y) * rsqrtf((float)DH);
+  const float m2 = fmaxf(M, e);
+  const float alpha = expf(M - m2), beta = expf(e - m2);
+  const float l2 = L * alpha + beta;
+  const size_t col = (size_t)blockIdx.x * D + head[j] * DH + 2 * (threadIdx.x % 32);
+  *reinterpret_cast<float2*>(out + col) =
+      make_float2((a.x * alpha + beta * tok.v.x) / l2, (a.y * alpha + beta * tok.v.y) / l2);
+}
+
+// Kernels E, E' and H after attend_cached: warp j < NH writes head j's
+// unnormalized state.
+template <int NH>
+__device__ void finish_layer(const int (&head)[NH], int D, int H, const Partials<NH>& part,
+                             float* acc_out, float* m_out, float* l_out) {
+  const int j = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (j >= NH) return;
+  float M, L;
+  float2 a;
+  merge_warps(part, j, M, L, a);
+  *reinterpret_cast<float2*>(acc_out + (size_t)blockIdx.x * D + head[j] * DH + 2 * lane) = a;
+  if (lane == 0) {
+    m_out[blockIdx.x * H + head[j]] = M;
+    l_out[blockIdx.x * H + head[j]] = L;
+  }
+}
+
+// Kernel B for block (stream b, head h)
 template <typename T>
-__global__ void __launch_bounds__(SELF_THREADS)
+__global__ void __launch_bounds__(SELF_THREADS, 2)
 self_attn_kernel(const T* __restrict__ q, int8_t* kc, int8_t* vc, float* kvs,
                  const T* __restrict__ k_new, const T* __restrict__ v_new,
                  const int8_t* __restrict__ kq, const int8_t* __restrict__ vq,
                  const float* __restrict__ new_scale, float* __restrict__ out,
                  int layer, int pos, int B, int ctx, int D) {
-  extern __shared__ float s[];  // [ctx] scores, then probabilities
-  __shared__ float qs[DH];
-  __shared__ float scratch[32];
-  __shared__ float part[SELF_THREADS];
+  __shared__ Partials<1> part;
   const int b = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x;
   const size_t row0 = ((size_t)layer * B + b) * ctx;
-  const size_t col = (size_t)b * D + h * DH + tid;
-  const Rows<int8_t> ka{kc, D, h * DH}, va{vc, D, h * DH};
-  const float o = attend_merged(q, ka, va, Lane{kvs, 2, 0}, Lane{kvs, 2, 1}, k_new, v_new, layer,
-                                pos, B, ctx, D, s, qs, scratch, part);
-  if (tid < DH) {
-    out[col] = o;
-    // store the current token at pos (no block reads row pos)
-    kc[(row0 + pos) * D + h * DH + tid] = kq[col];
-    vc[(row0 + pos) * D + h * DH + tid] = vq[col];
-    if (h == 0 && tid < 2) kvs[(row0 + pos) * 2 + tid] = new_scale[b * 2 + tid];
+  const int head[1] = {h};
+  const TokenCols tok = token_cols(q, k_new, v_new, head, D);
+  // warp 0 stores the current token's rows and scales at pos after the
+  // attention (no block reads row pos)
+  const size_t c = h * DH + 2 * (threadIdx.x % 32);
+  char2 kq2{}, vq2{};
+  float ns = 0.f;
+  if (threadIdx.x < 32) {
+    kq2 = *reinterpret_cast<const char2*>(kq + b * D + c);
+    vq2 = *reinterpret_cast<const char2*>(vq + b * D + c);
+    if (threadIdx.x < 2) ns = new_scale[b * 2 + threadIdx.x];
+  }
+  const Lane ks[1] = {{kvs, 2, 0}}, vs[1] = {{kvs, 2, 1}};
+  using KA = Rows<int8_t, 1>;
+  attend_cached(q, head, KA{kc, D, {h * DH}}, KA{vc, D, {h * DH}}, ks, vs, row0, pos, D, part);
+  finish_merged(tok, head, D, part, out);
+  if (threadIdx.x < 32) {
+    *reinterpret_cast<char2*>(kc + (row0 + pos) * D + c) = kq2;
+    *reinterpret_cast<char2*>(vc + (row0 + pos) * D + c) = vq2;
+    if (h == 0 && threadIdx.x < 2) kvs[(row0 + pos) * 2 + threadIdx.x] = ns;
   }
 }
 
+// Kernel B' for block (stream b, head h)
 template <typename T>
-__global__ void __launch_bounds__(SELF_THREADS)
+__global__ void __launch_bounds__(SELF_THREADS, 2)
 merged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
                    const T* __restrict__ k_new, const T* __restrict__ v_new,
                    float* __restrict__ out, int layer, int pos, int B, int ctx, int D) {
-  extern __shared__ float s[];  // [ctx] scores, then probabilities
-  __shared__ float qs[DH];
-  __shared__ float scratch[32];
-  __shared__ float part[SELF_THREADS];
-  const int c0 = blockIdx.y * DH;
-  const float o = attend_merged(q, Rows<T>{kc, D, c0}, Rows<T>{vc, D, c0}, One{}, One{}, k_new,
-                                v_new, layer, pos, B, ctx, D, s, qs, scratch, part);
-  if (threadIdx.x < DH) out[(size_t)blockIdx.x * D + c0 + threadIdx.x] = o;
+  __shared__ Partials<1> part;
+  const int h = blockIdx.y;
+  const int head[1] = {h};
+  const TokenCols tok = token_cols(q, k_new, v_new, head, D);
+  const One ones[1] = {{}};
+  using KA = Rows<T, 1>;
+  attend_cached(q, head, KA{kc, D, {h * DH}}, KA{vc, D, {h * DH}}, ones, ones,
+                ((size_t)layer * B + blockIdx.x) * ctx, pos, D, part);
+  finish_merged(tok, head, D, part, out);
 }
 
-// Kernel G for block (stream b, head h): keys KC (uint8 int4 pairs, or
-// int8 codes in the mixed mode) and int4 values, per-token scales SC (Lane,
-// or One for the unscaled int4 form); lanes as in Lane::of.
+// Kernel G for block (stream b, head pair h, h + H/2): keys KC (uint8 int4
+// pairs, or int8 codes in the mixed mode) and int4 values, per-token
+// scales SC (Lane, or One for the unscaled int4 form); lanes as in Lane::of.
 template <typename T, typename KC, class SC>
-__global__ void __launch_bounds__(SELF_THREADS)
+__global__ void __launch_bounds__(SELF_THREADS, 2)
 merged_int4_kernel(const T* __restrict__ q, const KC* __restrict__ kc,
                    const uint8_t* __restrict__ vc, const float* __restrict__ kvs,
                    const T* __restrict__ k_new, const T* __restrict__ v_new,
                    float* __restrict__ out, int layer, int pos, int B, int ctx, int D, int H,
                    int sw, int kgs, int vgs, int voff) {
-  extern __shared__ float s[];  // [ctx] scores, then probabilities
-  __shared__ float qs[DH];
-  __shared__ float scratch[32];
-  __shared__ float part[SELF_THREADS];
+  __shared__ Partials<2> part;
   const int h = blockIdx.y;
-  const float o = attend_merged(q, head_of(kc, D, H, h), head_of(vc, D, H, h),
-                                SC::of(kvs, sw, 0, kgs, h), SC::of(kvs, sw, voff, vgs, h), k_new,
-                                v_new, layer, pos, B, ctx, D, s, qs, scratch, part);
-  if (threadIdx.x < DH) out[(size_t)blockIdx.x * D + h * DH + threadIdx.x] = o;
+  const int head[2] = {h, h + H / 2};
+  const TokenCols tok = token_cols(q, k_new, v_new, head, D);
+  const SC ks[2] = {SC::of(kvs, sw, 0, kgs, head[0]), SC::of(kvs, sw, 0, kgs, head[1])};
+  const SC vs[2] = {SC::of(kvs, sw, voff, vgs, head[0]), SC::of(kvs, sw, voff, vgs, head[1])};
+  attend_cached(q, head, pair_of(kc, D, H, h), pair_of(vc, D, H, h), ks, vs,
+                ((size_t)layer * B + blockIdx.x) * ctx, pos, D, part);
+  finish_merged(tok, head, D, part, out);
 }
 
-// Kernels E, E' and H for block (stream b, head h): attend_cached over
-// keys t < valid, written unnormalized
-template <typename T, class KA, class VA, class KS, class VS>
-__device__ void layer_attn(const T* q, KA ka, VA va, KS ks, VS vs, float* acc_out, float* m_out,
-                           float* l_out, int layer, int valid, int B, int ctx, int D, int H,
-                           float* s, float* qs, float* scratch, float* part) {
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int c0 = h * DH;
-  const size_t row0 = ((size_t)layer * B + b) * ctx;
-
-  if (tid < DH) qs[tid] = to_f(q[(size_t)b * D + c0 + tid]);
-  __syncthreads();
-  float m, l, acc;
-  attend_cached(ka, va, ks, vs, row0, valid, qs, s, scratch, part, m, l, acc);
-  if (tid < DH) acc_out[(size_t)b * D + c0 + tid] = acc;
-  if (tid == 0) {
-    m_out[b * H + h] = m;
-    l_out[b * H + h] = l;
-  }
-}
-
+// Kernel E for block (stream b, head h)
 template <typename T>
-__global__ void __launch_bounds__(SELF_THREADS)
+__global__ void __launch_bounds__(SELF_THREADS, 2)
 layer_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
                   const int8_t* __restrict__ vc, const float* __restrict__ kvs,
                   float* __restrict__ acc_out, float* __restrict__ m_out,
                   float* __restrict__ l_out, int layer, int valid, int B, int ctx, int D, int H) {
-  extern __shared__ float s[];  // [ctx] scores, then probabilities
-  __shared__ float qs[DH];
-  __shared__ float scratch[32];
-  __shared__ float part[SELF_THREADS];
-  const int c0 = blockIdx.y * DH;
-  layer_attn(q, Rows<int8_t>{kc, D, c0}, Rows<int8_t>{vc, D, c0}, Lane{kvs, 2, 0}, Lane{kvs, 2, 1},
-             acc_out, m_out, l_out, layer, valid, B, ctx, D, H, s, qs, scratch, part);
+  __shared__ Partials<1> part;
+  const int h = blockIdx.y;
+  const int head[1] = {h};
+  const Lane ks[1] = {{kvs, 2, 0}}, vs[1] = {{kvs, 2, 1}};
+  using KA = Rows<int8_t, 1>;
+  attend_cached(q, head, KA{kc, D, {h * DH}}, KA{vc, D, {h * DH}}, ks, vs,
+                ((size_t)layer * B + blockIdx.x) * ctx, valid, D, part);
+  finish_layer(head, D, H, part, acc_out, m_out, l_out);
 }
 
+// Kernel E' for block (stream b, head h)
 template <typename T>
-__global__ void __launch_bounds__(SELF_THREADS)
+__global__ void __launch_bounds__(SELF_THREADS, 2)
 layer_unscaled_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
                       float* __restrict__ acc_out, float* __restrict__ m_out,
                       float* __restrict__ l_out, int layer, int valid, int B, int ctx, int D,
                       int H) {
-  extern __shared__ float s[];  // [ctx] scores, then probabilities
-  __shared__ float qs[DH];
-  __shared__ float scratch[32];
-  __shared__ float part[SELF_THREADS];
-  const int c0 = blockIdx.y * DH;
-  layer_attn(q, Rows<T>{kc, D, c0}, Rows<T>{vc, D, c0}, One{}, One{}, acc_out, m_out, l_out, layer,
-             valid, B, ctx, D, H, s, qs, scratch, part);
+  __shared__ Partials<1> part;
+  const int h = blockIdx.y;
+  const int head[1] = {h};
+  const One ones[1] = {{}};
+  using KA = Rows<T, 1>;
+  attend_cached(q, head, KA{kc, D, {h * DH}}, KA{vc, D, {h * DH}}, ones, ones,
+                ((size_t)layer * B + blockIdx.x) * ctx, valid, D, part);
+  finish_layer(head, D, H, part, acc_out, m_out, l_out);
 }
 
-// Kernel H for block (stream b, head h): the caches and scales of kernel G
+// Kernel H for block (stream b, head pair h, h + H/2): the caches and
+// scales of kernel G
 template <typename T, typename KC, class SC>
-__global__ void __launch_bounds__(SELF_THREADS)
+__global__ void __launch_bounds__(SELF_THREADS, 2)
 layer_int4_kernel(const T* __restrict__ q, const KC* __restrict__ kc,
                   const uint8_t* __restrict__ vc, const float* __restrict__ kvs,
                   float* __restrict__ acc_out, float* __restrict__ m_out,
                   float* __restrict__ l_out, int layer, int valid, int B, int ctx, int D, int H,
                   int sw, int kgs, int vgs, int voff) {
-  extern __shared__ float s[];  // [ctx] scores, then probabilities
-  __shared__ float qs[DH];
-  __shared__ float scratch[32];
-  __shared__ float part[SELF_THREADS];
+  __shared__ Partials<2> part;
   const int h = blockIdx.y;
-  layer_attn(q, head_of(kc, D, H, h), head_of(vc, D, H, h), SC::of(kvs, sw, 0, kgs, h),
-             SC::of(kvs, sw, voff, vgs, h), acc_out, m_out, l_out, layer, valid, B, ctx, D, H, s,
-             qs, scratch, part);
+  const int head[2] = {h, h + H / 2};
+  const SC ks[2] = {SC::of(kvs, sw, 0, kgs, head[0]), SC::of(kvs, sw, 0, kgs, head[1])};
+  const SC vs[2] = {SC::of(kvs, sw, voff, vgs, head[0]), SC::of(kvs, sw, voff, vgs, head[1])};
+  attend_cached(q, head, pair_of(kc, D, H, h), pair_of(vc, D, H, h), ks, vs,
+                ((size_t)layer * B + blockIdx.x) * ctx, valid, D, part);
+  finish_layer(head, D, H, part, acc_out, m_out, l_out);
 }
 
 // launch G (MERGED) or H over one of the three int4 self-cache forms:
@@ -418,18 +587,17 @@ int launch_int4(const void* q, const void* kc, const void* vc, const void* kvs, 
                 const void* v_new, float* o0, float* o1, float* o2, int layer, int valid, int B,
                 int ctx, int D, int H, int sw, int kgs, int vgs, int voff,
                 cudaStream_t st) {
-  dim3 grid(B, H);
-  const size_t smem = (size_t)ctx * sizeof(float);
+  dim3 grid(B, H / 2);
   const T* qt = static_cast<const T*>(q);
   const KC* k = static_cast<const KC*>(kc);
   const uint8_t* v = static_cast<const uint8_t*>(vc);
   const float* sc = static_cast<const float*>(kvs);
   if constexpr (MERGED) {
-    merged_int4_kernel<T, KC, SC><<<grid, SELF_THREADS, smem, st>>>(
+    merged_int4_kernel<T, KC, SC><<<grid, SELF_THREADS, 0, st>>>(
         qt, k, v, sc, static_cast<const T*>(k_new), static_cast<const T*>(v_new), o0, layer, valid,
         B, ctx, D, H, sw, kgs, vgs, voff);
   } else {
-    layer_int4_kernel<T, KC, SC><<<grid, SELF_THREADS, smem, st>>>(
+    layer_int4_kernel<T, KC, SC><<<grid, SELF_THREADS, 0, st>>>(
         qt, k, v, sc, o0, o1, o2, layer, valid, B, ctx, D, H, sw, kgs, vgs, voff);
   }
   return static_cast<int>(cudaGetLastError());
@@ -614,20 +782,18 @@ int launch_cross_unpacked(const void* q, const void* kT, const void* v, float* o
       valid, G, D, Tn);
   return static_cast<int>(cudaGetLastError());
 }
-
 }  // namespace
 
 // q, k_new, v_new: [B, D] f32 or bf16 (bf16 flag); kc, vc: int8 [L, B, ctx, D];
 // kvs: f32 [L, B, ctx, 2]; kq, vq: int8 [B, D]; new_scale: f32 [B, 2];
-// out: f32 [B, D]. Head width 64. Needs 0 <= pos < ctx and ctx * 4 bytes of
-// dynamic shared memory within the 48 KB default.
+// out: f32 [B, D]. Head width 64, caches 16-byte aligned. Needs
+// 0 <= pos < ctx.
 extern "C" int decode_self_attention(const void* q, int bf16, void* kc, void* vc, void* kvs,
                                      const void* k_new, const void* v_new, const void* kq,
                                      const void* vq, const void* new_scale, void* out,
                                      int layer, int pos, int B, int ctx, int D, int H,
                                      void* stream) {
   dim3 grid(B, H);
-  const size_t smem = (size_t)ctx * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* k8 = static_cast<int8_t*>(kc);
   int8_t* v8 = static_cast<int8_t*>(vc);
@@ -637,12 +803,12 @@ extern "C" int decode_self_attention(const void* q, int bf16, void* kc, void* vc
   const float* ns = static_cast<const float*>(new_scale);
   float* o = static_cast<float*>(out);
   if (bf16) {
-    self_attn_kernel<__nv_bfloat16><<<grid, SELF_THREADS, smem, st>>>(
+    self_attn_kernel<__nv_bfloat16><<<grid, SELF_THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q), k8, v8, sc,
         static_cast<const __nv_bfloat16*>(k_new), static_cast<const __nv_bfloat16*>(v_new),
         kq8, vq8, ns, o, layer, pos, B, ctx, D);
   } else {
-    self_attn_kernel<float><<<grid, SELF_THREADS, smem, st>>>(
+    self_attn_kernel<float><<<grid, SELF_THREADS, 0, st>>>(
         static_cast<const float*>(q), k8, v8, sc, static_cast<const float*>(k_new),
         static_cast<const float*>(v_new), kq8, vq8, ns, o, layer, pos, B, ctx, D);
   }
@@ -651,22 +817,20 @@ extern "C" int decode_self_attention(const void* q, int bf16, void* kc, void* vc
 
 // q, k_new, v_new: [B, D]; kc, vc: [L, B, ctx, D]; all f32, or all bf16
 // (bf16 flag); out: f32 [B, D], normalized; nothing is stored. Head width
-// 64. Needs 0 <= pos < ctx and ctx * 4 bytes of dynamic shared memory
-// within the 48 KB default.
+// 64, caches 16-byte aligned. Needs 0 <= pos < ctx.
 extern "C" int decode_attention_merged(const void* q, int bf16, const void* kc, const void* vc,
                                        const void* k_new, const void* v_new, void* out, int layer,
                                        int pos, int B, int ctx, int D, int H, void* stream) {
   dim3 grid(B, H);
-  const size_t smem = (size_t)ctx * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
   if (bf16) {
     using T = __nv_bfloat16;
-    merged_attn_kernel<T><<<grid, SELF_THREADS, smem, st>>>(
+    merged_attn_kernel<T><<<grid, SELF_THREADS, 0, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
         static_cast<const T*>(k_new), static_cast<const T*>(v_new), o, layer, pos, B, ctx, D);
   } else {
-    merged_attn_kernel<float><<<grid, SELF_THREADS, smem, st>>>(
+    merged_attn_kernel<float><<<grid, SELF_THREADS, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(kc), static_cast<const float*>(vc),
         static_cast<const float*>(k_new), static_cast<const float*>(v_new), o, layer, pos, B, ctx,
         D);
@@ -676,13 +840,11 @@ extern "C" int decode_attention_merged(const void* q, int bf16, const void* kc, 
 
 // q: [B, D] f32 or bf16 (bf16 flag), B query streams; kc, vc: int8
 // [L, B, ctx, D]; kvs: f32 [L, B, ctx, 2]; acc: f32 [B, D]; m, l: f32
-// [B, H]. Head width 64. Needs 0 <= valid <= ctx and ctx * 4 bytes of
-// dynamic shared memory within the 48 KB default.
+// [B, H]. Head width 64, caches 16-byte aligned. Needs 0 <= valid <= ctx.
 extern "C" int decode_attention_layer(const void* q, int bf16, const void* kc, const void* vc,
                                       const void* kvs, void* acc, void* m, void* l, int layer,
                                       int valid, int B, int ctx, int D, int H, void* stream) {
   dim3 grid(B, H);
-  const size_t smem = (size_t)ctx * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* k8 = static_cast<const int8_t*>(kc);
   const int8_t* v8 = static_cast<const int8_t*>(vc);
@@ -691,35 +853,34 @@ extern "C" int decode_attention_layer(const void* q, int bf16, const void* kc, c
   float* mo = static_cast<float*>(m);
   float* lo = static_cast<float*>(l);
   if (bf16) {
-    layer_attn_kernel<__nv_bfloat16><<<grid, SELF_THREADS, smem, st>>>(
+    layer_attn_kernel<__nv_bfloat16><<<grid, SELF_THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q), k8, v8, sc, a, mo, lo, layer, valid, B, ctx, D, H);
   } else {
-    layer_attn_kernel<float><<<grid, SELF_THREADS, smem, st>>>(
+    layer_attn_kernel<float><<<grid, SELF_THREADS, 0, st>>>(
         static_cast<const float*>(q), k8, v8, sc, a, mo, lo, layer, valid, B, ctx, D, H);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // q: [B, D]; kc, vc: [L, B, ctx, D]; all f32, or all bf16 (bf16 flag);
-// acc: f32 [B, D]; m, l: f32 [B, H]. Head width 64. Needs 0 <= valid <= ctx
-// and ctx * 4 bytes of dynamic shared memory within the 48 KB default.
+// acc: f32 [B, D]; m, l: f32 [B, H]. Head width 64, caches 16-byte
+// aligned. Needs 0 <= valid <= ctx.
 extern "C" int decode_attention_layer_unscaled(const void* q, int bf16, const void* kc,
                                                const void* vc, void* acc, void* m, void* l,
                                                int layer, int valid, int B, int ctx, int D, int H,
                                                void* stream) {
   dim3 grid(B, H);
-  const size_t smem = (size_t)ctx * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* a = static_cast<float*>(acc);
   float* mo = static_cast<float*>(m);
   float* lo = static_cast<float*>(l);
   if (bf16) {
     using T = __nv_bfloat16;
-    layer_unscaled_kernel<T><<<grid, SELF_THREADS, smem, st>>>(
+    layer_unscaled_kernel<T><<<grid, SELF_THREADS, 0, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), a, mo, lo,
         layer, valid, B, ctx, D, H);
   } else {
-    layer_unscaled_kernel<float><<<grid, SELF_THREADS, smem, st>>>(
+    layer_unscaled_kernel<float><<<grid, SELF_THREADS, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(kc),
         static_cast<const float*>(vc), a, mo, lo, layer, valid, B, ctx, D, H);
   }
@@ -732,8 +893,8 @@ extern "C" int decode_attention_layer_unscaled(const void* q, int bf16, const vo
 // cache); a head's scale lanes as in Lane::of (keys from lane 0 in groups
 // of kgs channels, values from lane voff in groups of vgs); out: f32
 // [B, D], normalized; nothing is stored. Head width 64, H even, a scale
-// group a whole number of heads. Needs 0 <= pos < ctx and ctx * 4 bytes of
-// dynamic shared memory within the 48 KB default.
+// group a whole number of heads, caches 16-byte aligned. Needs
+// 0 <= pos < ctx.
 extern "C" int decode_attention_merged_int4(const void* q, int bf16, const void* kc,
                                             const void* vc, const void* kvs, const void* k_new,
                                             const void* v_new, void* out, int layer, int pos,
@@ -768,7 +929,6 @@ extern "C" int decode_attention_layer_int4(const void* q, int bf16, const void* 
   return launch_int4_form<false, float>(k_int4, q, kc, vc, kvs, nullptr, nullptr, a, mo, lo, layer,
                                         valid, B, ctx, D, H, sw, kgs, vgs, voff, st);
 }
-
 // q: [B, D] f32 or bf16, B query streams, G of them per cache entry (B % G
 // == 0); kT: uint8 [L, B/G, D/2, T]; v: uint8 [L, B/G, T/2, D]; out: f32
 // [B, D], normalized. Head width 64, H even, T even, 2 * T * 4 bytes of

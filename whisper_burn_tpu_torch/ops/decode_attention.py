@@ -30,9 +30,11 @@ Counterpart of ``whisper_burn_tpu/ops/pallas_attention.py``; source
 
 Each reads one layer of a stacked cache by index, so no slice is copied,
 and each is bound on the H100 by the cache bytes it reads (see the source
-note for how each design keeps every byte read once; G and H read each
-packed byte twice, once for each of the two heads that share it). CPU
-tensors take the plain versions; CUDA tensors launch the kernel or raise.
+note for how each design keeps every byte read once: G and H run one block
+per head pair, the two heads that share each packed byte). The
+self-attention kernels (B, B', E, E', G, H) share one loop that reads 16
+bytes a lane, so their caches must be 16-byte aligned. CPU tensors take
+the plain versions; CUDA tensors launch the kernel or raise.
 
 The int4 self cache (``models/decoder._quantize_tokens4``) packs channel
 ``j`` and ``j + D/2`` of a token into one byte, low nibble first, biased by
@@ -116,6 +118,12 @@ def _check_self_cache(fn: str, q, k_cache, v_cache, kv_scale, layer: int, valid:
         raise ValueError(f"{fn}: position {valid} / layer {layer} out of range")
 
 
+def _check_aligned(fn: str, *caches) -> None:
+    """The self-attention kernels read cache rows 16 bytes at a time."""
+    if any(t.data_ptr() % 16 for t in caches):
+        raise ValueError(f"{fn}: caches must be 16-byte aligned")
+
+
 def _check_float_cache(fn: str, q, k_cache) -> None:
     """A float cache takes a query of its own dtype, f32 or bf16."""
     if q.dtype not in FLOATS or k_cache.dtype != q.dtype:
@@ -153,8 +161,7 @@ def decode_attention_layer(
         raise ValueError("decode_attention_layer: scales go with int8 caches and are f32")
     if not scaled:
         _check_float_cache("decode_attention_layer", q, k_cache)
-    if ctx * 4 > _MAX_SMEM:
-        raise ValueError(f"decode_attention_layer: ctx {ctx} exceeds the score buffer")
+    _check_aligned("decode_attention_layer", k_cache, v_cache)
     acc = torch.empty((b, 1, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, 1, n_heads), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
@@ -244,8 +251,7 @@ def decode_self_attention(
         raise ValueError("decode_self_attention: int8 caches and rows")
     if kv_scale.dtype != torch.float32 or new_scale.dtype != torch.float32:
         raise ValueError("decode_self_attention: f32 scales")
-    if ctx * 4 > _MAX_SMEM:
-        raise ValueError(f"decode_self_attention: ctx {ctx} exceeds the score buffer")
+    _check_aligned("decode_self_attention", k_cache, v_cache)
     out = torch.empty((b, 1, d), dtype=torch.float32, device=q.device)
     err = _fn(SELF)(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -290,8 +296,7 @@ def decode_attention_merged(
     _check_float_cache("decode_attention_merged", q, k_cache)
     if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
         raise ValueError("decode_attention_merged: q, k_new, v_new must share a dtype")
-    if ctx * 4 > _MAX_SMEM:
-        raise ValueError(f"decode_attention_merged: ctx {ctx} exceeds the score buffer")
+    _check_aligned("decode_attention_merged", k_cache, v_cache)
     out = torch.empty((b, 1, d), dtype=torch.float32, device=q.device)
     err = _fn(MERGED)(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -406,8 +411,7 @@ def _int4_call(fn, q, k_cache, v_cache, kv_scale, layer, valid, n_heads, top, ex
         raise ValueError(f"{fn}: q (and k_new, v_new) f32 or bf16, of one dtype")
     if scales and kv_scale.dtype != torch.float32:
         raise ValueError(f"{fn}: f32 scales")
-    if ctx * 4 > _MAX_SMEM:
-        raise ValueError(f"{fn}: ctx {ctx} exceeds the score buffer")
+    _check_aligned(fn, k_cache, v_cache)
     f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=q.device)
     # G: the normalized output; H: acc, m, l
     outs = (f32(b, 1, d),) if extra else (f32(b, 1, d), f32(b, 1, n_heads), f32(b, 1, n_heads))
