@@ -26,6 +26,7 @@ from whisper_burn_tpu_torch.ops.decode_attention import (
     decode_attention_merged_plain,
     decode_cross_attention,
     decode_cross_attention_plain,
+    decode_cross_attention_ties,
     decode_self_attention,
     decode_self_attention_plain,
 )
@@ -134,7 +135,17 @@ def test_cross_attention_kernel(gen, groups):
     v = torch.randint(0, 256, (l_dim, b, t // 2, d), generator=gen, device="cuda", dtype=torch.uint8)
     q = torch.randn((b * groups, 1, d), generator=gen, device="cuda") * 0.1
     out = decode_cross_attention(q, kT, v, 1, 200, h, groups)
-    assert _rel_err(out, decode_cross_attention_plain(q, kT, v, 1, 200, h, groups)) <= 1e-5
+    _cross_close(out, q, kT, v, 1, 200, h, groups)
+
+
+def _cross_close(out, q, kT, v, layer, valid, h, groups):
+    """Kernel C or C' against its plain version: 1e-5 of max|out| (f32
+    math both ways, sums in another order), plus, with a bf16 query, one
+    bf16 step of each p that lies within 32 f32 steps of a rounding tie
+    (the two round such a p apart; decode_cross_attention_ties)."""
+    ref = decode_cross_attention_plain(q, kT, v, layer, valid, h, groups)
+    ties = decode_cross_attention_ties(q, kT, v, layer, valid, h, groups)
+    assert ((out - ref).abs() <= 1e-5 * ref.abs().max() + ties).all()
 
 
 @pytest.mark.parametrize("ctx,valid", [(64, 0), (64, 37), (96, 96), (448, 300)])
@@ -199,7 +210,7 @@ def test_cross_attention_unpacked_kernel(gen, cache, groups):
     _build.reset_launches()
     out = decode_cross_attention(q, kT, v, 1, 200, h, groups)
     assert _build.LAUNCHES["decode_cross_attention_unpacked"] == 1
-    assert _rel_err(out, decode_cross_attention_plain(q, kT, v, 1, 200, h, groups)) <= 1e-5
+    _cross_close(out, q, kT, v, 1, 200, h, groups)
 
 
 @pytest.mark.parametrize("dtype,width", [(torch.int8, 1280), (torch.bfloat16, 1280), (torch.float32, 2), (torch.bfloat16, 3)])
@@ -448,6 +459,45 @@ def test_attention_layer_int4_kernel_large_v3(gen, fmt, valid, dtype):
     out = call()
     assert _build.LAUNCHES["decode_attention_layer_int4"] == 1
     _close_parts(out, decode_attention_layer_int4_plain(q, k, v, sc, 1, valid, h))
+    _bitwise_twice(call, out)
+
+
+# Kernels C and C' at Large-V3's layout: D 1280, 20 heads, T 1536, 1, 4
+# and 8 cache entries, one or five streams each. The valid lengths hit the
+# edges of the 16-key units and of the blocks' runs, and the int4 cache's
+# half boundary (T/2 = 768: 767 leaves the high halves empty, 769 adds one
+# key there); 1536 leaves no key masked.
+XV3_VALID = [1, 100, 767, 768, 769, 1500, 1536]
+XV3_FORMS = [("int4", torch.float32), ("int4", torch.bfloat16), ("int8", torch.float32),
+             ("int8", torch.bfloat16), ("bf16", torch.bfloat16), ("f32", torch.float32)]
+
+
+@pytest.mark.parametrize("valid", XV3_VALID)
+@pytest.mark.parametrize("entries", [1, 4, 8])
+@pytest.mark.parametrize("groups", [1, 5])
+@pytest.mark.parametrize("cache,dtype", XV3_FORMS, ids=[f"{c}-{str(d)[6:]}" for c, d in XV3_FORMS])
+def test_cross_attention_kernel_large_v3(gen, cache, dtype, groups, entries, valid):
+    """One launch a call, finite, the plain version's output (_cross_close),
+    and two launches bitwise equal (fixed orders of merging, no atomics)."""
+    l_dim, t, d, h = 2, 1536, 1280, 20
+    ints = lambda lo, hi, shape, dt: torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=dt)
+    if cache == "int4":
+        kT, v = ints(0, 256, (l_dim, entries, d // 2, t), torch.uint8), ints(0, 256, (l_dim, entries, t // 2, d), torch.uint8)
+        qs = 0.05
+    elif cache == "int8":
+        kT, v = ints(-127, 128, (l_dim, entries, d, t), torch.int8), ints(-127, 128, (l_dim, entries, t, d), torch.int8)
+        qs = 0.003
+    else:
+        kT, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for shape in
+                 ((l_dim, entries, d, t), (l_dim, entries, t, d)))
+        qs = 1.0
+    q = (torch.randn((entries * groups, 1, d), generator=gen, device="cuda") * qs).to(dtype)
+    call = lambda: decode_cross_attention(q, kT, v, 1, valid, h, groups)
+    _build.reset_launches()
+    out = call()
+    assert _build.LAUNCHES["decode_cross_attention" if cache == "int4" else "decode_cross_attention_unpacked"] == 1
+    assert torch.isfinite(out).all()
+    _cross_close(out, q, kT, v, 1, valid, h, groups)
     _bitwise_twice(call, out)
 
 

@@ -28,6 +28,8 @@ from whisper_burn_tpu_torch.ops.cache import write_cache_slot
 from whisper_burn_tpu_torch.ops.decode_attention import (
     decode_attention_layer,
     decode_cross_attention,
+    decode_cross_attention_plain,
+    decode_cross_attention_ties,
     decode_self_attention,
     flash_merge_extra_key,
 )
@@ -241,6 +243,48 @@ def test_grouped_cross_attention_int4_matches_pallas(valid):
         torch.from_numpy(q), torch.from_numpy(kT), torch.from_numpy(v), layer, valid, h, batch_groups=g
     )
     _close(out, ref)
+
+
+@pytest.mark.parametrize("groups", [1, 3])
+@pytest.mark.parametrize("valid", [100, 128])
+@pytest.mark.parametrize("cache", ["int4", "int8", "bf16"])
+def test_cross_attention_bf16_matches_pallas(cache, valid, groups):
+    """Kernels C and C' with a bf16 query (and, for C', an int8 or bf16
+    cache) against K3 in interpret mode: K3 rounds p to bf16 before the
+    value product, and the int4 form folds the values' bias out with the
+    unrounded sum. Held to 1e-4 of max|out|, plus, where a p lies within
+    256 f32 steps of a bf16 rounding tie, one bf16 step of it (the two
+    frameworks' scores differ in their last bits); the form that keeps p
+    in f32 misses 1e-4 by more than 10x. Stream b reads entry b // groups."""
+    rng = np.random.default_rng(15)
+    l_dim, b, t, d, h, layer = 2, 2, 128, 256, 4, 1
+    if cache == "int4":
+        kT = _pack4(rng.integers(-8, 8, (l_dim, b, d, t), dtype=np.int8), axis=2)  # [L, B, D/2, T]
+        v = _pack4(rng.integers(-8, 8, (l_dim, b, t, d), dtype=np.int8), axis=2)  # [L, B, T/2, D]
+        qs = 0.3
+    elif cache == "int8":
+        kT = rng.integers(-127, 128, (l_dim, b, d, t), dtype=np.int8)
+        v = rng.integers(-127, 128, (l_dim, b, t, d), dtype=np.int8)
+        qs = 0.003
+    else:
+        kT = rng.standard_normal((l_dim, b, d, t)).astype(np.float32)
+        v = rng.standard_normal((l_dim, b, t, d)).astype(np.float32)
+        qs = 1.0
+    q = (rng.standard_normal((b * groups, 1, d)) * qs).astype(np.float32)
+    j = lambda x: jnp.asarray(x).astype(jnp.bfloat16) if x.dtype == np.float32 else jnp.asarray(x)
+    tt = lambda x: torch.from_numpy(x).to(torch.bfloat16) if x.dtype == np.float32 else torch.from_numpy(x)
+    ref, _, _ = decode_attention_kT(
+        j(q), j(kT), j(v), jnp.asarray(layer), jnp.asarray(valid), h,
+        batch_groups=groups, interpret=True, normalized=True,
+    )
+    args = (tt(q), tt(kT), tt(v), layer, valid, h)
+    out = decode_cross_attention(*args, batch_groups=groups).numpy()
+    ref = np.asarray(ref, np.float32)
+    ties = decode_cross_attention_ties(*args, groups, ulps=256).numpy()
+    assert (np.abs(out - ref) <= 1e-4 * np.abs(ref).max() + ties).all()
+    # the form before the repair: p kept in f32 (an f32 query of the same values)
+    f32_p = decode_cross_attention_plain(args[0].float(), *args[1:], groups).numpy()
+    assert np.abs(f32_p - ref).max() > 10 * 1e-4 * np.abs(ref).max()
 
 
 @pytest.mark.parametrize("valid", [100, 128])

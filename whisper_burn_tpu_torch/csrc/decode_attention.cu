@@ -67,39 +67,64 @@
 // the H100 (PERF.md, kernels B and G): each slot's state in shared memory, 32-key
 // steps, 16 warps a block for G, four partial sums in the dot.
 
-// Kernel C, decode_cross_attention, replaces
-// whisper_burn_tpu/ops/pallas_attention.py:_kt_kernel (int4, normalized).
-// Keys are int4 pairs packed along D, stored [L, B, D/2, T] (byte row j
-// holds channel j in its low nibble and channel j + D/2 in its high one);
-// values are packed along T, stored [L, B, T/2, D] (row t holds time t low
-// and time t + T/2 high). Codes are biased by 8. Keys at `valid` and above
-// are masked. Per-channel scales are folded into q and the output by the
-// caller. With G > 1 query streams per cache entry (beam search's
-// batch_groups) stream b reads entry b / G, as the TPU kernel's index map
-// does. Bound: the int4 cache read (T * D bytes per cache entry and layer,
-// memory). Design: one block per (entry, head pair h, h + H/2, stream of
-// the entry): channel j of head h and of head h + H/2 share a byte, so
-// every key and value byte is read by exactly one block per stream, with
-// consecutive threads on consecutive keys (scores) or channels (values).
-// The G streams of an entry are the grid's z axis, so their blocks run
-// side by side and re-read the entry's bytes mostly from L2. The host
-// passes the entry count: the same kernel dividing B by G itself took
-// more registers and ran slower, at G = 1 too.
+// Kernels C and C', decode_cross_attention and
+// decode_cross_attention_unpacked, replace
+// whisper_burn_tpu/ops/pallas_attention.py:_kt_kernel (normalized): one
+// query per stream over layer `layer` of the cross cache, keys at `valid`
+// and above masked, G query streams per cache entry (beam search's
+// batch_groups; stream b reads entry b / G). C takes the int4 cache: keys
+// int4 pairs packed along D, [L, E, D/2, T] (byte row j holds channel j
+// low and j + D/2 high, so heads h and h + H/2 share every key byte),
+// values packed along T, [L, E, T/2, D] (row t2 holds time t2 low and
+// t2 + T/2 high), codes biased by 8. C' takes int8 codes or an f32/bf16
+// cache of the query's dtype: keys [L, E, D, T], values [L, E, T, D].
+// Per-channel scales are folded into q and the output by the caller.
 //
-// Kernel C', decode_cross_attention_unpacked, replaces _kt_kernel's
-// unpacked branch (int8 codes with the per-channel scales folded outside,
-// or an f32/bf16 cache): keys stored [L, B, D, T], values [L, B, T, D],
-// normalized f32 out, keys at `valid` and above masked and never read.
-// Bound: the cache read (2 * valid * D elements per cache entry and layer,
-// memory). Design: one block per (stream of the entry, head, entry), the
-// entry's streams adjacent in launch order so their re-reads of its bytes
-// come mostly from L2; every thread loads 4 bytes at a time (4 int8, 2
-// bf16 or 1 f32 elements): consecutive threads on consecutive keys of a
-// key row (scores) or on consecutive channels of a value row (values).
+// Arithmetic, as K3 in its compute dtype: scores in f32 from q and the
+// codes or values; m and l = sum(p) in f32; the value product on p
+// rounded to the query's dtype (bf16; f32 unchanged), then divided by l;
+// in bf16 the int4 codes' bias folded out as K3 does, q . nibble - 8 sum(q)
+// and sum(round(p) * nibble) - 8 * l (pallas_attention.py:690,701,711).
+// Rounding p needs the global max before any p is formed, so the maxima
+// are exchanged before the value pass.
+//
+// Bound: the cache read, once per entry whatever G (memory): at Large-V3
+// (D 1280, T 1536, 1500 valid) 1.94 MB an entry and layer for C, 3.84 MB
+// for bf16 C'. Design: the keys are split over the blocks of a thread
+// block cluster (split-KV, as in flash-decoding). A cluster serves one
+// (entry, head pair h, h + H/2) for C, (entry, head) for C'; its S <= 16
+// blocks take runs of 16-key units (S so the grid fills three quarters of
+// the card: enough blocks at B = 1, few enough at B = 8 for each block to
+// stream several steps), for C a run of packed value rows t2 with the keys
+// t2 and t2 + T/2, so every key and value byte of the entry is read by
+// exactly one block, which serves all G streams of the entry. A block
+// walks its run in steps of 128 keys (C: rows): each step's keys, then
+// each step's values, go through a ring of shared-memory stages by 16-byte
+// cp.async, two stages in flight while one is used (key columns at and
+// past `valid` are not read). Scores, per step: with one stream, or an f32
+// query, on CUDA cores, a thread 4 keys and a quarter (C) or an eighth
+// (C') of the 64 channel rows, the partial dots meeting by shuffles; with
+// a bf16 query of several streams, on the tensor cores (mma.sync
+// m16n8k16, bf16 in and f32 accumulate as K3's dots; rows 0-7 the streams
+// of head h, for C rows 8-15 those of h + H/2; codes to bf16 by a byte
+// permute). The block's maxima go to every block of the cluster through
+// distributed shared memory; after one cluster barrier each block forms p
+// against the global max and rounds it, and the value product runs step
+// by step the same way (CUDA cores: a warp a run of rows, 4 channels a
+// lane; tensor cores: a warp an 8-channel tile, p as A). The warps' sums
+// meet in shared memory in warp order and are pushed, with each block's l,
+// to the block that owns those outputs; after a second cluster barrier the
+// owner sums them in rank order and normalizes. Fixed orders, no atomics:
+// two launches give bitwise equal results.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -109,17 +134,6 @@ constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// one 4-byte load: 4 / sizeof(C) consecutive cache elements as floats
-__device__ __forceinline__ void load4(const int8_t* p, float* o) {
-  const char4 v = *reinterpret_cast<const char4*>(p);
-  o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  o[0] = v.x, o[1] = v.y;
-}
-__device__ __forceinline__ void load4(const float* p, float* o) { o[0] = *p; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -131,21 +145,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
   return v;
-}
-
-// block-wide reduction of one value per thread (blockDim.x a multiple of 32,
-// at most 1024); `scratch` holds 32 floats; every thread gets the result
-template <bool MAX>
-__device__ float block_reduce(float v, float* scratch) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int nwarps = blockDim.x / 32;
-  v = MAX ? warp_max(v) : warp_sum(v);
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float r = lane < nwarps ? scratch[lane] : (MAX ? NEG_BIG : 0.f);
-  r = MAX ? warp_max(r) : warp_sum(r);
-  return r;
 }
 
 // ---- the self-attention loop (kernels B, B', E, E', G, H) ------------------
@@ -618,170 +617,639 @@ int launch_int4_form(int k_int4, const void* q, const void* kc, const void* vc, 
                                               valid, B, ctx, D, H, sw, kgs, vgs, voff, st);
 }
 
-constexpr int CROSS_THREADS = 512;
+// ---- kernels C and C': split-key cross-attention over a cluster -----------
 
-template <typename T>
-__global__ void __launch_bounds__(CROSS_THREADS)
-cross_attn_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kT,
-                  const uint8_t* __restrict__ v, float* __restrict__ out,
-                  int layer, int valid, int E, int G, int D, int Tn, int H) {
-  extern __shared__ float s[];  // [2][Tn] scores of the two heads
-  __shared__ float qs[2][DH];
-  __shared__ float scratch[32];
-  __shared__ float part[CROSS_THREADS];
-  const int e = blockIdx.x, h = blockIdx.y, h2 = h + H / 2;  // e: cache entry
-  const int b = e * G + blockIdx.z;  // the query stream
-  const int tid = threadIdx.x;
-  const int D2 = D / 2, T2 = Tn / 2;
-  const float scale = rsqrtf((float)DH);
-  const size_t entry = (size_t)layer * E + e;
-  const uint8_t* kb = kT + entry * D2 * Tn;
-  const uint8_t* vb = v + entry * T2 * D;
-  float* s1 = s;
-  float* s2 = s + Tn;
+constexpr int X_THREADS = 256;
+constexpr int X_WARPS = X_THREADS / 32;
+constexpr int X_UNIT = 16;          // keys (C: packed value rows) a unit of the split
+constexpr int X_STEP = 128;         // keys (C: packed value rows) a step of a block
+constexpr int X_MAX_CLUSTER = 16;   // blocks a cluster (non-portable above 8)
+// blocks a multiprocessor holds by registers: one stream a block needs few
+#define X_BLOCKS_PER_SM(NG) ((NG) == 1 ? 3 : 2)
+constexpr int X_FILL_PERCENT = 75;  // blocks a launch aims at, in % of those the card holds at once
+constexpr int X_SCORE_BYTES = 64 * 1024;  // a block's score buffer at most
+constexpr int X_STAGES = 3;               // ring stages (f32 caches: 2)
+// row padding in shared memory, so lanes that read other rows read other
+// banks; rows stay 16-byte aligned for cp.async (int8 keys need 16)
+constexpr int X_KPAD = 16;  // key rows, elements (int4 pairs: twice this in bytes)
+constexpr int X_VPAD = 16;  // value rows, bytes
+// streams a block from which bf16 queries take the tensor cores (on
+// CUDA cores one stream's products cost no more than the code conversion)
+constexpr int X_MMA_MIN_STREAMS = 2;
 
-  if (tid < DH) qs[0][tid] = to_f(q[(size_t)b * D + h * DH + tid]);
-  else if (tid < 2 * DH) qs[1][tid - DH] = to_f(q[(size_t)b * D + h2 * DH + tid - DH]);
-  __syncthreads();
-
-  float m1 = NEG_BIG, m2 = NEG_BIG;
-  for (int t = tid; t < Tn; t += CROSS_THREADS) {
-    float a1 = 0.f, a2 = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < DH; ++j) {
-      const int byte = kb[(size_t)(h * DH + j) * Tn + t];
-      a1 += qs[0][j] * (float)((byte & 15) - 8);
-      a2 += qs[1][j] * (float)((byte >> 4) - 8);
-    }
-    a1 = t < valid ? a1 * scale : NEG_BIG;
-    a2 = t < valid ? a2 * scale : NEG_BIG;
-    s1[t] = a1;
-    s2[t] = a2;
-    m1 = fmaxf(m1, a1);
-    m2 = fmaxf(m2, a2);
-  }
-  m1 = block_reduce<true>(m1, scratch);
-  m2 = block_reduce<true>(m2, scratch);
-  float l1 = 0.f, l2 = 0.f;
-  for (int t = tid; t < Tn; t += CROSS_THREADS) {
-    const float p1 = t < valid ? expf(s1[t] - m1) : 0.f;
-    const float p2 = t < valid ? expf(s2[t] - m2) : 0.f;
-    s1[t] = p1;
-    s2[t] = p2;
-    l1 += p1;
-    l2 += p2;
-  }
-  l1 = block_reduce<false>(l1, scratch);
-  l2 = block_reduce<false>(l2, scratch);
-  __syncthreads();
-
-  // values: output o in [0, 128) = (head select, channel), 4 parts over rows
-  const int o = tid % (2 * DH), pr = tid / (2 * DH);
-  const int nparts = CROSS_THREADS / (2 * DH);
-  const int hsel = o / DH, c = o % DH;
-  const int col = (hsel ? h2 : h) * DH + c;
-  const float* p = hsel ? s2 : s1;
-  float acc = 0.f;
-  for (int t2 = pr; t2 < T2; t2 += nparts) {
-    const int byte = vb[(size_t)t2 * D + col];
-    acc += p[t2] * (float)((byte & 15) - 8) + p[t2 + T2] * (float)((byte >> 4) - 8);
-  }
-  part[tid] = acc;
-  __syncthreads();
-  if (tid < 2 * DH) {
-    float r = 0.f;
-    for (int k = 0; k < nparts; ++k) r += part[k * 2 * DH + tid];
-    out[(size_t)b * D + col] = r / (hsel ? l2 : l1);
-  }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-constexpr int CROSS_U_THREADS = 512;
+// 16 bytes global -> shared
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-template <typename T, typename C>
-__global__ void __launch_bounds__(CROSS_U_THREADS)
-cross_unpacked_kernel(const T* __restrict__ q, const C* __restrict__ kT, const C* __restrict__ v,
-                      float* __restrict__ out, int layer, int valid, int G, int D, int Tn) {
-  constexpr int V = 4 / (int)sizeof(C);      // elements per 4-byte load
-  constexpr int ROW_THREADS = DH / V;         // threads over one head's value row
-  constexpr int PARTS = CROSS_U_THREADS / ROW_THREADS;
-  extern __shared__ float s[];  // [Tn] scores of the head, then probabilities
-  __shared__ float qs[DH];
-  __shared__ float scratch[32];
-  __shared__ float part[PARTS * DH];
-  const int h = blockIdx.y, e = blockIdx.z;  // e: cache entry
-  const int b = e * G + blockIdx.x;         // the query stream
-  const int tid = threadIdx.x;
+// four consecutive cache elements in shared memory as floats
+__device__ __forceinline__ void four(const int8_t* p, float* f) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) f[b] = biased_byte(u, b) - 8388736.0f;
+}
+__device__ __forceinline__ void four(const __nv_bfloat16* p, float* f) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  f[0] = __uint_as_float(u.x << 16), f[1] = __uint_as_float(u.x & 0xffff0000u);
+  f[2] = __uint_as_float(u.y << 16), f[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+__device__ __forceinline__ void four(const float* p, float* f) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  f[0] = u.x, f[1] = u.y, f[2] = u.z, f[3] = u.w;
+}
+
+// p in the query's dtype: bf16 rounds to nearest even, f32 stays
+__device__ __forceinline__ float rounded(float p, const float*) { return p; }
+__device__ __forceinline__ float rounded(float p, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(p));
+}
+
+// nibble n (0 low, 1 high) of four bytes of int4 pairs as floats, minus `bias`
+__device__ __forceinline__ void nibbles(uint32_t u, int n, float bias, float* f) {
+  const uint32_t x = (u >> (4 * n)) & 0x0f0f0f0fu;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) f[b] = biased_byte(x, b) - (8388608.0f + bias);
+}
+
+// D += A B on the tensor cores: m16n8k16, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// two floats that bf16 holds exactly (codes, bf16 values, rounded p) as
+// a bf16 pair, a low: their high halves
+__device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
+  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+}
+
+// the mma fragment of 4 codes (k rows 2c, 2c + 1, 2c + 8, 2c + 9 of one
+// column) held in the bytes of w: as two bf16 pairs
+__device__ __forceinline__ void code_pairs(uint32_t w, float bias, bool sign, uint32_t& b0, uint32_t& b1) {
+  const float off = sign ? 8388736.0f : 8388608.0f + bias;
+  if (sign) w ^= 0x80808080u;
+  b0 = bf16_pair(biased_byte(w, 0) - off, biased_byte(w, 1) - off);
+  b1 = bf16_pair(biased_byte(w, 2) - off, biased_byte(w, 3) - off);
+}
+
+// The cache forms. Keys sit in shared memory as 64 channel rows of KEYS
+// columns, KPITCH bytes apart (padded so the JS lanes of a key group read
+// other banks); values as rows of VROW bytes, VPITCH apart (padded so an
+// mma fragment's four rows lie in other banks). A thread of the score pass
+// takes 4 key columns and every JS-th channel row.
+struct Int4Pairs {  // C: NH = 2 heads a block; key columns [0, 128) the
+                    // times r0 + c, [128, 256) the times T/2 + r0 + c - 128
+  using Code = uint8_t;
+  static constexpr int NH = 2, KEYS = 2 * X_STEP, HALF = X_STEP, JS = 4, STAGES = X_STAGES;
+  static constexpr int KPITCH = KEYS + 2 * X_KPAD, VROW = 2 * DH, VPITCH = VROW + X_VPAD;
+  static __device__ void keys(const unsigned char* row, int col, float bias, float (*f)[4]) {
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(row + col);
+    nibbles(u, 0, bias, f[0]);  // head h
+    nibbles(u, 1, bias, f[1]);  // head h + H/2
+  }
+  // the bytes of an mma B fragment: rows k0 + 2c, + 1, + 8, + 9 (pitch
+  // bytes apart) at element col; frag() turns nibble plane n (0 low, 1
+  // high) of them into the fragment
+  static __device__ uint32_t gather(const unsigned char* p, int pitch, int k0, int col) {
+    const unsigned char* b = p + (k0 + 2 * (threadIdx.x % 4)) * pitch + col;
+    return b[0] | b[pitch] << 8 | b[8 * pitch] << 16 | (uint32_t)b[9 * pitch] << 24;
+  }
+  static __device__ void frag(uint32_t w, int n, float bias, uint32_t& b0, uint32_t& b1) {
+    code_pairs((w >> (4 * n)) & 0x0f0f0f0fu, bias, false, b0, b1);
+  }
+};
+template <typename C>
+struct Plain {  // C': one head a block, key columns the times r0 + c
+  using Code = C;
+  static constexpr int NH = 1, KEYS = X_STEP, HALF = X_STEP, JS = 8, STAGES = sizeof(C) < 4 ? X_STAGES : 2;
+  static constexpr int KPITCH = (KEYS + X_KPAD) * (int)sizeof(C), VROW = DH * (int)sizeof(C), VPITCH = VROW + X_VPAD;
+  static __device__ void keys(const unsigned char* row, int col, float, float (*f)[4]) {
+    four(reinterpret_cast<const C*>(row) + col, f[0]);
+  }
+  // an mma B fragment for a bf16 query (int8 codes or bf16 values), as
+  // Int4Pairs' (no planes)
+  static __device__ uint2 gather(const unsigned char* p, int pitch, int k0, int col) {
+    const unsigned char* b = p + (k0 + 2 * (threadIdx.x % 4)) * pitch + col * (int)sizeof(C);
+    if constexpr (sizeof(C) == 1) {
+      return make_uint2(b[0] | b[pitch] << 8 | b[8 * pitch] << 16 | (uint32_t)b[9 * pitch] << 24, 0u);
+    } else {
+      auto h = [&](int r) { return (uint32_t)*reinterpret_cast<const uint16_t*>(b + r * pitch); };
+      return make_uint2(h(0) | h(1) << 16, h(8) | h(9) << 16);
+    }
+  }
+  static __device__ void frag(uint2 w, int, float, uint32_t& b0, uint32_t& b1) {
+    if constexpr (sizeof(C) == 1) {
+      code_pairs(w.x, 0.f, true, b0, b1);
+    } else {
+      b0 = w.x, b1 = w.y;
+    }
+  }
+};
+
+template <class F, int NG>
+struct XLayout {
+  static constexpr int NQ = NG * F::NH;        // query rows: (stream, head)
+  static constexpr int NQP = (NQ + 3) / 4 * 4;
+  static constexpr int NO = NQ * DH;           // outputs of a cluster
+  // a ring stage holds one step's keys (64 channel rows) or values (128 rows)
+  static constexpr int STAGE_KEYS = DH * F::KPITCH, STAGE_VALUES = X_STEP * F::VPITCH;
+  static constexpr int STAGE = STAGE_KEYS > STAGE_VALUES ? STAGE_KEYS : STAGE_VALUES;
+  static constexpr int RING = F::STAGES * STAGE;
+  static constexpr int QT = RING;                               // q, [64][NQP]
+  static constexpr int RECV = QT + DH * NQP * 4;                // owners' sums
+  static constexpr int MX = RECV + (NO + X_MAX_CLUSTER) * 4;    // the blocks' maxima
+  static constexpr int LR = MX + X_MAX_CLUSTER * NQ * 4;        // the blocks' l
+  static constexpr int RED = LR + X_MAX_CLUSTER * NQ * 4;       // the warps' maxima and sums
+  static constexpr int QSUM = RED + X_WARPS * NQ * 4;           // the rows' sums of q
+  static constexpr int PS = QSUM + NQP * 4;                     // scores, then p: [NQ][pitch(steps)]
+  // a row of scores: 8 floats of padding put an mma fragment's 8 rows in
+  // other banks
+  static constexpr __host__ __device__ int pitch(int steps) { return steps * F::KEYS + 8; }
+  static constexpr int bytes(int steps) { return PS + NQ * pitch(steps) * 4; }
+  // the warps' value sums reuse the ring
+  static_assert(X_WARPS * NO * 4 <= RING, "partials fit over the ring");
+};
+
+// The block of cluster rank `rank` over units [u0, u0 + nu) of cluster
+// (entry e, head unit hu): C' head hu, C heads hu and hu + H/2. It walks
+// its units in steps of X_STEP keys (C: packed value rows): every step's
+// keys, then every step's values, each a chunk through a ring of
+// F::STAGES stages, so F::STAGES - 1 chunks are in flight while one is
+// used. `steps` sizes the score buffer.
+template <typename T, class F, int NG>
+__device__ void cross_split(const T* __restrict__ q, const typename F::Code* __restrict__ kT,
+                            const typename F::Code* __restrict__ v, float* __restrict__ out,
+                            int layer, int valid, int E, int G, int D, int Tn, int H, int units) {
+  using Lay = XLayout<F, NG>;
+  using Code = typename F::Code;
+  constexpr bool PACKED = F::NH == 2;
+  // bf16 folds the int4 codes' bias out after each sum, as K3 does, so p
+  // rounds where K3's does; in f32, where p is not rounded, the sums are
+  // taken on the unbiased codes
+  constexpr bool FOLD = PACKED && !std::is_same<T, float>::value;
+  // bf16 queries of several streams take both products on the tensor
+  // cores (m16n8k16: rows 0-7 the streams of head h, C's rows 8-15 those of
+  // h + H/2); f32, and one stream, on CUDA cores
+  constexpr bool MMA = !std::is_same<T, float>::value && NG >= X_MMA_MIN_STREAMS;
+  static_assert(NG <= 8, "a block serves at most 8 streams");
+  constexpr int NQ = Lay::NQ, NQP = Lay::NQP, NO = Lay::NO, JS = F::JS, NS = F::STAGES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ps = reinterpret_cast<float*>(smem + Lay::PS);
+  float* qt = reinterpret_cast<float*>(smem + Lay::QT);
+  float* recv = reinterpret_cast<float*>(smem + Lay::RECV);
+  float* mx = reinterpret_cast<float*>(smem + Lay::MX);
+  float* lr = reinterpret_cast<float*>(smem + Lay::LR);
+  float* red = reinterpret_cast<float*>(smem + Lay::RED);
+  float* qsum_s = reinterpret_cast<float*>(smem + Lay::QSUM);
+  float* part = reinterpret_cast<float*>(smem);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int hu = blockIdx.y, e = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int u0 = rank * units / S, nu = (rank + 1) * units / S - u0;
+  const int r0 = u0 * X_UNIT, rows = nu * X_UNIT;  // C: packed value rows; C': keys
+  const int steps = (rows + X_STEP - 1) / X_STEP, cols = steps * F::KEYS, pp = Lay::pitch(steps);
+  const int T2 = Tn / 2;
+  const size_t entry = (size_t)layer * E + e;
+  auto head = [&](int jh) { return hu + jh * (H / 2); };
+  // score column c (step c / KEYS): its time, and whether it is a valid key
+  auto time_of = [&](int c) {
+    const int k = c % F::KEYS;
+    return r0 + c / F::KEYS * X_STEP + k % F::HALF + (PACKED && k >= F::HALF ? T2 : 0);
+  };
+  auto col_ok = [&](int c) {
+    return c / F::KEYS * X_STEP + c % F::KEYS % F::HALF < rows && time_of(c) < valid;
+  };
+
+  // chunk k < steps: the keys of step k; k >= steps: the values of step k - steps
+  auto issue = [&](int k) {
+    unsigned char* stage = smem + k % NS * Lay::STAGE;
+    if (k < steps) {
+      constexpr int KCH = X_UNIT * (int)sizeof(Code) / 16;  // 16-byte chunks a unit of a key row
+      constexpr int UPS = X_STEP / X_UNIT;                   // units a step
+      constexpr int PER = (PACKED ? 2 : 1) * UPS * KCH;      // chunks a channel row
+      const int su = min(UPS, nu - k * UPS);
+      for (int i = tid; i < DH * PER; i += X_THREADS) {
+        const int j = i / PER, rest = i % PER, half = rest / (UPS * KCH);
+        const int u = rest % (UPS * KCH) / KCH, sub = rest % KCH;
+        const int col = half * F::HALF + u * X_UNIT;  // the unit's first column in the step
+        const int t = time_of(k * F::KEYS + col);
+        if (u >= su || t >= valid) continue;  // never used: masked
+        const size_t krow = entry * (PACKED ? D / 2 : D) + hu * DH + j;
+        cp_async16(stage + j * F::KPITCH + col * (int)sizeof(Code) + sub * 16,
+                   kT + krow * Tn + t + sub * (16 / (int)sizeof(Code)));
+      }
+    } else if (k < 2 * steps) {
+      constexpr int VCH = DH * (int)sizeof(Code) / 16;  // 16-byte chunks of a head's value row
+      constexpr int PER = F::NH * VCH;
+      const int s = k - steps, sr = min(X_STEP, rows - s * X_STEP);
+      for (int i = tid; i < sr * PER; i += X_THREADS) {
+        const int r = i / PER, c = i % PER;
+        const size_t vrow = entry * (PACKED ? T2 : Tn) + r0 + s * X_STEP + r;
+        cp_async16(stage + r * F::VPITCH + c * 16,
+                   v + vrow * D + head(c / VCH) * DH + c % VCH * (16 / (int)sizeof(Code)));
+      }
+    }
+    cp_async_commit();  // one group a chunk, empty past the last
+  };
+  for (int k = 0; k < NS - 1; ++k) issue(k);
+
+  // q of the entry's streams, [channel][query row], padded rows zero
+  for (int i = tid; i < DH * NQP; i += X_THREADS) {
+    const int j = i / NQP, qr = i % NQP, g = qr / F::NH;
+    qt[i] = qr < NQ && g < G ? to_f(q[(size_t)(e * G + g) * D + head(qr % F::NH) * DH + j]) : 0.f;
+  }
+  // MMA: q as A fragments, a k-step of 16 channels and a head each (a0, a2
+  // for rows g = lane / 4 of head h, a1, a3 for those of h + H/2; zero past
+  // the streams), and the rows' sums of q
+  const int fr = lane / 4, fc = lane % 4;  // a fragment's row (stream) and column pair
+  uint32_t qa[MMA ? 4 : 1][F::NH][2] = {};
+  if constexpr (MMA) {
+    __syncthreads();
+    for (int r = warp; r < NQ; r += X_WARPS) {
+      float x = qt[lane * NQP + r] + qt[(lane + 32) * NQP + r];
+      x = warp_sum(x);
+      if (lane == 0) qsum_s[r] = x;
+    }
+    if (fr < NG)
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int jh = 0; jh < F::NH; ++jh)
+#pragma unroll
+          for (int h8 = 0; h8 < 2; ++h8) {
+            const int j = ks * 16 + h8 * 8 + 2 * fc, qr = fr * F::NH + jh;
+            qa[ks][jh][h8] = bf16_pair(qt[j * NQP + qr], qt[(j + 1) * NQP + qr]);
+          }
+  }
+
+  // scores, step by step: 4 key columns and every JS-th channel row a thread
   const float scale = rsqrtf((float)DH);
-  const size_t entry = (size_t)layer * gridDim.z + e;
-  const C* kb = kT + (entry * D + (size_t)h * DH) * Tn;  // the head's 64 key rows [64][Tn]
-  const C* vb = v + entry * Tn * D + h * DH;              // the head's value columns
-
-  if (tid < DH) qs[tid] = to_f(q[(size_t)b * D + h * DH + tid]);
-  __syncthreads();
-
-  float m = NEG_BIG;
-  for (int t0 = tid * V; t0 < valid; t0 += CROSS_U_THREADS * V) {
-    float a[V];
+  for (int k = 0; k < steps; ++k) {
+    cp_async_wait<NS - 2>();  // chunk k has landed
+    __syncthreads();  // and every thread is done with step k - 1's stage
+    issue(k + NS - 1);
+    const unsigned char* ks = smem + k % NS * Lay::STAGE;
+    if constexpr (MMA) {
+      // a warp an 8-key tile at a time: 4 k-steps of 16 channels a head
+      for (int c0 = warp * 8; c0 < F::KEYS; c0 += X_WARPS * 8) {
+        if (!col_ok(k * F::KEYS + c0)) continue;  // the tile's first key: past it all are masked
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < V; ++i) a[i] = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < DH; ++j) {
-      float k[V];
-      load4(kb + (size_t)j * Tn + t0, k);
-      const float qj = qs[j];
+        for (int kk = 0; kk < 4; ++kk) {
+          const auto w = F::gather(ks, F::KPITCH, kk * 16, c0 + fr);
 #pragma unroll
-      for (int i = 0; i < V; ++i) a[i] += qj * k[i];
+          for (int jh = 0; jh < F::NH; ++jh) {
+            uint32_t b0, b1;
+            F::frag(w, jh, 0.f, b0, b1);  // biased nibbles: the bias folds out below
+            if (jh == 0) mma_bf16(d, qa[kk][0][0], 0u, qa[kk][0][1], 0u, b0, b1);
+            else mma_bf16(d, 0u, qa[kk][1][0], 0u, qa[kk][1][1], b0, b1);
+          }
+        }
+        if (fr < NG)
+#pragma unroll
+          for (int jh = 0; jh < F::NH; ++jh) {
+            const int r = fr * F::NH + jh, c = k * F::KEYS + c0 + 2 * fc;
+            const float bias = FOLD ? 8.f * qsum_s[r] : 0.f;
+            *reinterpret_cast<float2*>(ps + r * pp + c) =
+                make_float2(col_ok(c) ? (d[2 * jh] - bias) * scale : NEG_BIG,
+                            col_ok(c + 1) ? (d[2 * jh + 1] - bias) * scale : NEG_BIG);
+          }
+      }
+
+      continue;
+    }
+    const int js = tid % JS, c0 = tid / JS * 4;
+    float acc[NQ][4], qsum[NQ];  // qsum: the rows' sums of q, for FOLD
+#pragma unroll
+    for (int r = 0; r < NQ; ++r) {
+      qsum[r] = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    }
+    if (col_ok(k * F::KEYS + c0)) {
+#pragma unroll 4
+      for (int i = 0; i < DH / JS; ++i) {
+        const int j = i * JS + js;
+        float code[F::NH][4];
+        F::keys(ks + j * F::KPITCH, c0, FOLD ? 0.f : 8.f, code);
+        float qf[NQP];
+#pragma unroll
+        for (int r = 0; r < NQP; r += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(qt + j * NQP + r);
+          qf[r] = x.x, qf[r + 1] = x.y, qf[r + 2] = x.z, qf[r + 3] = x.w;
+        }
+#pragma unroll
+        for (int r = 0; r < NQ; ++r) {
+          if (FOLD) qsum[r] += qf[r];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(qf[r], code[r % F::NH][c], acc[r][c]);
+        }
+      }
     }
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      if (t0 + i < valid) {
-        s[t0 + i] = a[i] * scale;
-        m = fmaxf(m, a[i] * scale);
+    for (int o = 1; o < JS; o <<= 1)
+#pragma unroll
+      for (int r = 0; r < NQ; ++r) {
+        if (FOLD) qsum[r] += __shfl_xor_sync(FULL, qsum[r], o);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] += __shfl_xor_sync(FULL, acc[r][c], o);
+      }
+#pragma unroll
+    for (int r = 0; r < NQ; ++r)
+      if (r % JS == js) {
+        float s[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          s[c] = col_ok(k * F::KEYS + c0 + c) ? (acc[r][c] - 8.f * qsum[r]) * scale : NEG_BIG;
+        *reinterpret_cast<float4*>(ps + r * pp + k * F::KEYS + c0) = make_float4(s[0], s[1], s[2], s[3]);
+      }
+  }
+
+  __syncthreads();  // every score is written
+  // the block's maxima to every block of the cluster, then the global max
+  {
+    float m[NQ];
+#pragma unroll
+    for (int r = 0; r < NQ; ++r) m[r] = NEG_BIG;
+    for (int c = tid; c < cols; c += X_THREADS)
+      if (col_ok(c))
+#pragma unroll
+        for (int r = 0; r < NQ; ++r) m[r] = fmaxf(m[r], ps[r * pp + c]);
+#pragma unroll
+    for (int r = 0; r < NQ; ++r) {
+      m[r] = warp_max(m[r]);
+      if (lane == 0) red[warp * NQ + r] = m[r];
+    }
+    __syncthreads();
+    for (int i = tid; i < NQ * S; i += X_THREADS) {  // (row, destination rank)
+      const int r = i % NQ;
+      float b = NEG_BIG;
+#pragma unroll
+      for (int w = 0; w < X_WARPS; ++w) b = fmaxf(b, red[w * NQ + r]);
+      *cluster.map_shared_rank(mx + rank * NQ + r, i / NQ) = b;
+    }
+  }
+  cluster.sync();
+  {
+    float M[NQ], l[NQ];
+#pragma unroll
+    for (int r = 0; r < NQ; ++r) {
+      M[r] = NEG_BIG, l[r] = 0.f;
+      for (int k = 0; k < S; ++k) M[r] = fmaxf(M[r], mx[k * NQ + r]);
+    }
+    for (int c = tid; c < cols; c += X_THREADS) {
+      const bool ok = col_ok(c);
+#pragma unroll
+      for (int r = 0; r < NQ; ++r) {
+        const float p = ok ? expf(ps[r * pp + c] - M[r]) : 0.f;
+        l[r] += p;
+        // the value product takes p in the query's dtype, l the unrounded sum
+        ps[r * pp + c] = rounded(p, q);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < NQ; ++r) {  // red was read before the cluster barrier
+      l[r] = warp_sum(l[r]);
+      if (lane == 0) red[warp * NQ + r] = l[r];
+    }
+    __syncthreads();
+    for (int i = tid; i < NQ * S; i += X_THREADS) {
+      const int r = i % NQ;
+      float b = 0.f;
+#pragma unroll
+      for (int w = 0; w < X_WARPS; ++w) b += red[w * NQ + r];
+      *cluster.map_shared_rank(lr + rank * NQ + r, i / NQ) = b;
+    }
+  }
+
+  // values, step by step: a warp a run of rows, 4 channels a lane (MMA:
+  // an 8-channel tile a warp)
+  float vacc[MMA ? F::NH : 1][4] = {};
+  float acc[NG][4];
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[g][c] = 0.f;
+  for (int k = 0; k < steps; ++k) {
+    cp_async_wait<NS - 2>();  // chunk steps + k has landed
+    __syncthreads();  // and every thread is done with the stage it was in before
+    issue(steps + k + NS - 1);
+    const unsigned char* vs = smem + (steps + k) % NS * Lay::STAGE;
+    const int sr = min(X_STEP, rows - k * X_STEP);
+    const float* pk = ps + k * F::KEYS;
+    if constexpr (MMA) {
+      // a warp the 8-channel tile `warp` of each head; 16 rows a k-step,
+      // for C each row's low and high times (columns r and HALF + r)
+      for (int r0k = 0; r0k < sr; r0k += 16) {
+#pragma unroll
+        for (int jh = 0; jh < F::NH; ++jh) {
+          const auto wv = F::gather(vs, F::VPITCH, r0k, jh * DH + warp * 8 + fr);
+#pragma unroll
+          for (int n = 0; n < (PACKED ? 2 : 1); ++n) {  // C: the low times, then the high
+            uint32_t b0, b1, a0 = 0u, a2 = 0u;
+            F::frag(wv, n, FOLD ? 0.f : 8.f, b0, b1);
+            if (fr < NG) {
+              const float* pr = pk + (fr * F::NH + jh) * pp + n * F::HALF + r0k + 2 * fc;
+              const float2 x0 = *reinterpret_cast<const float2*>(pr), x8 = *reinterpret_cast<const float2*>(pr + 8);
+              a0 = bf16_pair(x0.x, x0.y);
+              a2 = bf16_pair(x8.x, x8.y);
+            }
+            mma_bf16(vacc[jh], a0, 0u, a2, 0u, b0, b1);
+          }
+        }
+      }
+    } else if constexpr (PACKED) {
+      const int jh = lane / 16;  // lane's bytes: head jh's channels (lane % 16) * 4 ..
+      for (int r = warp; r < sr; r += X_WARPS) {
+        const uint32_t u = *reinterpret_cast<const uint32_t*>(vs + r * F::VPITCH + lane * 4);
+        float lo[4], hi[4];
+        nibbles(u, 0, FOLD ? 0.f : 8.f, lo);  // time r0 + r
+        nibbles(u, 1, FOLD ? 0.f : 8.f, hi);  // time T/2 + r0 + r
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          const float plo = pk[(g * 2 + jh) * pp + r], phi = pk[(g * 2 + jh) * pp + F::HALF + r];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[g][c] = fmaf(phi, hi[c], fmaf(plo, lo[c], acc[g][c]));
+        }
+      }
+    } else {
+      const int cg4 = lane % 16;  // lanes 0-15 and 16-31 take alternate rows
+      for (int r = warp * 2 + lane / 16; r < sr; r += 2 * X_WARPS) {
+        float x[4];
+        four(reinterpret_cast<const Code*>(vs + r * F::VPITCH) + cg4 * 4, x);
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          const float p = pk[g * pp + r];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[g][c] = fmaf(p, x[c], acc[g][c]);
+        }
       }
     }
   }
-  m = block_reduce<true>(m, scratch);
-  float l = 0.f;
-  for (int t = tid; t < valid; t += CROSS_U_THREADS) {
-    const float p = expf(s[t] - m);
-    s[t] = p;
-    l += p;
+  if constexpr (!PACKED && !MMA) {
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[g][c] += __shfl_xor_sync(FULL, acc[g][c], 16);
   }
-  l = block_reduce<false>(l, scratch);
-  __syncthreads();
-
-  // values: V channels a thread, PARTS threads down the rows t < valid
-  const int c = (tid % ROW_THREADS) * V, pr = tid / ROW_THREADS;
-  float acc[V];
+  __syncthreads();  // the last stage is read
+  // the ring is free (its last groups are empty): it takes the warps' sums
+  // (MMA: the block's, each warp its own channels)
+  constexpr int PW = MMA ? 1 : X_WARPS;
+  if constexpr (MMA) {
+    if (fr < NG)
 #pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = 0.f;
-#pragma unroll 4
-  for (int t = pr; t < valid; t += PARTS) {
-    float x[V];
-    load4(vb + (size_t)t * D + c, x);
-    const float p = s[t];
+      for (int jh = 0; jh < F::NH; ++jh)
+        *reinterpret_cast<float2*>(part + (fr * F::NH + jh) * DH + warp * 8 + 2 * fc) =
+            make_float2(vacc[jh][0], vacc[jh][1]);
+  } else if (PACKED || lane < 16) {
+    const int jh = PACKED ? lane / 16 : 0, c = (lane % 16) * 4;
 #pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] += p * x[i];
+    for (int g = 0; g < NG; ++g)
+      *reinterpret_cast<float4*>(part + warp * NO + (g * F::NH + jh) * DH + c) =
+          make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
   }
-#pragma unroll
-  for (int i = 0; i < V; ++i) part[pr * DH + c + i] = acc[i];
   __syncthreads();
-  if (tid < DH) {
-    float r = 0.f;
-    for (int k = 0; k < PARTS; ++k) r += part[k * DH + tid];
-    out[(size_t)b * D + h * DH + tid] = r / l;
+  // the block's sums in warp order, pushed to the owner of each output
+  const int CO = (NO + S - 1) / S;
+  for (int o = tid; o < NO; o += X_THREADS) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < PW; ++w) s += part[w * NO + o];
+    const int owner = o / CO;
+    *cluster.map_shared_rank(recv + rank * CO + o - owner * CO, owner) = s;
+  }
+  cluster.sync();  // every push has landed; no block touches another's memory after this
+  for (int o = rank * CO + tid; o < min(NO, (rank + 1) * CO); o += X_THREADS) {
+    const int r = o / DH, g = r / F::NH;
+    if (g >= G) continue;
+    float s = 0.f, L = 0.f;
+    for (int k = 0; k < S; ++k) s += recv[k * CO + o - rank * CO], L += lr[k * NQ + r];
+    if (FOLD) s -= 8.f * L;  // the values' bias, folded out with the unrounded sum
+    out[(size_t)(e * G + g) * D + head(r % F::NH) * DH + o % DH] = s / L;
   }
 }
 
-template <typename T, typename C>
-int launch_cross_unpacked(const void* q, const void* kT, const void* v, float* out, int layer,
-                          int valid, int B, int G, int D, int Tn, int H, cudaStream_t st) {
-  dim3 grid(G, H, B / G);
-  cross_unpacked_kernel<T, C><<<grid, CROSS_U_THREADS, (size_t)Tn * sizeof(float), st>>>(
-      static_cast<const T*>(q), static_cast<const C*>(kT), static_cast<const C*>(v), out, layer,
-      valid, G, D, Tn);
+template <typename T, int NG>
+__global__ void __launch_bounds__(X_THREADS, X_BLOCKS_PER_SM(NG))
+cross_attn_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kT,
+                  const uint8_t* __restrict__ v, float* __restrict__ out, int layer, int valid,
+                  int E, int G, int D, int Tn, int H, int units) {
+  cross_split<T, Int4Pairs, NG>(q, kT, v, out, layer, valid, E, G, D, Tn, H, units);
+}
+
+template <typename T, typename C, int NG>
+__global__ void __launch_bounds__(X_THREADS, X_BLOCKS_PER_SM(NG))
+cross_unpacked_kernel(const T* __restrict__ q, const C* __restrict__ kT, const C* __restrict__ v,
+                      float* __restrict__ out, int layer, int valid, int E, int G, int D, int Tn,
+                      int H, int units) {
+  cross_split<T, Plain<C>, NG>(q, kT, v, out, layer, valid, E, G, D, Tn, H, units);
+}
+
+// Launch one cluster of S blocks per (entry, head unit): S so the grid
+// holds about X_FILL_PERCENT of the blocks the card holds at once (short
+// of all of them, so clusters pack into the GPCs), and more where a
+// block's scores would not fit X_SCORE_BYTES.
+template <class F, int NG, typename T, typename C>
+int launch_cross(void (*kernel)(const T*, const C*, const C*, float*, int, int, int, int, int, int,
+                                int, int),
+                 const void* q, const void* kT, const void* v, float* out, int layer, int valid,
+                 int B, int G, int D, int Tn, int H, cudaStream_t st) {
+  using Lay = XLayout<F, NG>;
+  const int E = B / G, hunits = H / F::NH;
+  const int rows = F::NH == 2 ? min(Tn / 2, valid) : valid;
+  const int units = (rows + X_UNIT - 1) / X_UNIT;
+  constexpr int UPS = X_STEP / X_UNIT;
+  constexpr int max_steps = X_SCORE_BYTES / (Lay::NQ * F::KEYS * 4);
+  const int min_S = (units + max_steps * UPS - 1) / (max_steps * UPS);
+  // once per instance: the attributes, and the blocks the card holds at
+  // once (multiprocessors times the occupancy at two steps' scores)
+  static int capacity = 0;
+  static const cudaError_t attr_err = [&] {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           Lay::bytes(max_steps));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, X_THREADS, Lay::bytes(2));
+    capacity = sms * max(per_sm, 1);
+    return err;
+  }();
+  if (attr_err != cudaSuccess) return static_cast<int>(attr_err);
+  int S = (capacity * X_FILL_PERCENT / 100 + hunits * E / 2) / (hunits * E);
+  S = max(min(min(S, X_MAX_CLUSTER), units), max(min_S, 1));
+  if (S > X_MAX_CLUSTER) return static_cast<int>(cudaErrorInvalidValue);
+  const int steps = ((units + S - 1) / S + UPS - 1) / UPS;  // the largest block's
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S, hunits, E);
+  cfg.blockDim = dim3(X_THREADS);
+  cfg.dynamicSmemBytes = Lay::bytes(steps);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q), static_cast<const C*>(kT),
+                                             static_cast<const C*>(v), out, layer, valid, E, G, D, Tn, H, units);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
+
+// streams a block serves, as instantiated: 1, up to 5 (beam search's
+// width), up to 8
+template <template <int> class Launch, typename... Args>
+int by_streams(int G, Args... args) {
+  if (G == 1) return Launch<1>::run(args...);
+  if (G <= 5) return Launch<5>::run(args...);
+  if (G <= 8) return Launch<8>::run(args...);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+struct LaunchC {
+  template <int NG>
+  struct At {
+    static int run(const void* q, const void* kT, const void* v, float* out, int layer, int valid,
+                   int B, int G, int D, int Tn, int H, cudaStream_t st) {
+      return launch_cross<Int4Pairs, NG>(cross_attn_kernel<T, NG>, q, kT, v, out, layer, valid, B, G, D,
+                                         Tn, H, st);
+    }
+  };
+};
+
+template <typename T, typename C>
+struct LaunchCU {
+  template <int NG>
+  struct At {
+    static int run(const void* q, const void* kT, const void* v, float* out, int layer, int valid,
+                   int B, int G, int D, int Tn, int H, cudaStream_t st) {
+      return launch_cross<Plain<C>, NG>(cross_unpacked_kernel<T, C, NG>, q, kT, v, out, layer, valid, B,
+                                        G, D, Tn, H, st);
+    }
+  };
+};
 }  // namespace
 
 // q, k_new, v_new: [B, D] f32 or bf16 (bf16 flag); kc, vc: int8 [L, B, ctx, D];
@@ -929,35 +1397,25 @@ extern "C" int decode_attention_layer_int4(const void* q, int bf16, const void* 
   return launch_int4_form<false, float>(k_int4, q, kc, vc, kvs, nullptr, nullptr, a, mo, lo, layer,
                                         valid, B, ctx, D, H, sw, kgs, vgs, voff, st);
 }
-// q: [B, D] f32 or bf16, B query streams, G of them per cache entry (B % G
-// == 0); kT: uint8 [L, B/G, D/2, T]; v: uint8 [L, B/G, T/2, D]; out: f32
-// [B, D], normalized. Head width 64, H even, T even, 2 * T * 4 bytes of
-// dynamic shared memory within the 48 KB default.
+// q: [B, D] f32 or bf16, B query streams, G <= 8 of them per cache entry
+// (B % G == 0); kT: uint8 [L, B/G, D/2, T]; v: uint8 [L, B/G, T/2, D]; out:
+// f32 [B, D], normalized. Head width 64, H even, T a multiple of 32,
+// caches 16-byte aligned, 0 < valid <= T, min(T/2, valid) <= 2048.
 extern "C" int decode_cross_attention(const void* q, int bf16, const void* kT, const void* v,
                                       void* out, int layer, int valid, int B, int G, int D, int T,
                                       int H, void* stream) {
-  dim3 grid(B / G, H / 2, G);
-  const int E = B / G;
-  const size_t smem = 2 * (size_t)T * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* k4 = static_cast<const uint8_t*>(kT);
-  const uint8_t* v4 = static_cast<const uint8_t*>(v);
   float* o = static_cast<float*>(out);
-  if (bf16) {
-    cross_attn_kernel<__nv_bfloat16><<<grid, CROSS_THREADS, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q), k4, v4, o, layer, valid, E, G, D, T, H);
-  } else {
-    cross_attn_kernel<float><<<grid, CROSS_THREADS, smem, st>>>(
-        static_cast<const float*>(q), k4, v4, o, layer, valid, E, G, D, T, H);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (bf16)
+    return by_streams<LaunchC<__nv_bfloat16>::template At>(G, q, kT, v, o, layer, valid, B, G, D, T, H, st);
+  return by_streams<LaunchC<float>::template At>(G, q, kT, v, o, layer, valid, B, G, D, T, H, st);
 }
 
-// q: [B, D] f32 or bf16 (bf16 flag), B query streams, G of them per cache
-// entry (B % G == 0); kT: [L, B/G, D, T]; v: [L, B/G, T, D], int8
+// q: [B, D] f32 or bf16 (bf16 flag), B query streams, G <= 8 of them per
+// cache entry (B % G == 0); kT: [L, B/G, D, T]; v: [L, B/G, T, D], int8
 // (cache_int8) or of q's type; out: f32 [B, D], normalized. Head width 64,
-// T and D multiples of 4, 0 < valid <= T, T * 4 bytes of dynamic shared
-// memory within the 48 KB default.
+// T * element size a multiple of 16, caches 16-byte aligned,
+// 0 < valid <= min(T, 2048).
 extern "C" int decode_cross_attention_unpacked(const void* q, int bf16, int cache_int8,
                                                const void* kT, const void* v, void* out,
                                                int layer, int valid, int B, int G, int D, int T,
@@ -966,9 +1424,9 @@ extern "C" int decode_cross_attention_unpacked(const void* q, int bf16, int cach
   float* o = static_cast<float*>(out);
   using BF = __nv_bfloat16;
   if (bf16 && cache_int8)
-    return launch_cross_unpacked<BF, int8_t>(q, kT, v, o, layer, valid, B, G, D, T, H, st);
-  if (bf16) return launch_cross_unpacked<BF, BF>(q, kT, v, o, layer, valid, B, G, D, T, H, st);
+    return by_streams<LaunchCU<BF, int8_t>::template At>(G, q, kT, v, o, layer, valid, B, G, D, T, H, st);
+  if (bf16) return by_streams<LaunchCU<BF, BF>::template At>(G, q, kT, v, o, layer, valid, B, G, D, T, H, st);
   if (cache_int8)
-    return launch_cross_unpacked<float, int8_t>(q, kT, v, o, layer, valid, B, G, D, T, H, st);
-  return launch_cross_unpacked<float, float>(q, kT, v, o, layer, valid, B, G, D, T, H, st);
+    return by_streams<LaunchCU<float, int8_t>::template At>(G, q, kT, v, o, layer, valid, B, G, D, T, H, st);
+  return by_streams<LaunchCU<float, float>::template At>(G, q, kT, v, o, layer, valid, B, G, D, T, H, st);
 }

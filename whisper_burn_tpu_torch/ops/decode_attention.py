@@ -31,10 +31,12 @@ Counterpart of ``whisper_burn_tpu/ops/pallas_attention.py``; source
 Each reads one layer of a stacked cache by index, so no slice is copied,
 and each is bound on the H100 by the cache bytes it reads (see the source
 note for how each design keeps every byte read once: G and H run one block
-per head pair, the two heads that share each packed byte). The
-self-attention kernels (B, B', E, E', G, H) share one loop that reads 16
-bytes a lane, so their caches must be 16-byte aligned. CPU tensors take
-the plain versions; CUDA tensors launch the kernel or raise.
+per head pair, the two heads that share each packed byte; C and C' split
+the keys over a thread block cluster that serves every stream of its
+cache entry). The self-attention kernels (B, B', E, E', G, H) share one
+loop that reads 16 bytes a lane, and C and C' copy 16-byte chunks, so the
+caches must be 16-byte aligned. CPU tensors take the plain versions; CUDA
+tensors launch the kernel or raise.
 
 The int4 self cache (``models/decoder._quantize_tokens4``) packs channel
 ``j`` and ``j + D/2`` of a token into one byte, low nibble first, biased by
@@ -63,7 +65,7 @@ MERGED4, LAYER4 = "decode_attention_merged_int4", "decode_attention_layer_int4"
 FLOATS = (torch.float32, torch.bfloat16)
 HEAD_DIM = 64
 NEG_BIG = -1e30
-_MAX_SMEM = 48 * 1024
+CROSS_MAX_ROWS = 8192  # keys (int4: packed value rows) a cluster of C/C' takes: 16 blocks of 512
 _FNS: dict[str, object] = {}
 
 
@@ -119,7 +121,7 @@ def _check_self_cache(fn: str, q, k_cache, v_cache, kv_scale, layer: int, valid:
 
 
 def _check_aligned(fn: str, *caches) -> None:
-    """The self-attention kernels read cache rows 16 bytes at a time."""
+    """The kernels read cache rows 16 bytes at a time."""
     if any(t.data_ptr() % 16 for t in caches):
         raise ValueError(f"{fn}: caches must be 16-byte aligned")
 
@@ -472,22 +474,63 @@ def unpack_int4(p: torch.Tensor, dim: int, dtype: torch.dtype) -> torch.Tensor:
     return torch.cat([lo, hi], dim=dim).to(dtype)
 
 
-def decode_cross_attention_plain(q, kT, v, layer, valid, n_heads, batch_groups=1):
+def _cross_parts(q, kT, v, layer, valid, n_heads, batch_groups):
+    """K3's arithmetic up to the value product: unnormalized ``p [B, H, 1,
+    T]`` f32 (0 at ``t >= valid``), ``l [B, H, 1, 1]``, the values ``[B, H,
+    T, dh]`` as the product takes them, and whether the int4 bias is
+    folded out afterwards."""
     b, _, d = q.shape
     dh = d // n_heads
     entry = torch.arange(b, device=q.device) // batch_groups  # each stream's cache entry
+    fold = kT.dtype == torch.uint8 and q.dtype != torch.float32
+    bias = 8.0 if fold else 0.0
     if kT.dtype == torch.uint8:
-        k = unpack_int4(kT[layer], 1, torch.float32)[entry]  # [B, D, T]
-        vv = unpack_int4(v[layer], 1, torch.float32)[entry]  # [B, T, D]
+        k = unpack_int4(kT[layer], 1, torch.float32)[entry] + bias  # [B, D, T]
+        vv = unpack_int4(v[layer], 1, torch.float32)[entry] + bias  # [B, T, D]
     else:
         k, vv = kT[layer].float()[entry], v[layer].float()[entry]
     t = k.shape[-1]
     qh = q.float().reshape(b, n_heads, 1, dh)
-    s = qh @ k.reshape(b, n_heads, dh, t) / math.sqrt(dh)  # [B, H, 1, T]
-    s = s.masked_fill(torch.arange(t, device=q.device) >= valid, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    out = p @ vv.reshape(b, t, n_heads, dh).transpose(1, 2)  # [B, H, 1, dh]
-    return out.transpose(1, 2).reshape(b, 1, d)
+    s = qh @ k.reshape(b, n_heads, dh, t)  # [B, H, 1, T]
+    if fold:
+        s = s - bias * qh.sum(dim=-1, keepdim=True)
+    s = (s / math.sqrt(dh)).masked_fill(torch.arange(t, device=q.device) >= valid, float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return p, p.sum(dim=-1, keepdim=True), vv.reshape(b, t, n_heads, dh).transpose(1, 2), fold
+
+
+def decode_cross_attention_plain(q, kT, v, layer, valid, n_heads, batch_groups=1):
+    """K3's arithmetic in the query's dtype: f32 scores, m and ``l = sum(p)``
+    in f32, the value product on ``p`` rounded to the query's dtype, then
+    divided by ``l``. In bf16 the int4 codes' bias is folded out as K3
+    does, from the scores as ``q . nibble - 8 * sum(q)`` and from the values
+    as ``sum(round(p) * nibble) - 8 * l`` (``pallas_attention.py:690,701,711``),
+    so each ``p`` rounds where K3's does; in f32, where ``p`` is not
+    rounded, both sums are taken on the unbiased codes."""
+    b, _, d = q.shape
+    p, l, vv, fold = _cross_parts(q, kT, v, layer, valid, n_heads, batch_groups)
+    pv = p.to(q.dtype).float() @ vv  # [B, H, 1, dh]
+    if fold:
+        pv = pv - 8.0 * l
+    return (pv / l).transpose(1, 2).reshape(b, 1, d)
+
+
+def decode_cross_attention_ties(q, kT, v, layer, valid, n_heads, batch_groups=1, ulps=32):
+    """How far each output of :func:`decode_cross_attention_plain` moves,
+    at most, if every ``p`` within ``ulps`` f32 steps of a rounding tie of
+    bf16 rounds the other way: for each output the sum over such keys of
+    one bf16 step of ``p`` times ``|value| / l``.
+    Two versions whose scores differ in the last bits of f32 (another
+    order of summation) round such a ``p`` apart; ``[B*G, 1, D]`` f32,
+    zero for an f32 query (``p`` is not rounded)."""
+    b, _, d = q.shape
+    if q.dtype == torch.float32:
+        return torch.zeros((b, 1, d), device=q.device)
+    p, l, vv, _ = _cross_parts(q, kT, v, layer, valid, n_heads, batch_groups)
+    low = p.view(torch.int32) & 0xFFFF  # the f32 bits bf16 drops; a tie at 0x8000
+    near = ((low - 0x8000).abs() <= ulps) & (p > 0)
+    step = torch.exp2(torch.floor(torch.log2(p.clamp_min(1e-30))) - 7)  # bf16 keeps 7 bits
+    return ((near * step / l) @ vv.abs()).transpose(1, 2).reshape(b, 1, d)
 
 
 def decode_cross_attention(
@@ -525,8 +568,13 @@ def decode_cross_attention(
         raise ValueError("decode_cross_attention: f32 or bf16 query")
     if not packed and kT.dtype not in (torch.int8, q.dtype):
         raise ValueError(f"decode_cross_attention: a {kT.dtype} cache for a {q.dtype} query")
-    if (2 if packed else 1) * t * 4 > _MAX_SMEM:
-        raise ValueError(f"decode_cross_attention: T {t} exceeds the score buffer")
+    if batch_groups > 8:
+        raise ValueError(f"decode_cross_attention: at most 8 streams a cache entry, got {batch_groups}")
+    if t % 32 if packed else t * kT.element_size() % 16:
+        raise ValueError(f"decode_cross_attention: T {t} must fill whole 16-byte key chunks")
+    if (min(t // 2, valid) if packed else valid) > CROSS_MAX_ROWS:
+        raise ValueError(f"decode_cross_attention: {valid} keys exceed a cluster's {CROSS_MAX_ROWS} rows")
+    _check_aligned("decode_cross_attention", kT, v)
     out = torch.empty((b, 1, d), dtype=torch.float32, device=q.device)
     bf16 = int(q.dtype == torch.bfloat16)
     tail = (out.data_ptr(), layer, valid, b, batch_groups, d, t, n_heads, _build.stream_ptr(q.device))
