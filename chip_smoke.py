@@ -28,10 +28,23 @@ Phases, each timed and each fatal on failure:
    8) and ``transcribe_long`` of 75 s (3 windows, bucketed to 4), each
    after a warm-up call; and ``encoder_attention_heads``: kernel D' through
    its own op (no model path reaches it) at B=8 x 1500 frames, Large-V3 and Medium
-   widths. The first request of a path is its warm-up. Every launch counter
-   is set to 0 just before each path and read just after; each request's
-   launches are held against the counts the shapes predict, and its host
-   syncs counted (at most one per done check);
+   widths. The first request of a path is its warm-up. Every greedy
+   request runs its decode loop through a cached runner's CUDA graph of
+   the step (``models/whisper.py``): the runner's first request takes one
+   eager step, captures the step and replays it for the rest (a line
+   ``{"phase": "graph_capture", ...}`` logs each capture's wall), later
+   requests replay it from the first step. Every launch counter is set to
+   0 just before each path and read just after (a replay adds what its
+   capture recorded); each request's launches are held against the counts
+   the shapes predict, and its host syncs counted (at most one per done
+   check). Then each greedy path (and the entry and the pipeline's
+   ``transcribe_batch``) runs one eager reference request, the loop's body
+   called step by step from this script, whose tokens must equal the
+   replayed request's bit for bit (``{"phase": "eager_reference", ...}``):
+   ``greedy`` and the entry at their own token counts against their last
+   request, the pipeline at 224, the others at 32 tokens against two
+   requests of a runner of their own (the first captures, the second
+   replays);
 4. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' Large-V3 shapes (kernel A, the Q4 matmul,
    in its two regimes: the weight read, K split over a thread block
@@ -53,14 +66,20 @@ Phases, each timed and each fatal on failure:
    port never calls it), and the least time the card could take (bytes
    over 3.35 TB/s or operations over 989 TFLOP/s); then one more request of
    five paths under torch.profiler (greedy at 224 tokens; beam,
-   fast_greedy, fast_beam and int4self_greedy at 32), whose traces give
-   each kernel's device time per launch at each main-path shape, the
-   stages ``greedy_decode`` and ``beam_decode`` mark, and the decode step
-   split into the hand-written kernels, the beam's self-cache reorder (its
-   ``beam_decode.reorder`` ranges), the logits (``decode_step.logits``),
-   other device work and idle (and one line of the encoder's device ms
-   in each traced request); a kernel row of a path without a traced
-   request takes its isolated time;
+   fast_greedy, fast_beam and int4self_greedy at 32; a greedy path's is
+   its eager reference, whose launches and ranges a trace can follow one
+   by one), whose traces give each kernel's device time per launch at
+   each main-path shape, the stages ``greedy_decode`` and ``beam_decode``
+   mark, and the decode step split into the hand-written kernels, the
+   beam's self-cache reorder (its ``beam_decode.reorder`` ranges), the
+   logits (``decode_step.logits``), other device work and idle (and one
+   line of the encoder's device ms in each traced request); and for each
+   greedy one a second, replayed request under torch.profiler
+   (``{"phase": "traced_replay_<path>", ...}``: the replayed step's wall,
+   device busy, idle share and device operations per step, its tokens
+   equal to the eager one's); a kernel row of a path without a traced
+   request takes its isolated time; and the device memory with every
+   runner alive;
 5. end to end at a small config in f32, for the int4 serving modes (int8,
    int4 and mixed self caches), ``Compute.parity()`` and
    ``Compute.fastest()``: the same greedy and beam tokens, and the same
@@ -83,6 +102,7 @@ import subprocess
 import sys
 import time
 import warnings
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -113,6 +133,12 @@ DA = "whisper_burn_tpu_torch/csrc/decode_attention.cu"
 XTOL = "1e-5 of max|out|, plus one bf16 step of each p within 32 f32 steps of a bf16 rounding tie"
 
 
+def at(pos: int) -> torch.Tensor:
+    """A kernel's position: one int32 in the card's memory, which the
+    self-attention kernels and the slot writer read there."""
+    return torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+
 def log(obj) -> None:
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
 
@@ -125,10 +151,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def traced(fn):
+def traced(fn, runtime: list | None = None):
     """``fn()`` under torch.profiler (host and device); returns its result
     and the device events of the trace (kernels, copies, fills; chrome
-    trace form, times in microseconds) and its host and device ranges."""
+    trace form, times in microseconds) and its host and device ranges.
+    ``runtime`` collects the CUDA API calls (launches, graph launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -144,6 +171,8 @@ def traced(fn):
         path.unlink()
     device = [e for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
     ranges = [e for e in events if e.get("cat") in ("user_annotation", "gpu_user_annotation")]
+    if runtime is not None:
+        runtime.extend(e for e in events if e.get("cat", "").startswith("cuda_"))  # CUDA API calls
     return out, sorted(device, key=lambda e: e["ts"]), ranges
 
 
@@ -355,7 +384,7 @@ def kernel_checks(params, cfg, gen):
         for layer in (0, L - 1):
             ck, cv, cs = kc.clone(), vc.clone(), sc.clone()
             pk, pv, ps = kc.clone(), vc.clone(), sc.clone()
-            args = (q.to(dtype), layer, pos, h, kn.to(dtype), vn.to(dtype), kq, vq, nsc)
+            args = (q.to(dtype), layer, at(pos), h, kn.to(dtype), vn.to(dtype), kq, vq, nsc)
             out = decode_self_attention(args[0], ck, cv, cs, *args[1:])
             ref = decode_self_attention_plain(args[0], pk, pv, ps, *args[1:])
             err = max_err(out, ref)
@@ -369,8 +398,9 @@ def kernel_checks(params, cfg, gen):
                 self_err = err
     it = iter(range(1 << 30))
     layer = lambda: next(it) % L
-    kern = lambda: decode_self_attention(q, kc, vc, sc, layer(), pos, h, kn, vn, kq, vq, nsc)
-    plain = lambda: decode_self_attention_plain(q, kc, vc, sc, layer(), pos, h, kn, vn, kq, vq, nsc)
+    pos_t = at(pos)
+    kern = lambda: decode_self_attention(q, kc, vc, sc, layer(), pos_t, h, kn, vn, kq, vq, nsc)
+    plain = lambda: decode_self_attention_plain(q, kc, vc, sc, layer(), pos_t, h, kn, vn, kq, vq, nsc)
     deq = lambda c, s: (c[:, :pos + 1].float() * s[:, :pos + 1, None]).to(torch.bfloat16).reshape(BATCH, pos + 1, h, 64).transpose(1, 2)
     kd = [deq(kc[l], sc[l, :, :, 0]) for l in range(L)]
     vd = [deq(vc[l], sc[l, :, :, 1]) for l in range(L)]
@@ -495,15 +525,16 @@ def beam_kernel_checks(params, cfg, gen):
     layer_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for valid in (4, pos, 3 + MAX_TOKENS):
-            out = decode_attention_layer(q.to(dtype), kc, vc, sc, L - 1, valid, h)
-            ref = decode_attention_layer_plain(q.to(dtype), kc, vc, sc, L - 1, valid, h)
+            out = decode_attention_layer(q.to(dtype), kc, vc, sc, L - 1, at(valid), h)
+            ref = decode_attention_layer_plain(q.to(dtype), kc, vc, sc, L - 1, at(valid), h)
             for part, a, r in zip(("acc", "m", "l"), out, ref):
                 err = max_err(a, r)
                 check(f"decode_attention_layer {dtype} valid={valid} {part}", err, r, 1e-5)  # f32 math both ways
                 if dtype == torch.bfloat16:
                     layer_err = max(layer_err, err)
-    kern = lambda: decode_attention_layer(q, kc, vc, sc, layer(), pos, h)
-    plain = lambda: decode_attention_layer_plain(q, kc, vc, sc, layer(), pos, h)
+    pos_t = at(pos)
+    kern = lambda: decode_attention_layer(q, kc, vc, sc, layer(), pos_t, h)
+    plain = lambda: decode_attention_layer_plain(q, kc, vc, sc, layer(), pos_t, h)
     deq = lambda c, s: (c[:, :pos].float() * s[:, :pos, None]).to(torch.bfloat16).reshape(STREAMS, pos, h, 64).transpose(1, 2)
     kd = [deq(kc[l], sc[l, :, :, 0]) for l in range(L)]
     vd = [deq(vc[l], sc[l, :, :, 1]) for l in range(L)]
@@ -536,13 +567,13 @@ def beam_kernel_checks(params, cfg, gen):
     new = torch.randint(-127, 128, (L, STREAMS, 1, d), generator=gen, device=dev, dtype=torch.int8)
     for p in (0, pos, ctx - 1):
         out, ref = kc.clone(), kc.clone()
-        write_cache_slot(out, new, p)
-        write_cache_slot_plain(ref, new, p)
+        write_cache_slot(out, new, at(p))
+        write_cache_slot_plain(ref, new, at(p))
         if not torch.equal(out, ref):
             raise AssertionError(f"write_cache_slot at {p} differs from the plain version")
     del out, ref
-    kern = lambda: write_cache_slot(kc, new, pos)
-    plain = lambda: write_cache_slot_plain(kc, new, pos)
+    kern = lambda: write_cache_slot(kc, new, pos_t)
+    plain = lambda: write_cache_slot_plain(kc, new, pos_t)
     idx = torch.tensor([pos], device=dev)
     lib = lambda: kc.index_copy_(2, idx, new)
     ms, sig = device_ms(kern, 64, ours=True)
@@ -641,8 +672,8 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
             for p in (4, p_mean, 3 + steps):
                 for lyr in (0, L - 1):
                     new = (kn.to(dtype), vn.to(dtype))
-                    out = decode_attention_merged(*args, lyr, p, h, *new)
-                    ref = decode_attention_merged_plain(*args, lyr, p, h, *new)
+                    out = decode_attention_merged(*args, lyr, at(p), h, *new)
+                    ref = decode_attention_merged_plain(*args, lyr, at(p), h, *new)
                     e = max_err(out, ref)
                     check(f"decode_attention_merged {path} {dtype} pos={p}", e, ref, 1e-5)  # f32 math both ways
                     err = max(err, e) if dtype == bf else err
@@ -656,8 +687,8 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
             "decode_attention_merged" + ("/entry" if path == "entry" else ""), path, DA,
             "whisper_burn_tpu/ops/pallas_attention.py:66 (K2, decode_attention_merged without kq/vq)",
             ["decode_attention_merged", [b, ctx, d]],
-            lambda: decode_attention_merged(q, kc, vc, layer(), p_mean, h, kn, vn),
-            lambda: decode_attention_merged_plain(q, kc, vc, layer(), p_mean, h, kn, vn),
+            lambda p_t=at(p_mean): decode_attention_merged(q, kc, vc, layer(), p_t, h, kn, vn),
+            lambda p_t=at(p_mean): decode_attention_merged_plain(q, kc, vc, layer(), p_t, h, kn, vn),
             lambda: torch.nn.functional.scaled_dot_product_attention(qh, kd[(l := layer())], vd[l]),
             err, merged_attention_bound(p_mean, d, b),
             "scaled_dot_product_attention on the bf16 cache rows up to pos", "1e-5 of max|out|; cache unchanged",
@@ -673,8 +704,8 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
     for dtype in (bf, torch.float32):
         args = (q.to(dtype), kc.to(dtype), vc.to(dtype), None, L - 1)
         for valid in (4, pos, 3 + MAX_TOKENS):
-            out = decode_attention_layer(*args, valid, h)
-            ref = decode_attention_layer_plain(*args, valid, h)
+            out = decode_attention_layer(*args, at(valid), h)
+            ref = decode_attention_layer_plain(*args, at(valid), h)
             for part, a, r in zip(("acc", "m", "l"), out, ref):
                 e = max_err(a, r)
                 check(f"decode_attention_layer_unscaled {dtype} valid={valid} {part}", e, r, 1e-5)
@@ -686,8 +717,8 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
         "decode_attention_layer_unscaled", "fast_beam", DA,
         "whisper_burn_tpu/ops/pallas_attention.py:66 (K8, kv_scale4=None)",
         ["decode_attention_layer_unscaled", [STREAMS, CTX, d]],
-        lambda: decode_attention_layer(q, kc, vc, None, layer(), pos, h),
-        lambda: decode_attention_layer_plain(q, kc, vc, None, layer(), pos, h),
+        lambda p_t=at(pos): decode_attention_layer(q, kc, vc, None, layer(), p_t, h),
+        lambda p_t=at(pos): decode_attention_layer_plain(q, kc, vc, None, layer(), p_t, h),
         lambda: torch.nn.functional.scaled_dot_product_attention(qh, kd[(l := layer())], vd[l]),
         err, unscaled_layer_bound(pos, d, h),
         "scaled_dot_product_attention on the bf16 layer (normalized)", "1e-5 of max|acc|, max|m|, max|l|",
@@ -706,8 +737,8 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
         new = rand(L, streams, 1, d)
         for p in (0, p_mean, ctx - 1):
             out, ref = cache.clone(), cache.clone()
-            write_cache_slot(out, new, p)
-            write_cache_slot_plain(ref, new, p)
+            write_cache_slot(out, new, at(p))
+            write_cache_slot_plain(ref, new, at(p))
             if not torch.equal(out, ref):
                 raise AssertionError(f"write_cache_slot bf16 {path} at {p} differs from the plain version")
         del out, ref
@@ -715,7 +746,8 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
         rows.append(isolated_row(
             f"write_cache_slot/bf16/{streams}", path, "whisper_burn_tpu_torch/csrc/cache_slot.cu",
             "whisper_burn_tpu/ops/pallas_cache.py:33 (K9)", ["write_cache_slot", [L, streams, ctx, d, 2]],
-            lambda: write_cache_slot(cache, new, p_mean), lambda: write_cache_slot_plain(cache, new, p_mean),
+            lambda p_t=at(p_mean): write_cache_slot(cache, new, p_t),
+            lambda p_t=at(p_mean): write_cache_slot_plain(cache, new, p_t),
             lambda: cache.index_copy_(2, idx, new), 0.0, bound(2 * L * streams * d * 2, 0.0),
             "index_copy_ along T", "exact", f"L={L} B={streams} ctx={ctx} W={d} bf16",
         ))
@@ -815,10 +847,10 @@ def int4_self_row(cfg, gen, mode: str, merged: bool, b: int, path: str) -> dict:
     for dtype in (bf, torch.float32):
         for p in (4, pos, 3 + MAX_TOKENS):
             if merged:
-                args = (q.to(dtype), kc, vc, sc, L - 1, p, h, kn.to(dtype), vn.to(dtype))
+                args = (q.to(dtype), kc, vc, sc, L - 1, at(p), h, kn.to(dtype), vn.to(dtype))
                 outs, refs = [decode_attention_merged_int4(*args)], [decode_attention_merged_int4_plain(*args)]
             else:
-                args = (q.to(dtype), kc, vc, sc, L - 1, p, h)
+                args = (q.to(dtype), kc, vc, sc, L - 1, at(p), h)
                 outs, refs = decode_attention_layer_int4(*args), decode_attention_layer_int4_plain(*args)
             for part, a, r in zip(("out",) if merged else ("acc", "m", "l"), outs, refs):
                 e = max_err(a, r)
@@ -831,13 +863,14 @@ def int4_self_row(cfg, gen, mode: str, merged: bool, b: int, path: str) -> dict:
     vd = [heads(v_.to(bf)) for _, v_ in deq]
     del deq
     qh = heads(q)
+    pos_t = at(pos)
     if merged:
-        kern = lambda: decode_attention_merged_int4(q, kc, vc, sc, layer(), pos, h, kn, vn)
-        plain = lambda: decode_attention_merged_int4_plain(q, kc, vc, sc, layer(), pos, h, kn, vn)
+        kern = lambda: decode_attention_merged_int4(q, kc, vc, sc, layer(), pos_t, h, kn, vn)
+        plain = lambda: decode_attention_merged_int4_plain(q, kc, vc, sc, layer(), pos_t, h, kn, vn)
         replaces = "whisper_burn_tpu/ops/pallas_attention.py:66 (K11, int4 branches :174-258, merged form, no store"
     else:
-        kern = lambda: decode_attention_layer_int4(q, kc, vc, sc, layer(), pos, h)
-        plain = lambda: decode_attention_layer_int4_plain(q, kc, vc, sc, layer(), pos, h)
+        kern = lambda: decode_attention_layer_int4(q, kc, vc, sc, layer(), pos_t, h)
+        plain = lambda: decode_attention_layer_int4_plain(q, kc, vc, sc, layer(), pos_t, h)
         replaces = "whisper_burn_tpu/ops/pallas_attention.py:66 (K11, int4 branches :174-258, general unnormalized form"
     replaces += ", voff=1 :337-338)" if mode == "mixed" else ")"
     b_of = lambda p: int4_attention_bound(p, d, b, sw, key_bytes, merged, h)
@@ -865,8 +898,8 @@ def slot_uint8_row(cfg, gen, streams: int, path: str) -> dict:
     new = torch.randint(0, 256, (L, streams, 1, d // 2), generator=gen, device=dev, dtype=torch.uint8)
     for p in (0, pos, CTX - 1):
         out, ref = cache.clone(), cache.clone()
-        write_cache_slot(out, new, p)
-        write_cache_slot_plain(ref, new, p)
+        write_cache_slot(out, new, at(p))
+        write_cache_slot_plain(ref, new, at(p))
         if not torch.equal(out, ref):
             raise AssertionError(f"write_cache_slot uint8 {streams} at {p} differs from the plain version")
     del out, ref
@@ -875,7 +908,8 @@ def slot_uint8_row(cfg, gen, streams: int, path: str) -> dict:
         f"write_cache_slot/uint8/{streams}" + ("/pipeline" if path == "pipeline" else ""), path,
         "whisper_burn_tpu_torch/csrc/cache_slot.cu", "whisper_burn_tpu/ops/pallas_cache.py:33 (K9)",
         ["write_cache_slot", [L, streams, CTX, d // 2, 1]],
-        lambda: write_cache_slot(cache, new, pos), lambda: write_cache_slot_plain(cache, new, pos),
+        lambda p_t=at(pos): write_cache_slot(cache, new, p_t),
+        lambda p_t=at(pos): write_cache_slot_plain(cache, new, p_t),
         lambda: cache.index_copy_(2, idx, new), 0.0, bound(2 * L * streams * (d // 2), 0.0),
         "index_copy_ along T", "exact", f"L={L} B={streams} ctx={CTX} W={d // 2} uint8 (int4 pairs)",
     )
@@ -978,6 +1012,30 @@ class MainPath:
     max_tokens: int = MAX_TOKENS
     beam: bool = False
     requests: int = NEW_PATH_REQUESTS
+    eager: object = None  # eager(r, max_tokens): request r through the loop body, step by step
+
+
+def eager_greedy(params, cfg, mel, lang, compute, max_tokens, detect=False):
+    """A greedy request with the loop's body (``greedy_step``) called step
+    by step from here, on a fresh state and cache, in the stage ranges
+    ``greedy_decode`` marks: the eager reference that every replayed
+    request of a greedy path is held to bit for bit."""
+    from torch.profiler import record_function
+
+    from whisper_burn_tpu_torch.models import whisper as w
+    from whisper_burn_tpu_torch.models.config import EOT
+    from whisper_burn_tpu_torch.models.decoder import init_cache
+
+    cache = init_cache(cfg, mel.shape[0], compute, w.self_cache_len(cfg, max_tokens), mel.device)
+    state = w.new_state(cache, max_tokens)
+    lang = w.start_request(params, cfg, mel, lang, compute, state, detect=detect, task="transcribe")
+    with record_function("greedy_decode.decode"):
+        for k in range(1, max_tokens):
+            if k % w.DONE_CHECK_EVERY == 0 and bool(state.done.all()):
+                break
+            w.greedy_step(params, cfg, state, compute)
+        n_gen = (state.tokens != EOT).sum(dim=-1).to(torch.int32)
+    return w.GreedyResult(state.tokens, n_gen, lang)
 
 
 def lang_tokens(cfg, batch: int) -> torch.Tensor:
@@ -997,7 +1055,11 @@ def audio_path(label, params, cfg, compute, mel_frontend, audios, beam=False, re
                                max_tokens=max_tokens)
         return greedy_decode(params, cfg, mel, lang_tokens(cfg, BATCH), compute, max_tokens=max_tokens)
 
-    return MainPath(label, run, compute, beam=beam, requests=requests)
+    def eager(r, max_tokens=MAX_TOKENS):
+        return eager_greedy(params, cfg, mel_frontend(audios[r % len(audios)]), lang_tokens(cfg, BATCH), compute,
+                            max_tokens)
+
+    return MainPath(label, run, compute, beam=beam, requests=requests, eager=None if beam else eager)
 
 
 def self_kernel(compute, beam: bool) -> str:
@@ -1070,10 +1132,12 @@ def check_result(path: MainPath, r: int, res, cfg) -> None:
             raise AssertionError(f"{path.label} request {r}: a stream emitted a token after its EOT")
 
 
-def run_path(path: MainPath, cfg) -> tuple[dict, dict]:
+def run_path(path: MainPath, cfg) -> tuple[dict, dict, list]:
     """``path.requests`` requests, counted, each held to the predicted
-    launches and at most one host sync per done check; returns the counts,
-    by kernel and by (kernel, shape)."""
+    launches and at most one host sync per done check (a greedy path's
+    first request captures its step as a CUDA graph, every later step
+    replays it); returns the counts, by kernel and by (kernel, shape), and
+    the results."""
     from whisper_burn_tpu_torch.models.config import EOT
     from whisper_burn_tpu_torch.models.whisper import DONE_CHECK_EVERY
     from whisper_burn_tpu_torch.ops import _build
@@ -1081,6 +1145,7 @@ def run_path(path: MainPath, cfg) -> tuple[dict, dict]:
     L, n = cfg.n_text_layer, path.max_tokens
     torch.cuda.synchronize()
     _build.reset_launches()
+    results = []
     for r in range(path.requests):
         before = dict(_build.LAUNCHES)
         torch.cuda.set_sync_debug_mode("warn")  # each implicit host sync warns
@@ -1117,7 +1182,47 @@ def run_path(path: MainPath, cfg) -> tuple[dict, dict]:
         if not min(checks, 1) <= syncs <= max(checks, 1):
             raise AssertionError(f"{path.label} request {r}: {syncs} host syncs for {checks} done checks")
         check_result(path, r, res, cfg)
-    return dict(_build.LAUNCHES), shape_counts()
+        results.append(res)
+    return dict(_build.LAUNCHES), shape_counts(), results
+
+
+def eager_check(path: MainPath, results: list) -> dict:
+    """The path's eager reference request (``path.eager``: the loop body
+    called step by step) against its requests replayed through the graph,
+    bit for bit: at the path's own token count against its last request
+    (fully replayed; greedy and entry), else at TRACED_TOKENS against two
+    more requests, the first of which captures the step of a new runner
+    and the second replays it from k = 1."""
+    tokens = path.max_tokens if path.label in ("greedy", "entry") else TRACED_TOKENS
+    r = path.requests - 1
+    replayed = [results[-1]] if tokens == path.max_tokens else [path.run(r, max_tokens=tokens) for _ in range(2)]
+    t0 = time.perf_counter()
+    ref = path.eager(r, max_tokens=tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    same = [bool(torch.equal(x.tokens, ref.tokens) and torch.equal(x.n_generated, ref.n_generated)) for x in replayed]
+    line = {"phase": "eager_reference", "path": path.label, "max_tokens": tokens, "eager_wall_ms": wall * 1e3,
+            "replayed_requests": len(replayed), "tokens_equal": same, "n_generated": ref.n_generated.tolist()}
+    if not all(same):
+        raise AssertionError(f"{path.label}: replayed tokens differ from the eager body's: {line}")
+    return line
+
+
+def log_captures(label: str, seen: weakref.WeakSet) -> int:
+    """One line per runner that the path made: its shape and the wall of
+    its graph's capture. Returns how many it made. ``seen`` holds the
+    runners logged before, weakly (a runner dropped from the cache goes)."""
+    from whisper_burn_tpu_torch.models.whisper import cached_runners
+
+    made = 0
+    for runner in cached_runners():
+        if runner not in seen and runner.capture_s is not None:
+            seen.add(runner)
+            made += 1
+            log({"phase": "graph_capture", "path": label, "batch": runner.batch, "ctx": runner.ctx,
+                 "max_tokens": runner.max_tokens, "capture_ms": runner.capture_s * 1e3,
+                 "recorded_launches": len(runner.tally.log)})
+    return made
 
 
 def pipeline_path(raw, cfg, compute) -> tuple[dict, dict]:
@@ -1126,7 +1231,9 @@ def pipeline_path(raw, cfg, compute) -> tuple[dict, dict]:
     detected; ``transcribe_batch`` of 5 x 30 s (bucketed to 8) and
     ``transcribe_long`` of 75 s (3 windows, bucketed to 4), each twice (a
     warm-up and one timed call), each call's launches held against the
-    padded batch's prediction."""
+    padded batch's prediction; then the eager reference of
+    ``transcribe_batch``'s padded request, whose tokens and languages its
+    last call must equal."""
     from whisper_burn_tpu_torch.ops import _build
     from whisper_burn_tpu_torch.transcribe import WhisperPipeline
 
@@ -1141,6 +1248,7 @@ def pipeline_path(raw, cfg, compute) -> tuple[dict, dict]:
     )
     torch.cuda.synchronize()
     _build.reset_launches()
+    last = {}
     for call, run, audio_s, n_results, padded, max_len in calls:
         for r in range(NEW_PATH_REQUESTS):
             before = dict(_build.LAUNCHES)
@@ -1165,7 +1273,24 @@ def pipeline_path(raw, cfg, compute) -> tuple[dict, dict]:
                 if not (len(x.tokens) <= max_len and all(0 <= int(i) < cfg.n_vocab for i in x.tokens)
                         and cfg.lang_token_start <= x.lang_token < cfg.lang_token_end and x.inference_ms > 0):
                     raise AssertionError(f"pipeline {call} {r}: a result out of range: {x.lang_token}, {x.tokens[:8]}")
-    return dict(_build.LAUNCHES), shape_counts()
+            last[call] = res
+    launches, counts = dict(_build.LAUNCHES), shape_counts()
+    # the eager reference of transcribe_batch's request: its padded batch
+    # (5 utterances, 3 of silence), its mel, the language detected where asked
+    samples = torch.from_numpy(np.stack(utterances + [np.zeros(480_000, np.float32)] * 3)).to("cuda")
+    lang = torch.tensor([-1] * 5 + [50259] * 3, dtype=torch.int32, device="cuda")
+    t0 = time.perf_counter()
+    ref = eager_greedy(pipe.params, pipe.config, pipe.mel(samples), lang, pipe.compute, pipe.max_tokens, detect=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_gen = ref.n_generated.tolist()
+    same = [np.array_equal(x.tokens, ref.tokens[i, : n_gen[i]].cpu().numpy()) and x.lang_token == int(ref.lang_tokens[i])
+            for i, x in enumerate(last["transcribe_batch"])]
+    log({"phase": "eager_reference", "path": "pipeline", "call": "transcribe_batch", "max_tokens": pipe.max_tokens,
+         "eager_wall_ms": wall * 1e3, "replayed_requests": 1, "tokens_equal": same, "n_generated": n_gen})
+    if not all(same):
+        raise AssertionError("pipeline: transcribe_batch's tokens differ from the eager body's")
+    return launches, counts
 
 
 def encoder_heads_path() -> tuple[dict, dict]:
@@ -1299,20 +1424,23 @@ def decode_split(dev, span, steps: int, gather_spans=(), logits_spans=()) -> dic
     }
 
 
-def traced_path(path: MainPath, cfg, sigs: dict, max_tokens: int) -> tuple[dict, dict]:
+def traced_path(path: MainPath, cfg, sigs: dict, max_tokens: int) -> tuple[dict, dict, object]:
     """One more request of ``path`` at ``max_tokens`` tokens under
     torch.profiler (beam and the new paths at TRACED_TOKENS: the profiler's
-    host cost grows with the steps). Returns the device durations (µs) of
-    the hand-written kernels' launches by (kernel, shape), and the
+    host cost grows with the steps), for a greedy path its eager reference
+    (the loop body step by step: a graph replay shows neither the launch
+    log's order nor the step's ranges). Returns the device durations (µs)
+    of the hand-written kernels' launches by (kernel, shape), the
     breakdown: the stages ``greedy_decode`` or ``beam_decode`` marks, on the
     host and on the device, and each decode step split into the kernels,
-    the beam's cache reorder, the logits, other device work and idle."""
+    the beam's cache reorder, the logits, other device work and idle; and
+    the request's result."""
     from whisper_burn_tpu_torch.ops.cache import FN as SLOT
     from whisper_burn_tpu_torch.ops.decode_attention import LAYER, LAYER4, LAYER_U, MERGED, MERGED4, SELF
 
     def run():
         t0 = time.perf_counter()
-        res = path.run(0, max_tokens=max_tokens)
+        res = (path.eager or path.run)(0, max_tokens=max_tokens)
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0
 
@@ -1354,7 +1482,55 @@ def traced_path(path: MainPath, cfg, sigs: dict, max_tokens: int) -> tuple[dict,
     # the kernels' time a step, the lost records' launches counted as if
     # all ran in the decode span: the most the records could understate it
     breakdown["decode_step_kernels_max_ms"] = breakdown["decode_step_kernels_ms"] + sum(lost_ms.values()) / steps
-    return durations, breakdown
+    return durations, breakdown, res
+
+
+def traced_replay(path: MainPath, cfg, max_tokens: int, eager) -> dict:
+    """One more request of a greedy path at ``max_tokens`` tokens, its
+    steps replayed through the runner's graph, under torch.profiler (after
+    an untraced one, which captures the step if the runner is new: no
+    capture under the profiler). The decode stage's device work is what
+    the runtime calls inside its host range launched (kernels of a graph
+    carry their graph launch's correlation id); returns the replayed step's
+    wall (first to last device event of the stage, per step), device busy,
+    idle share and device operations per step. Its tokens equal the eager
+    traced request's ``eager`` bit for bit."""
+    from whisper_burn_tpu_torch.ops import _build
+
+    path.run(0, max_tokens=max_tokens)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+
+    def run():
+        t0 = time.perf_counter()
+        res = path.run(0, max_tokens=max_tokens)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    runtime = []
+    (res, wall), dev, ranges = traced(run, runtime)
+    if not (torch.equal(res.tokens, eager.tokens) and torch.equal(res.n_generated, eager.n_generated)):
+        raise AssertionError(f"traced {path.label}: the replayed request's tokens differ from the eager one's")
+    steps = _build.LAUNCHES[self_kernel(path.compute, False)] // cfg.n_text_layer
+    (lo, hi), = [(e["ts"], e["ts"] + e["dur"]) for e in ranges
+                 if e["cat"] == "user_annotation" and e["name"] == "greedy_decode.decode"]
+    calls = [e for e in runtime if lo <= e["ts"] <= hi]
+    corr = {e["args"]["correlation"] for e in calls if "correlation" in e.get("args", {})}
+    work = [e for e in dev if e.get("args", {}).get("correlation") in corr]
+    if not work:
+        raise AssertionError(f"traced {path.label}: no device work in the replayed decode stage")
+    start, end = min(e["ts"] for e in work), max(e["ts"] + e["dur"] for e in work)
+    busy = sum(e["dur"] for e in work)
+    return {
+        "path": path.label, "wall_ms": wall * 1e3, "max_tokens": max_tokens, "decode_steps": steps,
+        "graph_launches": sum(e["name"] == "cudaGraphLaunch" for e in calls),
+        "decode_step_ms": (end - start) / steps / 1e3,
+        "decode_host_ms_per_step": (hi - lo) / steps / 1e3,
+        "decode_step_device_busy_ms": busy / steps / 1e3,
+        "decode_device_idle_share": 1 - busy / (end - start),
+        "decode_device_ops_per_step": len(work) / steps,
+        "request_device_busy_ms": sum(e["dur"] for e in dev) / 1e3,
+    }
 
 
 # --------------------------------------------------------------------------
@@ -1446,7 +1622,8 @@ def small_end_to_end(compute) -> dict:
         forced = torch.from_numpy(np.random.default_rng(9).integers(0, cfg.n_vocab, (8, 2 * g))).to(dev)
         for k in range(8):
             sync(caches[0], ("step", k), written(k))
-            logits.append(decode_step(params, cfg, forced[k, :2], 4 + k, caches[0], compute))
+            slot = torch.tensor(4 + k, dtype=torch.int32, device=dev)
+            logits.append(decode_step(params, cfg, forced[k, :2], slot, caches[0], compute))
         sync(caches[0], ("step", 8), written(8))
         # the beam branch of the decode step: self caches repeated g-fold
         grouped, cache = [], caches[1]
@@ -1456,7 +1633,8 @@ def small_end_to_end(compute) -> dict:
                 setattr(cache, name, getattr(cache, name).repeat_interleave(g, dim=1))
         for k in range(8):
             sync(cache, ("grouped step", k), written(k))
-            grouped.append(decode_step(params, cfg, forced[k], 4 + k, cache, compute, batch_groups=g))
+            slot = torch.tensor(4 + k, dtype=torch.int32, device=dev)
+            grouped.append(decode_step(params, cfg, forced[k], slot, cache, compute, batch_groups=g))
         sync(cache, ("grouped step", 8), written(8))
         # beam search with the EOT row scaled, so hypotheses are banked
         # before the cap (tests/test_torch_beam.py)
@@ -1506,6 +1684,7 @@ def main() -> int:
     from whisper_burn_tpu_torch.entry import entry
     from whisper_burn_tpu_torch.models.config import WhisperConfig
     from whisper_burn_tpu_torch.models.params import device_fabricated_params
+    from whisper_burn_tpu_torch.models.whisper import cached_runners, clear_runners
     from whisper_burn_tpu_torch.ops import _build
     from whisper_burn_tpu_torch.ops.compute import Compute
     from whisper_burn_tpu_torch.transcribe import prepare_params
@@ -1556,19 +1735,32 @@ def main() -> int:
         audio_path("mixed_greedy", params, cfg, mixed, mel_frontend, audios),
         audio_path("mixed_beam", params, cfg, mixed, mel_frontend, audios, beam=True),
     ]
-    launches, counts = {}, {}
+    launches, counts, captured = {}, {}, weakref.WeakSet()
     for path in paths + ["entry"]:
         t0 = time.perf_counter()
         if path == "entry":  # the flagship step as a user calls it
             fn, args = entry()
             torch.cuda.synchronize()
             phases["entry_setup_s"] = time.perf_counter() - t0
-            path = MainPath("entry", lambda r: fn(*args), fast, batch=1, max_tokens=ENTRY_TOKENS, requests=REQUESTS)
+            path = MainPath("entry", lambda r: fn(*args), fast, batch=1, max_tokens=ENTRY_TOKENS, requests=REQUESTS,
+                            eager=lambda r, max_tokens: eager_greedy(args[0], cfg, args[1], args[2], fast, max_tokens))
         torch.cuda.reset_peak_memory_stats()
-        launches[path.label], counts[path.label] = run_path(path, cfg)
+        launches[path.label], counts[path.label], results = run_path(path, cfg)
         phases[f"{path.label}_path_s"] = time.perf_counter() - t0
         log({"phase": f"{path.label}_path", "seconds": phases[f"{path.label}_path_s"],
              "launches": launches[path.label], "peak_device_bytes": torch.cuda.max_memory_allocated()})
+        made = log_captures(path.label, captured)
+        if path.eager is not None:
+            t0 = time.perf_counter()
+            log(eager_check(path, results))
+            phases[f"{path.label}_eager_check_s"] = time.perf_counter() - t0
+            made += log_captures(path.label, captured)
+        # one runner serves every request of a shape: greedy and the entry
+        # make one, the other greedy paths one more for their 32-token check
+        want = 0 if path.beam else 1 if path.label in ("greedy", "entry") else 2
+        if made != want:
+            raise AssertionError(f"{path.label}: {made} runners captured, expected {want}")
+        del results
     del fn, args
     # the pipeline in the int4 self mode, and kernel D' through its op
     for label, run in (("pipeline", lambda: pipeline_path(raw, cfg, int4self)),
@@ -1579,6 +1771,8 @@ def main() -> int:
         phases[f"{label}_path_s"] = time.perf_counter() - t0
         log({"phase": f"{label}_path", "seconds": phases[f"{label}_path_s"], "launches": launches[label],
              "peak_device_bytes": torch.cuda.max_memory_allocated()})
+        if log_captures(label, captured) != (2 if label == "pipeline" else 0):  # the pipeline's buckets 8 and 4
+            raise AssertionError(f"{label}: runners captured other than one per batch shape")
     del raw
     torch.cuda.empty_cache()
 
@@ -1605,12 +1799,17 @@ def main() -> int:
         rows_by_key.setdefault(key, row)
 
     by_label = {p.label: p for p in paths}
-    traced = {}
+    traced, replays = {}, {}
     for label, tokens in (("greedy", MAX_TOKENS), ("beam", TRACED_TOKENS), ("fast_greedy", TRACED_TOKENS),
                           ("fast_beam", TRACED_TOKENS), ("int4self_greedy", TRACED_TOKENS)):
         t0 = time.perf_counter()
-        traced[label] = traced_path(by_label[label], cfg, sigs, tokens)
+        *traced[label], res = traced_path(by_label[label], cfg, sigs, tokens)
         phases[f"traced_{label}_s"] = time.perf_counter() - t0
+        if not by_label[label].beam:
+            t0 = time.perf_counter()
+            replays[label] = traced_replay(by_label[label], cfg, tokens, res)
+            phases[f"traced_replay_{label}_s"] = time.perf_counter() - t0
+        del res
     for row in rows:
         bound_of_pos = row.pop("bound_of_pos", None)
         key = json.dumps(row.pop("shape_key"))
@@ -1630,9 +1829,16 @@ def main() -> int:
             if k in rows_by_key and is_decode_row(rows_by_key[k])
         ) / steps
         log({"phase": f"traced_{label}", "seconds": phases[f"traced_{label}_s"], **bd})
+        if label in replays:
+            log({"phase": f"traced_replay_{label}", "seconds": phases[f"traced_replay_{label}_s"], **replays[label]})
     # the encoder's device ms of each traced request: serving (greedy,
     # beam, int4self_greedy; W8A8) and fast() (fast_greedy, fast_beam)
     log({"phase": "encoder_device_ms", **{label: bd["stages"]["device_ms"]["encode"] for label, (_, bd) in traced.items()}})
+    # the device memory with every cached runner alive (each holds its
+    # caches and its graph's pool), then the runners go with the params
+    log({"phase": "device_memory", "runners": len(cached_runners()), "allocated_bytes": torch.cuda.memory_allocated(),
+         "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    clear_runners()
     del params, fast_params
     torch.cuda.empty_cache()
 

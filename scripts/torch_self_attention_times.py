@@ -14,10 +14,14 @@ row stored in place; greedy, 8 streams) at cached positions 4, 115 and
 E' (bf16, fast_beam, 40), G over int4 keys and values (20 scale lanes) and
 over int8 keys with int4 values (mixed, 11 lanes) at 8 streams (the greedy
 paths) and 4 (the pipeline), and H in both forms at 40 streams (beam), all
-at position 115. Beside each: ``scaled_dot_product_attention`` on the same
-rows dequantized to bf16, head-major (a yardstick: the port never calls
-it), and the kernel's max error relative to max|out| of its plain version
-(one launch, layer 0, bf16 query). Inputs come from seed 0, so every
+at position 115; and kernel F (the slot writer, ``csrc/cache_slot.cu``)
+on int8, bf16 and uint8 (int4-pair) rows of 8 streams at slot 115. Beside
+each: ``scaled_dot_product_attention`` on the same rows dequantized to
+bf16, head-major (F: ``index_copy_`` along T; a yardstick: the port never
+calls it), and the kernel's max error relative to max|out| of its plain
+version (one launch, layer 0, bf16 query). A checkout whose kernels read
+the position from device memory (``_build.check_position``) gets it as an
+int32 on the card, an older one as a host int. Inputs come from seed 0, so every
 checkout sees the same ones. Prints one JSON line: the label, the card, µs
 per launch and the library's by shape, the errors, and, where the
 checkout's build kept ptxas's report, each kernel instance's registers and
@@ -43,6 +47,7 @@ SHAPES = (
     + [("B'/8", "B'", 8, "bf16", POS), ("E/40", "E", 40, "int8", POS), ("E'/40", "E'", 40, "bf16", POS)]
     + [(f"G/{form}/{b}", "G", b, form, POS) for form in ("int4", "mixed") for b in (8, 4)]
     + [(f"H/{form}/40", "H", 40, form, POS) for form in ("int4", "mixed")]
+    + [(f"F/{form}/8", "F", 8, form, POS) for form in ("int8", "bf16", "uint8")]
 )
 
 
@@ -57,9 +62,11 @@ def main() -> int:
     sys.path.insert(0, root)
     from whisper_burn_tpu_torch.models.decoder import self_kv_groups
     from whisper_burn_tpu_torch.ops import _build
+    from whisper_burn_tpu_torch.ops import cache as slot
     from whisper_burn_tpu_torch.ops import decode_attention as da
 
-    _build.build_all((da.NAME,))
+    _build.build_all((da.NAME, slot.NAME))
+    on_device = hasattr(_build, "check_position")
     out = {"label": label, "card": card(), "us": {}, "library_us": {}, "rel_err": {}}
     report = _build._target(da.NAME).with_suffix(".log")
     if report.exists():
@@ -71,10 +78,25 @@ def main() -> int:
     ints = lambda lo, hi, shape, dtype: torch.randint(lo, hi, shape, generator=g, device="cuda", dtype=dtype)
     rand = lambda *shape: torch.rand(shape, generator=g, device="cuda")
     heads = lambda x: x.reshape(x.shape[0], x.shape[1], H, 64).transpose(1, 2)
-    for shape, kernel, b, form, pos in SHAPES:
+    for shape, kernel, b, form, p in SHAPES:
+        pos = torch.tensor(p, dtype=torch.int32, device="cuda") if on_device else p
+        if kernel == "F":
+            width, dtype = (D // 2, torch.uint8) if form == "uint8" else (D, bf if form == "bf16" else torch.int8)
+            cache = ints(0, 100, (L, b, CTX, width), torch.uint8).to(dtype)
+            new = ints(0, 100, (L, b, 1, width), torch.uint8).to(dtype)
+            ref = cache.clone()
+            slot.write_cache_slot_plain(ref, new, pos)
+            got = cache.clone()
+            slot.write_cache_slot(got, new, pos)
+            out["rel_err"][shape] = float(not torch.equal(got, ref))
+            out["us"][shape] = time_us(lambda l: slot.write_cache_slot(cache, new, pos), L, LAUNCHES)
+            idx = torch.tensor([p], device="cuda")
+            out["library_us"][shape] = time_us(lambda l: cache.index_copy_(2, idx, new), L, LAUNCHES)
+            del cache, new, ref, got
+            continue
         q, kn, vn = (torch.randn((b, 1, D), generator=g, device="cuda").to(bf) for _ in range(3))
         merged = kernel in ("B", "B'", "G")
-        n = pos + merged  # the rows the library call attends over: G and B add the current token's
+        n = p + merged  # the rows the library call attends over: G and B add the current token's
         if kernel == "G" or kernel == "H":
             ng = self_kv_groups(D)
             sw = 2 * ng if form == "int4" else 1 + ng

@@ -51,6 +51,11 @@ def gen():
     return g
 
 
+def _at(pos: int) -> torch.Tensor:
+    """A kernel's position: one int32 in device memory."""
+    return torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+
 def _rel_err(out, ref):
     return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
@@ -121,8 +126,8 @@ def test_self_attention_kernel_and_store(gen, pos):
     vq = torch.randint(-127, 128, (b, 1, d), generator=gen, device="cuda", dtype=torch.int8)
     nsc = torch.rand((b, 1, 2), generator=gen, device="cuda")
     caches = [(kc.clone(), vc.clone(), sc.clone()) for _ in range(2)]
-    out = decode_self_attention(q, *caches[0], 1, pos, h, kn, vn, kq, vq, nsc)
-    ref = decode_self_attention_plain(q, *caches[1], 1, pos, h, kn, vn, kq, vq, nsc)
+    out = decode_self_attention(q, *caches[0], 1, _at(pos), h, kn, vn, kq, vq, nsc)
+    ref = decode_self_attention_plain(q, *caches[1], 1, _at(pos), h, kn, vn, kq, vq, nsc)
     assert _rel_err(out, ref) <= 1e-5
     for a, r in zip(*caches):
         assert torch.equal(a, r)
@@ -157,9 +162,9 @@ def test_attention_layer_kernel(gen, ctx, valid, dtype):
     sc = torch.rand((l_dim, b, ctx, 2), generator=gen, device="cuda") * 0.02
     q = torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype)
     _build.reset_launches()
-    out = decode_attention_layer(q, kc, vc, sc, 1, valid, h)
+    out = decode_attention_layer(q, kc, vc, sc, 1, _at(valid), h)
     assert _build.LAUNCHES["decode_attention_layer"] == 1
-    ref = decode_attention_layer_plain(q, kc, vc, sc, 1, valid, h)
+    ref = decode_attention_layer_plain(q, kc, vc, sc, 1, _at(valid), h)
     for a, r in zip(out, ref):  # f32 math both ways, sums in another order
         assert (a - r).abs().max().item() <= 1e-5 * max(r.abs().max().item(), 1.0)
 
@@ -173,9 +178,9 @@ def test_merged_attention_kernel(gen, pos, dtype):
     q, kn, vn = (torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
     k0, v0 = kc.clone(), vc.clone()
     _build.reset_launches()
-    out = decode_attention_merged(q, kc, vc, 1, pos, h, kn, vn)
+    out = decode_attention_merged(q, kc, vc, 1, _at(pos), h, kn, vn)
     assert _build.LAUNCHES["decode_attention_merged"] == 1
-    assert _rel_err(out, decode_attention_merged_plain(q, kc, vc, 1, pos, h, kn, vn)) <= 1e-5
+    assert _rel_err(out, decode_attention_merged_plain(q, kc, vc, 1, _at(pos), h, kn, vn)) <= 1e-5
     assert torch.equal(kc, k0) and torch.equal(vc, v0)
 
 
@@ -187,9 +192,9 @@ def test_attention_layer_unscaled_kernel(gen, ctx, valid, dtype):
     kc, vc = (torch.randn((l_dim, b, ctx, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
     q = torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype)
     _build.reset_launches()
-    out = decode_attention_layer(q, kc, vc, None, 1, valid, h)
+    out = decode_attention_layer(q, kc, vc, None, 1, _at(valid), h)
     assert _build.LAUNCHES["decode_attention_layer_unscaled"] == 1
-    ref = decode_attention_layer_plain(q, kc, vc, None, 1, valid, h)
+    ref = decode_attention_layer_plain(q, kc, vc, None, 1, _at(valid), h)
     for a, r in zip(out, ref):
         assert (a - r).abs().max().item() <= 1e-5 * max(r.abs().max().item(), 1.0)
 
@@ -220,8 +225,8 @@ def test_cache_slot_kernel(gen, dtype, width):
     cache = torch.randn((3, 5, 16, width), generator=gen, device="cuda").mul(50).to(dtype)
     new = torch.randn((3, 5, 1, width), generator=gen, device="cuda").mul(50).to(dtype)
     ref = cache.clone()
-    write_cache_slot(cache, new, 7)
-    write_cache_slot_plain(ref, new, 7)
+    write_cache_slot(cache, new, _at(7))
+    write_cache_slot_plain(ref, new, _at(7))
     assert torch.equal(cache, ref)
 
 
@@ -272,9 +277,9 @@ def test_merged_attention_int4_kernel(gen, fmt, pos, dtype):
     q, kn, vn = (torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
     k0, v0 = k.clone(), v.clone()
     _build.reset_launches()
-    out = decode_attention_merged_int4(q, k, v, sc, 1, pos, h, kn, vn)
+    out = decode_attention_merged_int4(q, k, v, sc, 1, _at(pos), h, kn, vn)
     assert _build.LAUNCHES["decode_attention_merged_int4"] == 1
-    ref = decode_attention_merged_int4_plain(q, k, v, sc, 1, pos, h, kn, vn)
+    ref = decode_attention_merged_int4_plain(q, k, v, sc, 1, _at(pos), h, kn, vn)
     assert _rel_err(out, ref) <= 1e-5
     assert torch.equal(k, k0) and torch.equal(v, v0)
 
@@ -288,9 +293,9 @@ def test_attention_layer_int4_kernel(gen, fmt, ctx, valid, dtype):
     k, v, sc = _int4_cache(gen, fmt, l_dim, b, ctx, d)
     q = torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype)
     _build.reset_launches()
-    out = decode_attention_layer_int4(q, k, v, sc, 1, valid, h)
+    out = decode_attention_layer_int4(q, k, v, sc, 1, _at(valid), h)
     assert _build.LAUNCHES["decode_attention_layer_int4"] == 1
-    ref = decode_attention_layer_int4_plain(q, k, v, sc, 1, valid, h)
+    ref = decode_attention_layer_int4_plain(q, k, v, sc, 1, _at(valid), h)
     for a, r in zip(out, ref):
         assert (a - r).abs().max().item() <= 1e-5 * max(r.abs().max().item(), 1.0)
 
@@ -374,11 +379,11 @@ def test_self_attention_kernel_large_v3(gen, pos, dtype):
     vq = torch.randint(-127, 128, (b, 1, d), generator=gen, device="cuda", dtype=torch.int8)
     nsc = torch.rand((b, 1, 2), generator=gen, device="cuda") * 0.02 + 1e-3
     caches = [(kc.clone(), vc.clone(), sc.clone()) for _ in range(2)]
-    call = lambda: decode_self_attention(q, *caches[0], 1, pos, h, kn, vn, kq, vq, nsc)
+    call = lambda: decode_self_attention(q, *caches[0], 1, _at(pos), h, kn, vn, kq, vq, nsc)
     _build.reset_launches()
     out = call()
     assert _build.LAUNCHES["decode_self_attention"] == 1
-    ref = decode_self_attention_plain(q, *caches[1], 1, pos, h, kn, vn, kq, vq, nsc)
+    ref = decode_self_attention_plain(q, *caches[1], 1, _at(pos), h, kn, vn, kq, vq, nsc)
     assert _rel_err(out, ref) <= 1e-5
     for got, want, orig in zip(caches[0], caches[1], (kc, vc, sc)):
         assert torch.equal(got, want)
@@ -396,11 +401,11 @@ def test_merged_attention_kernel_large_v3(gen, pos, dtype):
     kc, vc = (torch.randn((l_dim, b, ctx, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
     q, kn, vn = (torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
     k0, v0 = kc.clone(), vc.clone()
-    call = lambda: decode_attention_merged(q, kc, vc, 1, pos, h, kn, vn)
+    call = lambda: decode_attention_merged(q, kc, vc, 1, _at(pos), h, kn, vn)
     _build.reset_launches()
     out = call()
     assert _build.LAUNCHES["decode_attention_merged"] == 1
-    assert _rel_err(out, decode_attention_merged_plain(q, kc, vc, 1, pos, h, kn, vn)) <= 1e-5
+    assert _rel_err(out, decode_attention_merged_plain(q, kc, vc, 1, _at(pos), h, kn, vn)) <= 1e-5
     assert torch.equal(kc, k0) and torch.equal(vc, v0)
     _bitwise_twice(call, out)
 
@@ -420,11 +425,11 @@ def test_attention_layer_kernel_large_v3(gen, valid, scaled, dtype):
         kc, vc = (torch.randn((l_dim, b, ctx, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
         sc = None
     q = torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype)
-    call = lambda: decode_attention_layer(q, kc, vc, sc, 1, valid, h)
+    call = lambda: decode_attention_layer(q, kc, vc, sc, 1, _at(valid), h)
     _build.reset_launches()
     out = call()
     assert _build.LAUNCHES["decode_attention_layer" if scaled else "decode_attention_layer_unscaled"] == 1
-    _close_parts(out, decode_attention_layer_plain(q, kc, vc, sc, 1, valid, h))
+    _close_parts(out, decode_attention_layer_plain(q, kc, vc, sc, 1, _at(valid), h))
     _bitwise_twice(call, out)
 
 
@@ -437,11 +442,11 @@ def test_merged_attention_int4_kernel_large_v3(gen, fmt, pos, dtype):
     k, v, sc = _int4_cache(gen, fmt, l_dim, b, ctx, d)
     q, kn, vn = (torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
     k0, v0 = k.clone(), v.clone()
-    call = lambda: decode_attention_merged_int4(q, k, v, sc, 1, pos, h, kn, vn)
+    call = lambda: decode_attention_merged_int4(q, k, v, sc, 1, _at(pos), h, kn, vn)
     _build.reset_launches()
     out = call()
     assert _build.LAUNCHES["decode_attention_merged_int4"] == 1
-    assert _rel_err(out, decode_attention_merged_int4_plain(q, k, v, sc, 1, pos, h, kn, vn)) <= 1e-5
+    assert _rel_err(out, decode_attention_merged_int4_plain(q, k, v, sc, 1, _at(pos), h, kn, vn)) <= 1e-5
     assert torch.equal(k, k0) and torch.equal(v, v0)
     _bitwise_twice(call, out)
 
@@ -454,11 +459,11 @@ def test_attention_layer_int4_kernel_large_v3(gen, fmt, valid, dtype):
     l_dim, b, ctx, d, h = 2, LV3_STREAMS, LV3_CTX, LV3_D, LV3_H
     k, v, sc = _int4_cache(gen, fmt, l_dim, b, ctx, d)
     q = torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype)
-    call = lambda: decode_attention_layer_int4(q, k, v, sc, 1, valid, h)
+    call = lambda: decode_attention_layer_int4(q, k, v, sc, 1, _at(valid), h)
     _build.reset_launches()
     out = call()
     assert _build.LAUNCHES["decode_attention_layer_int4"] == 1
-    _close_parts(out, decode_attention_layer_int4_plain(q, k, v, sc, 1, valid, h))
+    _close_parts(out, decode_attention_layer_int4_plain(q, k, v, sc, 1, _at(valid), h))
     _bitwise_twice(call, out)
 
 
@@ -510,5 +515,129 @@ def test_self_attention_misaligned_cache_raises(gen):
     q = torch.randn((b, 1, d), generator=gen, device="cuda").to(torch.bfloat16)
     _build.reset_launches()
     with pytest.raises(ValueError, match="16-byte aligned"):
-        decode_attention_merged(q, kc, kc, 1, 5, h, q, q)
+        decode_attention_merged(q, kc, kc, 1, _at(5), h, q, q)
     assert sum(_build.LAUNCHES.values()) == 0
+
+
+# --------------------------------------------------------------------------
+# the greedy loop as a CUDA graph of its step (models/whisper.py), at
+# Large-V3's layout cut to 2 layers, 4 streams, 40 tokens (two done checks)
+
+GRAPH_MODES = ("serving", "int8", "fast", "int4self", "mixed")
+GRAPH_B, GRAPH_TOKENS = 4, 40
+
+
+def _graph_compute(mode):
+    from whisper_burn_tpu_torch.ops.compute import Compute
+
+    serving = Compute.fastest(kv_bits=4).replace(quantized_logits=True, w8a8=True)
+    return {"serving": serving, "int8": Compute.fastest().replace(quantized_logits=True, w8a8=True),
+            "fast": Compute.fast(), "int4self": serving.replace(self_kv_bits=4),
+            "mixed": serving.replace(self_kv_vbits=4)}[mode]
+
+
+@pytest.fixture(scope="module")
+def lv3_two_layers():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from whisper_burn_tpu_torch.models.config import WhisperConfig
+    from whisper_burn_tpu_torch.models.params import device_fabricated_params
+
+    cfg = WhisperConfig.large_v3().replace(n_text_layer=2, n_audio_layer=2)
+    raw = device_fabricated_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    mels = [torch.randn((GRAPH_B, cfg.n_mels, 3000), generator=g, device="cuda") for _ in range(2)]
+    return cfg, raw, mels
+
+
+def _eager_greedy(params, cfg, mel, compute, max_tokens):
+    """The loop body called step by step, on a fresh state: the tokens and
+    the last step's logits."""
+    from whisper_burn_tpu_torch.models import whisper as w
+    from whisper_burn_tpu_torch.models.decoder import init_cache
+
+    state = w.new_state(init_cache(cfg, mel.shape[0], compute, w.self_cache_len(cfg, max_tokens), mel.device),
+                        max_tokens)
+    lang = torch.full((mel.shape[0],), cfg.lang_token_start, dtype=torch.int32, device=mel.device)
+    w.start_request(params, cfg, mel, lang, compute, state, detect=False, task="transcribe")
+    logits = None
+    for k in range(1, max_tokens):
+        if k % w.DONE_CHECK_EVERY == 0 and bool(state.done.all()):
+            break
+        logits = w.greedy_step(params, cfg, state, compute)
+    return state.tokens.clone(), logits.clone()
+
+
+@pytest.mark.parametrize("mode", GRAPH_MODES)
+def test_greedy_graph_replay_equals_eager_body(lv3_two_layers, mode):
+    """Two requests through one runner (the first captures its step after
+    an eager first step, the second replays from k = 1) give the eager
+    body's tokens and last logits bit for bit, and the launches of the
+    eager loop."""
+    from whisper_burn_tpu_torch.models import whisper as w
+    from whisper_burn_tpu_torch.transcribe import prepare_params
+
+    cfg, raw, mels = lv3_two_layers
+    compute = _graph_compute(mode)
+    params = prepare_params(raw, compute)
+    w.clear_runners()
+    lang = torch.full((GRAPH_B,), cfg.lang_token_start, dtype=torch.int32, device="cuda")
+    for mel in mels:
+        _build.reset_launches()
+        tokens, logits = _eager_greedy(params, cfg, mel, compute, GRAPH_TOKENS)
+        eager_launches = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        res = w.greedy_decode(params, cfg, mel, lang, compute, max_tokens=GRAPH_TOKENS)
+        runner = w.greedy_runner(params, cfg, compute, GRAPH_B, GRAPH_TOKENS, mel.device)
+        assert runner.graph is not None and len(w.cached_runners()) == 1
+        assert torch.equal(res.tokens, tokens)
+        assert torch.equal(runner.logits, logits)
+        assert dict(_build.LAUNCHES) == eager_launches
+    w.clear_runners()
+
+
+def test_graph_capture_raises_on_a_host_read(gen):
+    """A step that reads a device value on the host cannot be captured:
+    the capture raises, and the next capture on the stream works."""
+    from whisper_burn_tpu_torch.models.whisper import capture_graph
+
+    x = torch.randn(16, generator=gen, device="cuda")
+    stream = torch.cuda.Stream()
+    with pytest.raises(RuntimeError):
+        capture_graph(lambda: x * float(x.sum()), stream)
+    graph, out, tally = capture_graph(lambda: x * 2, stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, x * 2) and tally.log == []
+
+
+def test_graph_replay_counts_the_eager_step_launches(lv3_two_layers):
+    """The tally a capture of the step records is the eager step's
+    launches, by kernel and shape, and each replay adds it once."""
+    from whisper_burn_tpu_torch.models import whisper as w
+    from whisper_burn_tpu_torch.models.decoder import init_cache
+    from whisper_burn_tpu_torch.transcribe import prepare_params
+
+    cfg, raw, mels = lv3_two_layers
+    compute = _graph_compute("serving")
+    params = prepare_params(raw, compute)
+    state = w.new_state(init_cache(cfg, GRAPH_B, compute, 64, "cuda"), 16)
+    lang = torch.full((GRAPH_B,), cfg.lang_token_start, dtype=torch.int32, device="cuda")
+    w.start_request(params, cfg, mels[0], lang, compute, state, detect=False, task="transcribe")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    _build.reset_launches()
+    with torch.cuda.stream(stream):
+        w.greedy_step(params, cfg, state, compute)
+    eager = dict(_build.LAUNCH_SHAPES)
+    graph, _, tally = w.capture_graph(lambda: w.greedy_step(params, cfg, state, compute), stream)
+    assert dict(_build.LAUNCH_SHAPES) == eager  # the capture launched nothing
+    assert dict(tally.shapes) == eager
+    torch.cuda.current_stream().wait_stream(stream)
+    _build.reset_launches()
+    for _ in range(3):
+        graph.replay()
+        _build.add_launches(tally)
+    assert dict(_build.LAUNCH_SHAPES) == {key: 3 * n for key, n in eager.items()}
+    assert int(state.k) == 5  # one eager step and three replays from k = 1

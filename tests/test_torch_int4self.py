@@ -153,8 +153,8 @@ def test_merged_attention_int4_matches_pallas(fmt, d, h, pos):
     assert ref is not None
     tk, tv = torch.from_numpy(k.copy()), torch.from_numpy(v.copy())
     out = decode_attention_merged_int4(
-        torch.from_numpy(q), tk, tv, None if sc is None else torch.from_numpy(sc), layer, pos, h,
-        torch.from_numpy(kn), torch.from_numpy(vn),
+        torch.from_numpy(q), tk, tv, None if sc is None else torch.from_numpy(sc), layer,
+        torch.tensor(pos, dtype=torch.int32), h, torch.from_numpy(kn), torch.from_numpy(vn),
     )
     assert out.shape == (b, 1, d) and out.dtype == torch.float32
     _close_to_scale(out, ref, 1e-5)
@@ -179,7 +179,7 @@ def test_attention_layer_int4_matches_pallas(fmt, d, h, valid):
     assert ref is not None
     out = decode_attention_layer_int4(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), None if sc is None else torch.from_numpy(sc),
-        layer, valid, h,
+        layer, torch.tensor(valid, dtype=torch.int32), h,
     )
     assert [tuple(a.shape) for a in out] == [(b, 1, d), (b, 1, h), (b, 1, h)]
     for a, r in zip(out, ref):
@@ -204,11 +204,11 @@ def test_int4_layouts_the_kernels_do_not_serve_raise(case):
         k, sc = torch.zeros((1, 2, 64, d), dtype=torch.int8), None
     else:
         sc = torch.ones((1, 2, 64, 5))
-    q = torch.zeros((2, 1, d))
+    q, pos = torch.zeros((2, 1, d)), torch.tensor(5, dtype=torch.int32)
     with pytest.raises(ValueError):
-        decode_attention_layer_int4(q, k, v, sc, 0, 5, h)
+        decode_attention_layer_int4(q, k, v, sc, 0, pos, h)
     with pytest.raises(ValueError):
-        decode_attention_merged_int4(q, k, v, sc, 0, 5, h, q, q)
+        decode_attention_merged_int4(q, k, v, sc, 0, pos, h, q, q)
 
 
 @pytest.mark.parametrize("d", [64, 256, 640, 1024, 1280, 96])
@@ -339,7 +339,8 @@ def test_prefill_and_teacher_forced_decode_match_jax(setup, mode):
     for k in range(STEPS):
         pos = 4 + k
         jlogits, jc = step(jparams, JCFG, jnp.asarray(forced[k]), jnp.asarray(pos), jc, jcompute)
-        logits = decode_step(params, CFG, torch.from_numpy(forced[k]).long(), pos, cache, compute)
+        logits = decode_step(params, CFG, torch.from_numpy(forced[k]).long(), torch.tensor(pos, dtype=torch.int32),
+                             cache, compute)
         _close(logits, jlogits, 1e-4)
         diffs.append(_max_diff(logits, jlogits))
         _self_rows_agree_then_resync(cache, jc, slice(pos, pos + 1))
@@ -368,7 +369,8 @@ def test_grouped_decode_steps_match_jax(setup, mode):
     for k in range(STEPS):
         pos = 4 + k
         jlogits, jc = step(jparams, JCFG, jnp.asarray(forced[k]), jnp.asarray(pos), jc, jcompute, G)
-        logits = decode_step(params, CFG, torch.from_numpy(forced[k]).long(), pos, cache, compute, batch_groups=G)
+        logits = decode_step(params, CFG, torch.from_numpy(forced[k]).long(), torch.tensor(pos, dtype=torch.int32),
+                             cache, compute, batch_groups=G)
         assert logits.shape == (B * G, CFG.n_vocab_padded)
         _close(logits, jlogits, 1e-4)
         diffs.append(_max_diff(logits, jlogits))

@@ -173,4 +173,5 @@ def test_beam_groups_raise():
     cache = init_cache(cfg, 2, compute, 64, "cpu")
     for groups in (0, 2):  # 2 streams on 2 utterances: groups of 1 only
         with pytest.raises(ValueError, match="batch_groups"):
-            decode_step({}, cfg, torch.zeros(2, dtype=torch.long), 4, cache, compute, batch_groups=groups)
+            decode_step({}, cfg, torch.zeros(2, dtype=torch.long), torch.tensor(4, dtype=torch.int32), cache, compute,
+                        batch_groups=groups)

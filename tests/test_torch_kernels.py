@@ -150,7 +150,7 @@ def _self_attention_with_store(pos, d, h):
     )
     tk, tv, tsc = torch.from_numpy(k8.copy()), torch.from_numpy(v8.copy()), torch.from_numpy(sc.copy())
     out = decode_self_attention(
-        torch.from_numpy(q), tk, tv, tsc, layer, pos, h, torch.from_numpy(kn),
+        torch.from_numpy(q), tk, tv, tsc, layer, torch.tensor(pos, dtype=torch.int32), h, torch.from_numpy(kn),
         torch.from_numpy(vn), torch.from_numpy(kq), torch.from_numpy(vq), torch.from_numpy(new_sc),
     )
     _close(out, ref)
@@ -184,7 +184,8 @@ def test_attention_layer_and_merge_match_pallas(ctx, valid):
         kv_scale4=jnp.asarray(sc), interpret=True,
     )
     out = decode_attention_layer(
-        torch.from_numpy(q), torch.from_numpy(k8), torch.from_numpy(v8), torch.from_numpy(sc), layer, valid, h
+        torch.from_numpy(q), torch.from_numpy(k8), torch.from_numpy(v8), torch.from_numpy(sc), layer,
+        torch.tensor(valid, dtype=torch.int32), h,
     )
     assert [tuple(a.shape) for a in out] == [(b, 1, d), (b, 1, h), (b, 1, h)]
     for a, r in zip(out, ref):
@@ -202,7 +203,7 @@ def test_cache_slot_matches_pallas(pos):
     new = rng.integers(-127, 128, (2, 3, 1, 256), dtype=np.int8)
     ref = j_write_slot(jnp.asarray(cache), jnp.asarray(new), jnp.asarray(pos), interpret=True)
     out = torch.from_numpy(cache.copy())
-    write_cache_slot(out, torch.from_numpy(new), pos)
+    write_cache_slot(out, torch.from_numpy(new), torch.tensor(pos, dtype=torch.int32))
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 

@@ -111,7 +111,8 @@ def test_merged_attention_float_cache_matches_pallas(pos):
     )
     tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
     out = decode_attention_merged(
-        torch.from_numpy(q), tk, tv, layer, pos, h, torch.from_numpy(kn), torch.from_numpy(vn)
+        torch.from_numpy(q), tk, tv, layer, torch.tensor(pos, dtype=torch.int32), h, torch.from_numpy(kn),
+        torch.from_numpy(vn),
     )
     assert out.shape == (b, 1, d) and out.dtype == torch.float32
     _close(out, ref, 1e-5)
@@ -130,7 +131,10 @@ def test_attention_layer_unscaled_matches_pallas(ctx, valid):
     q, kn, vn = (rng.standard_normal((b, 1, d)).astype(np.float32) for _ in range(3))
     ref = j_layer(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(layer), jnp.asarray(valid), h,
                   interpret=True)
-    out = decode_attention_layer(torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc), None, layer, valid, h)
+    out = decode_attention_layer(
+        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc), None, layer,
+        torch.tensor(valid, dtype=torch.int32), h,
+    )
     assert [tuple(a.shape) for a in out] == [(b, 1, d), (b, 1, h), (b, 1, h)]
     for a, r in zip(out, ref):
         _close(a, r, 1e-5)
@@ -262,7 +266,8 @@ def test_prefill_and_teacher_forced_decode_match_jax(setup, mode):
     for k in range(STEPS):
         pos = 4 + k
         jlogits, jc = step(jparams, JCFG, jnp.asarray(forced[k]), jnp.asarray(pos), jc, jcompute)
-        logits = decode_step(params, CFG, torch.from_numpy(forced[k]).long(), pos, cache, compute)
+        logits = decode_step(params, CFG, torch.from_numpy(forced[k]).long(), torch.tensor(pos, dtype=torch.int32),
+                             cache, compute)
         _close(logits, jlogits, 1e-4)
         diffs.append(_max_diff(logits, jlogits))
         _assert_self_rows_agree(cache, jc, slice(pos, pos + 1))
@@ -293,7 +298,8 @@ def test_grouped_decode_steps_match_jax(setup, mode):
     for k in range(STEPS):
         pos = 4 + k
         jlogits, jc = step(jparams, JCFG, jnp.asarray(forced[k]), jnp.asarray(pos), jc, jcompute, G)
-        logits = decode_step(params, CFG, torch.from_numpy(forced[k]).long(), pos, cache, compute, batch_groups=G)
+        logits = decode_step(params, CFG, torch.from_numpy(forced[k]).long(), torch.tensor(pos, dtype=torch.int32),
+                             cache, compute, batch_groups=G)
         assert logits.shape == (B * G, CFG.n_vocab_padded)
         _close(logits, jlogits, 1e-4)
         diffs.append(_max_diff(logits, jlogits))

@@ -215,7 +215,8 @@ def _assert_prefill_and_decode_match(jparams, params, jcache, cache, jcompute, c
     for k in range(STEPS):
         pos = 4 + k
         jlogits, jc = step(jparams, JCFG, jnp.asarray(forced[k]), jnp.asarray(pos), jc, jcompute)
-        logits = decode_step(params, CFG, torch.from_numpy(forced[k]).long(), pos, cache, compute)
+        logits = decode_step(params, CFG, torch.from_numpy(forced[k]).long(), torch.tensor(pos, dtype=torch.int32),
+                             cache, compute)
         _close(logits, jlogits, 1e-4)
         diffs.append(_max_diff(logits, jlogits))
         if resync:
@@ -260,7 +261,8 @@ def test_grouped_decode_steps_match_jax(setup, caches):
     for k in range(STEPS):
         pos = 4 + k
         jlogits, jc = step(jparams, JCFG, jnp.asarray(forced[k]), jnp.asarray(pos), jc, JC, g)
-        logits = decode_step(params, CFG, torch.from_numpy(forced[k]).long(), pos, cache, TC, batch_groups=g)
+        logits = decode_step(params, CFG, torch.from_numpy(forced[k]).long(), torch.tensor(pos, dtype=torch.int32),
+                             cache, TC, batch_groups=g)
         assert logits.shape == (B * g, CFG.n_vocab_padded)
         _close(logits, jlogits, 1e-4)
         diffs.append(_max_diff(logits, jlogits))

@@ -74,7 +74,7 @@ def test_narrow_heads_refused_on_cuda_tensors_only():
     d, h = CFG.n_text_state, CFG.n_text_head
     q = torch.zeros((B, 1, d))
     cache = torch.zeros((1, B, 8, d))
-    acc, m, l = decode_attention_layer(q, cache, cache, None, 0, 4, h)
+    acc, m, l = decode_attention_layer(q, cache, cache, None, 0, torch.tensor(4, dtype=torch.int32), h)
     assert acc.shape == (B, 1, d) and m.shape == (B, 1, h) and l.shape == (B, 1, h)
     kT = torch.zeros((1, B, d, 8))
     assert decode_cross_attention(q, kT, cache, 0, 8, h).shape == (B, 1, d)
@@ -82,6 +82,6 @@ def test_narrow_heads_refused_on_cuda_tensors_only():
     assert encoder_attention(x, x, x, h, valid=6).shape == (B, 8, d)
     meta = lambda t: t.to("meta")
     with pytest.raises(ValueError, match="64-wide heads"):
-        decode_attention_layer(meta(q), meta(cache), meta(cache), None, 0, 4, h)
+        decode_attention_layer(meta(q), meta(cache), meta(cache), None, 0, meta(torch.tensor(4, dtype=torch.int32)), h)
     with pytest.raises(ValueError, match="64-wide heads"):
         encoder_attention(meta(x), meta(x), meta(x), h, valid=6)

@@ -10,7 +10,10 @@
 // (one uint4 load and store) when the row width and both base pointers
 // allow it, else one thread per byte; consecutive threads on consecutive
 // bytes of a row, so each row is one coalesced run. Any element size: the
-// kernel moves bytes.
+// kernel moves bytes. `pos` is one int32 in device memory that each thread
+// reads (the decode loop keeps the position on the card, and a captured
+// CUDA graph replays fixed arguments); a position outside [0, T) writes
+// nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -21,16 +24,17 @@ constexpr int THREADS = 256;
 
 template <typename V>
 __global__ void __launch_bounds__(THREADS)
-slot_kernel(V* __restrict__ cache, const V* __restrict__ src, int rows, int T, int pos,
-            int nvec) {
+slot_kernel(V* __restrict__ cache, const V* __restrict__ src, int rows, int T,
+            const int* __restrict__ pos_at, int nvec) {
   const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= (size_t)rows * nvec) return;
+  const int pos = *pos_at;
+  if (i >= (size_t)rows * nvec || pos < 0 || pos >= T) return;
   const size_t r = i / nvec, j = i % nvec;
   cache[(r * T + pos) * nvec + j] = src[r * nvec + j];
 }
 
 template <typename V>
-int launch(void* cache, const void* src, int rows, int T, int pos, int nvec, cudaStream_t st) {
+int launch(void* cache, const void* src, int rows, int T, const int* pos, int nvec, cudaStream_t st) {
   const size_t n = (size_t)rows * nvec;
   const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
   if (blocks) {
@@ -43,8 +47,9 @@ int launch(void* cache, const void* src, int rows, int T, int pos, int nvec, cud
 }  // namespace
 
 // cache: [rows, T, row_bytes] bytes (rows = L * B); src: [rows, row_bytes];
-// 0 <= pos < T. Returns the CUDA error code of the launch (0 on success).
-extern "C" int write_cache_slot(void* cache, const void* src, int rows, int T, int pos,
+// pos: one int32 in device memory, 0 <= *pos < T. Returns the CUDA error
+// code of the launch (0 on success).
+extern "C" int write_cache_slot(void* cache, const void* src, int rows, int T, const int* pos,
                                 int row_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(cache) % 16 == 0 &&

@@ -35,6 +35,12 @@
 //   the compute dtype before its dot and folds the bias out as 8 * sum(q);
 //   here the dot runs in f32 on the unbiased codes.
 //
+// The position (pos, or valid) lives in device memory as one int32 that
+// each block reads once (clamped into the cache): the decode loop keeps it
+// on the card and replays a captured CUDA graph of its step, whose launch
+// arguments are fixed, as the Pallas kernels take it by scalar prefetch.
+// The grids do not depend on it, so one capture serves every position.
+//
 // Bound: the cache read, a few µs of launch and latency above it. At pos
 // keys a stream and layer: B 2 * pos * D bytes and 8 * pos of scales
 // (0.75 µs at B = 8, pos 115, D 1280), B' and E' 2 * pos * D elements, G
@@ -131,6 +137,10 @@ namespace {
 constexpr int DH = 64;
 constexpr float NEG_BIG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
+
+// The position a block reads once from device memory, clamped into
+// [0, hi] so that no position reads or writes outside the cache.
+__device__ __forceinline__ int read_pos(const int* at, int hi) { return min(max(*at, 0), hi); }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -461,9 +471,10 @@ self_attn_kernel(const T* __restrict__ q, int8_t* kc, int8_t* vc, float* kvs,
                  const T* __restrict__ k_new, const T* __restrict__ v_new,
                  const int8_t* __restrict__ kq, const int8_t* __restrict__ vq,
                  const float* __restrict__ new_scale, float* __restrict__ out,
-                 int layer, int pos, int B, int ctx, int D) {
+                 int layer, const int* __restrict__ pos_at, int B, int ctx, int D) {
   __shared__ Partials<1> part;
   const int b = blockIdx.x, h = blockIdx.y;
+  const int pos = read_pos(pos_at, ctx - 1);
   const size_t row0 = ((size_t)layer * B + b) * ctx;
   const int head[1] = {h};
   const TokenCols tok = token_cols(q, k_new, v_new, head, D);
@@ -493,9 +504,11 @@ template <typename T>
 __global__ void __launch_bounds__(SELF_THREADS, 2)
 merged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
                    const T* __restrict__ k_new, const T* __restrict__ v_new,
-                   float* __restrict__ out, int layer, int pos, int B, int ctx, int D) {
+                   float* __restrict__ out, int layer, const int* __restrict__ pos_at, int B, int ctx,
+                   int D) {
   __shared__ Partials<1> part;
   const int h = blockIdx.y;
+  const int pos = read_pos(pos_at, ctx - 1);
   const int head[1] = {h};
   const TokenCols tok = token_cols(q, k_new, v_new, head, D);
   const One ones[1] = {{}};
@@ -513,10 +526,11 @@ __global__ void __launch_bounds__(SELF_THREADS, 2)
 merged_int4_kernel(const T* __restrict__ q, const KC* __restrict__ kc,
                    const uint8_t* __restrict__ vc, const float* __restrict__ kvs,
                    const T* __restrict__ k_new, const T* __restrict__ v_new,
-                   float* __restrict__ out, int layer, int pos, int B, int ctx, int D, int H,
-                   int sw, int kgs, int vgs, int voff) {
+                   float* __restrict__ out, int layer, const int* __restrict__ pos_at, int B, int ctx,
+                   int D, int H, int sw, int kgs, int vgs, int voff) {
   __shared__ Partials<2> part;
   const int h = blockIdx.y;
+  const int pos = read_pos(pos_at, ctx - 1);
   const int head[2] = {h, h + H / 2};
   const TokenCols tok = token_cols(q, k_new, v_new, head, D);
   const SC ks[2] = {SC::of(kvs, sw, 0, kgs, head[0]), SC::of(kvs, sw, 0, kgs, head[1])};
@@ -532,9 +546,11 @@ __global__ void __launch_bounds__(SELF_THREADS, 2)
 layer_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
                   const int8_t* __restrict__ vc, const float* __restrict__ kvs,
                   float* __restrict__ acc_out, float* __restrict__ m_out,
-                  float* __restrict__ l_out, int layer, int valid, int B, int ctx, int D, int H) {
+                  float* __restrict__ l_out, int layer, const int* __restrict__ valid_at, int B,
+                  int ctx, int D, int H) {
   __shared__ Partials<1> part;
   const int h = blockIdx.y;
+  const int valid = read_pos(valid_at, ctx);
   const int head[1] = {h};
   const Lane ks[1] = {{kvs, 2, 0}}, vs[1] = {{kvs, 2, 1}};
   using KA = Rows<int8_t, 1>;
@@ -548,10 +564,11 @@ template <typename T>
 __global__ void __launch_bounds__(SELF_THREADS, 2)
 layer_unscaled_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
                       float* __restrict__ acc_out, float* __restrict__ m_out,
-                      float* __restrict__ l_out, int layer, int valid, int B, int ctx, int D,
-                      int H) {
+                      float* __restrict__ l_out, int layer, const int* __restrict__ valid_at, int B,
+                      int ctx, int D, int H) {
   __shared__ Partials<1> part;
   const int h = blockIdx.y;
+  const int valid = read_pos(valid_at, ctx);
   const int head[1] = {h};
   const One ones[1] = {{}};
   using KA = Rows<T, 1>;
@@ -567,10 +584,11 @@ __global__ void __launch_bounds__(SELF_THREADS, 2)
 layer_int4_kernel(const T* __restrict__ q, const KC* __restrict__ kc,
                   const uint8_t* __restrict__ vc, const float* __restrict__ kvs,
                   float* __restrict__ acc_out, float* __restrict__ m_out,
-                  float* __restrict__ l_out, int layer, int valid, int B, int ctx, int D, int H,
-                  int sw, int kgs, int vgs, int voff) {
+                  float* __restrict__ l_out, int layer, const int* __restrict__ valid_at, int B,
+                  int ctx, int D, int H, int sw, int kgs, int vgs, int voff) {
   __shared__ Partials<2> part;
   const int h = blockIdx.y;
+  const int valid = read_pos(valid_at, ctx);
   const int head[2] = {h, h + H / 2};
   const SC ks[2] = {SC::of(kvs, sw, 0, kgs, head[0]), SC::of(kvs, sw, 0, kgs, head[1])};
   const SC vs[2] = {SC::of(kvs, sw, voff, vgs, head[0]), SC::of(kvs, sw, voff, vgs, head[1])};
@@ -583,9 +601,8 @@ layer_int4_kernel(const T* __restrict__ q, const KC* __restrict__ kc,
 // int4 keys with scales, int4 keys without, int8 keys with (mixed)
 template <bool MERGED, typename T, typename KC, class SC>
 int launch_int4(const void* q, const void* kc, const void* vc, const void* kvs, const void* k_new,
-                const void* v_new, float* o0, float* o1, float* o2, int layer, int valid, int B,
-                int ctx, int D, int H, int sw, int kgs, int vgs, int voff,
-                cudaStream_t st) {
+                const void* v_new, float* o0, float* o1, float* o2, int layer, const int* valid,
+                int B, int ctx, int D, int H, int sw, int kgs, int vgs, int voff, cudaStream_t st) {
   dim3 grid(B, H / 2);
   const T* qt = static_cast<const T*>(q);
   const KC* k = static_cast<const KC*>(kc);
@@ -605,8 +622,8 @@ int launch_int4(const void* q, const void* kc, const void* vc, const void* kvs, 
 template <bool MERGED, typename T>
 int launch_int4_form(int k_int4, const void* q, const void* kc, const void* vc, const void* kvs,
                      const void* k_new, const void* v_new, float* o0, float* o1, float* o2,
-                     int layer, int valid, int B, int ctx, int D, int H, int sw, int kgs, int vgs,
-                     int voff, cudaStream_t st) {
+                     int layer, const int* valid, int B, int ctx, int D, int H, int sw, int kgs,
+                     int vgs, int voff, cudaStream_t st) {
   if (!k_int4)
     return launch_int4<MERGED, T, int8_t, Lane>(q, kc, vc, kvs, k_new, v_new, o0, o1, o2, layer,
                                                 valid, B, ctx, D, H, sw, kgs, vgs, voff, st);
@@ -1254,12 +1271,12 @@ struct LaunchCU {
 
 // q, k_new, v_new: [B, D] f32 or bf16 (bf16 flag); kc, vc: int8 [L, B, ctx, D];
 // kvs: f32 [L, B, ctx, 2]; kq, vq: int8 [B, D]; new_scale: f32 [B, 2];
-// out: f32 [B, D]. Head width 64, caches 16-byte aligned. Needs
-// 0 <= pos < ctx.
+// out: f32 [B, D]; pos: one int32 in device memory, 0 <= *pos < ctx.
+// Head width 64, caches 16-byte aligned.
 extern "C" int decode_self_attention(const void* q, int bf16, void* kc, void* vc, void* kvs,
                                      const void* k_new, const void* v_new, const void* kq,
                                      const void* vq, const void* new_scale, void* out,
-                                     int layer, int pos, int B, int ctx, int D, int H,
+                                     int layer, const int* pos, int B, int ctx, int D, int H,
                                      void* stream) {
   dim3 grid(B, H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1284,11 +1301,12 @@ extern "C" int decode_self_attention(const void* q, int bf16, void* kc, void* vc
 }
 
 // q, k_new, v_new: [B, D]; kc, vc: [L, B, ctx, D]; all f32, or all bf16
-// (bf16 flag); out: f32 [B, D], normalized; nothing is stored. Head width
-// 64, caches 16-byte aligned. Needs 0 <= pos < ctx.
+// (bf16 flag); out: f32 [B, D], normalized; nothing is stored; pos: one
+// int32 in device memory, 0 <= *pos < ctx. Head width 64, caches 16-byte
+// aligned.
 extern "C" int decode_attention_merged(const void* q, int bf16, const void* kc, const void* vc,
                                        const void* k_new, const void* v_new, void* out, int layer,
-                                       int pos, int B, int ctx, int D, int H, void* stream) {
+                                       const int* pos, int B, int ctx, int D, int H, void* stream) {
   dim3 grid(B, H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
@@ -1308,10 +1326,11 @@ extern "C" int decode_attention_merged(const void* q, int bf16, const void* kc, 
 
 // q: [B, D] f32 or bf16 (bf16 flag), B query streams; kc, vc: int8
 // [L, B, ctx, D]; kvs: f32 [L, B, ctx, 2]; acc: f32 [B, D]; m, l: f32
-// [B, H]. Head width 64, caches 16-byte aligned. Needs 0 <= valid <= ctx.
+// [B, H]; valid: one int32 in device memory, 0 <= *valid <= ctx. Head
+// width 64, caches 16-byte aligned.
 extern "C" int decode_attention_layer(const void* q, int bf16, const void* kc, const void* vc,
                                       const void* kvs, void* acc, void* m, void* l, int layer,
-                                      int valid, int B, int ctx, int D, int H, void* stream) {
+                                      const int* valid, int B, int ctx, int D, int H, void* stream) {
   dim3 grid(B, H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* k8 = static_cast<const int8_t*>(kc);
@@ -1331,12 +1350,12 @@ extern "C" int decode_attention_layer(const void* q, int bf16, const void* kc, c
 }
 
 // q: [B, D]; kc, vc: [L, B, ctx, D]; all f32, or all bf16 (bf16 flag);
-// acc: f32 [B, D]; m, l: f32 [B, H]. Head width 64, caches 16-byte
-// aligned. Needs 0 <= valid <= ctx.
+// acc: f32 [B, D]; m, l: f32 [B, H]; valid as decode_attention_layer.
+// Head width 64, caches 16-byte aligned.
 extern "C" int decode_attention_layer_unscaled(const void* q, int bf16, const void* kc,
                                                const void* vc, void* acc, void* m, void* l,
-                                               int layer, int valid, int B, int ctx, int D, int H,
-                                               void* stream) {
+                                               int layer, const int* valid, int B, int ctx, int D,
+                                               int H, void* stream) {
   dim3 grid(B, H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* a = static_cast<float*>(acc);
@@ -1361,11 +1380,11 @@ extern "C" int decode_attention_layer_unscaled(const void* q, int bf16, const vo
 // cache); a head's scale lanes as in Lane::of (keys from lane 0 in groups
 // of kgs channels, values from lane voff in groups of vgs); out: f32
 // [B, D], normalized; nothing is stored. Head width 64, H even, a scale
-// group a whole number of heads, caches 16-byte aligned. Needs
-// 0 <= pos < ctx.
+// group a whole number of heads, caches 16-byte aligned; pos: one int32
+// in device memory, 0 <= *pos < ctx.
 extern "C" int decode_attention_merged_int4(const void* q, int bf16, const void* kc,
                                             const void* vc, const void* kvs, const void* k_new,
-                                            const void* v_new, void* out, int layer, int pos,
+                                            const void* v_new, void* out, int layer, const int* pos,
                                             int B, int ctx, int D, int H, int k_int4, int sw,
                                             int kgs, int vgs, int voff, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1380,10 +1399,10 @@ extern "C" int decode_attention_merged_int4(const void* q, int bf16, const void*
 
 // The caches and scales of decode_attention_merged_int4, over keys
 // t < valid: acc f32 [B, D], m, l f32 [B, H], unnormalized (l without the
-// V scales). Needs 0 <= valid <= ctx.
+// V scales); valid: one int32 in device memory, 0 <= *valid <= ctx.
 extern "C" int decode_attention_layer_int4(const void* q, int bf16, const void* kc, const void* vc,
                                            const void* kvs, void* acc, void* m, void* l,
-                                           int layer, int valid, int B, int ctx, int D, int H,
+                                           int layer, const int* valid, int B, int ctx, int D, int H,
                                            int k_int4, int sw, int kgs, int vgs,
                                            int voff, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -23,7 +23,10 @@ does: the pool keeps an existing hypothesis over a new one of equal score
 because the pool comes first in the candidates it ranks.
 
 As ``greedy_decode``, the loop makes no host sync per token: whether every
-utterance is done is read once every ``DONE_CHECK_EVERY`` steps. Done
+utterance is done is read once every ``DONE_CHECK_EVERY`` steps, and the
+cache position is a device int32 advanced in place, which the kernels read
+there. The loop runs eagerly: its cache reorder reallocates the self
+caches, which a captured graph could not follow. Done
 utterances are frozen, so the steps run past the moment they were all
 done change nothing that the final selection reads. Stages run inside
 ``torch.profiler.record_function`` ranges named ``beam_decode.<stage>``
@@ -45,6 +48,7 @@ from whisper_burn_tpu_torch.models.decoder import KVCache, decode_step
 from whisper_burn_tpu_torch.models.whisper import (
     DONE_CHECK_EVERY,
     PROMPT_LEN,
+    check_positions,
     encode_and_fill,
     prompt_logits,
 )
@@ -139,13 +143,16 @@ def beam_decode(
         rank = torch.arange(2 * w, device=dev)[None, :]
         own = torch.arange(w, device=dev)[None, :]
         first = torch.arange(b, device=dev)[:, None] * w  # each utterance's first stream
+        check_positions(cache.self_k.shape[2], max_tokens)
+        pos = torch.full((), PROMPT_LEN, dtype=torch.int32, device=dev)  # the slot of the token fed
 
     with record_function("beam_decode.decode"):
         k = 1  # samples generated so far: the live beams hold k tokens
         while k < max_tokens:
             if k % DONE_CHECK_EVERY == 0 and bool(done.all()):
                 break
-            logits = decode_step(params, cfg, cur, PROMPT_LEN + k - 1, cache, compute, batch_groups=w)
+            logits = decode_step(params, cfg, cur, pos, cache, compute, batch_groups=w)
+            pos += 1
             if k < MIN_TOKENS:
                 logits[:, EOT] = float("-inf")
             logp = _log_softmax(logits)  # [BW, Vp]

@@ -48,10 +48,14 @@ branches, by ``batch_groups`` and the self cache's mode:
 Where the row is not stored in the kernel, the new rows of every layer are
 written at ``pos`` after the layer loop by kernel F: quantized per token
 first for a quantized cache (int8, or int4 groups packed by
-:func:`_quantize_tokens4`; the scales by a slice assignment), cast to the
+:func:`_quantize_tokens4`; the scales by an index copy), cast to the
 cache's dtype otherwise.
 
-The caches are updated in place.
+The caches are updated in place. The decode step's position is a 0-d
+int32 tensor on the device, read there by the kernels and by index ops,
+never on the host: the step is one fixed sequence of launches at every
+position, which the greedy loop captures once as a CUDA graph and replays
+(``models/whisper.py``).
 """
 
 from __future__ import annotations
@@ -141,11 +145,14 @@ def init_cache(cfg: WhisperConfig, batch: int, compute: Compute, ctx: int, devic
     )
 
 
-def _embed(dec: dict, tokens: torch.Tensor, start: int, compute: Compute) -> torch.Tensor:
+def _embed(dec: dict, tokens: torch.Tensor, start: int | torch.Tensor, compute: Compute) -> torch.Tensor:
     """tokens [B, T] at absolute positions [start, start + T) -> [B, T, D].
-    The positions are a slice (a view), so a step copies nothing from the
-    host."""
-    pos = dec["pos"][start : start + tokens.shape[1]]
+    ``start`` is a host int (the prompt) or a 0-d device tensor (a decode
+    step, T = 1), whose row is gathered on the device."""
+    if isinstance(start, torch.Tensor):
+        pos = dec["pos"].index_select(0, start.reshape(1))
+    else:
+        pos = dec["pos"][start : start + tokens.shape[1]]
     return (dec["tok_emb"][tokens] + pos[None]).to(compute.dtype)
 
 
@@ -345,11 +352,12 @@ def prefill(
 
 
 def decode_step(
-    params: dict, cfg: WhisperConfig, token: torch.Tensor, pos: int, cache: KVCache,
+    params: dict, cfg: WhisperConfig, token: torch.Tensor, pos: torch.Tensor, cache: KVCache,
     compute: Compute, batch_groups: int = 1,
 ) -> torch.Tensor:
-    """One step for ``token [B]`` at cache position ``pos`` (a host int:
-    the loop knows it without a device sync). Returns logits ``[B, Vp]``
+    """One step for ``token [B]`` at cache position ``pos``, a 0-d int32
+    tensor on the token's device (``0 <= pos < ctx``, which the caller
+    checks: nothing here reads it on the host). Returns logits ``[B, Vp]``
     f32; the cache gains row ``pos`` in place. ``batch_groups=G > 1``
     (beam search) shares each cross-cache entry among G consecutive
     streams: the self cache holds B streams, the cross cache B / G."""
@@ -405,7 +413,7 @@ def decode_step(
         ks, vs = torch.stack(new_k), torch.stack(new_v)
         if quantized_self:
             (ks, ksc), (vs, vsc) = _quantize_self(ks, k_packed), _quantize_self(vs, v_packed)
-            cache.self_kv_scale[:, :, pos] = torch.cat([ksc, vsc], dim=-1)[:, :, 0]
+            cache.self_kv_scale.index_copy_(2, pos.reshape(1).long(), torch.cat([ksc, vsc], dim=-1))
         write_cache_slot(cache.self_k, ks.to(cache.self_k.dtype), pos)
         write_cache_slot(cache.self_v, vs.to(cache.self_v.dtype), pos)
     with record_function("decode_step.logits"):

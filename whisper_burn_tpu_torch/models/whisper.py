@@ -8,10 +8,22 @@ Port of ``whisper_burn_tpu/models/whisper.py``.
   the loop ends when every stream is done or at ``max_tokens``
 * language auto-detect: argmax of a ``[SOT]`` pass over the language rows
 
-The loop makes no host sync per token: argmax and the done flags stay on
-the device, positions are host integers, and whether every stream is done
-is read at most once every ``DONE_CHECK_EVERY`` steps. Finished streams
-emit EOT either way, so the tokens are the same as stopping at once.
+The decode loop is the JAX package's ``lax.while_loop``: its body,
+:func:`greedy_step`, is one function of the device state
+:class:`GreedyState` (the JAX ``State``: ``k``, ``cur``, ``tokens``,
+``done`` and the cache). The position ``PROMPT_LEN + k - 1`` is computed on
+the device and read there by the kernels, EOT is suppressed while ``k <
+MIN_TOKENS`` by a device ``where``, the token lands at column ``k`` by an
+in-place index copy and ``k`` advances on the device, so the step reads
+nothing on the host and is the same launches at every position. A
+:class:`GreedyRunner` owns that state and the KV cache for one shape: on
+the card it runs the request's first step eagerly (the kernels' build,
+load and one-time launch settings happen there), captures the step once
+as a CUDA graph and replays it once per token, for this request and every
+later one of the same shape. On the CPU the same body runs eagerly, step
+by step. Whether every stream is done is read on the host once every
+``DONE_CHECK_EVERY`` steps; finished streams emit EOT either way, so the
+tokens are the same as stopping at once.
 
 Each stage runs inside a ``torch.profiler.record_function`` range named
 ``greedy_decode.<stage>`` (encode, cross_fill, prefill, decode), so a
@@ -22,6 +34,9 @@ stages that beam search (``models/beam.py``) shares.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
+import time
 from typing import NamedTuple
 
 import torch
@@ -36,16 +51,47 @@ from whisper_burn_tpu_torch.models.decoder import (
     prefill,
 )
 from whisper_burn_tpu_torch.models.encoder import encode
+from whisper_burn_tpu_torch.ops import _build
 from whisper_burn_tpu_torch.ops.compute import Compute, set_fp32_precision
 
 PROMPT_LEN = 4
 DONE_CHECK_EVERY = 16
+RUNNERS_KEPT = 8  # runners cached at once, the least recently used dropped first
 
 
 class GreedyResult(NamedTuple):
     tokens: torch.Tensor  # int32 [B, max_tokens]; EOT-filled after stop
     n_generated: torch.Tensor  # int32 [B]; non-EOT token count per stream
     lang_tokens: torch.Tensor  # int32 [B]; the language token used
+
+
+@dataclasses.dataclass
+class GreedyState:
+    """The decode loop's device state (the JAX package's ``State``),
+    updated in place by :func:`greedy_step`."""
+
+    k: torch.Tensor  # int32 0-d: samples taken so far
+    cur: torch.Tensor  # int64 [B]: the last sampled token
+    tokens: torch.Tensor  # int32 [B, max_tokens]: EOT past the samples taken
+    done: torch.Tensor  # bool [B]: the stream has emitted EOT
+    cache: KVCache
+
+
+def self_cache_len(cfg: WhisperConfig, max_tokens: int) -> int:
+    """The self cache's ``ctx``: prompt + max_tokens, 64-aligned (256 for
+    224 tokens), at most ``n_text_ctx``."""
+    return min(cfg.n_text_ctx, max(64, -(-(PROMPT_LEN + max_tokens) // 64) * 64))
+
+
+def new_state(cache: KVCache, max_tokens: int) -> GreedyState:
+    b, dev = cache.self_v.shape[1], cache.self_v.device
+    return GreedyState(
+        k=torch.ones((), dtype=torch.int32, device=dev),
+        cur=torch.zeros(b, dtype=torch.long, device=dev),
+        tokens=torch.full((b, max_tokens), EOT, dtype=torch.int32, device=dev),
+        done=torch.zeros(b, dtype=torch.bool, device=dev),
+        cache=cache,
+    )
 
 
 def detect_language(params: dict, cfg: WhisperConfig, cache: KVCache, compute: Compute) -> torch.Tensor:
@@ -66,20 +112,23 @@ def detect_language(params: dict, cfg: WhisperConfig, cache: KVCache, compute: C
 
 
 def encode_and_fill(
-    params: dict, cfg: WhisperConfig, mel: torch.Tensor, compute: Compute, max_tokens: int, stage: str
+    params: dict, cfg: WhisperConfig, mel: torch.Tensor, compute: Compute, max_tokens: int, stage: str,
+    cache: KVCache | None = None,
 ) -> KVCache:
-    """Encode mel ``[B, n_mels, 3000]`` and fill a fresh cache's cross K/V,
-    in the ranges ``<stage>.encode`` and ``<stage>.cross_fill``. The self
-    cache is allocated once at the full ``ctx`` (prompt + max_tokens,
-    64-aligned: 256 for 224 tokens); the JAX package grows it in two
-    phases, but the decode kernels read only keys below ``pos``, so the
-    tokens are the same."""
+    """Encode mel ``[B, n_mels, 3000]`` and fill the cross K/V of ``cache``
+    (a fresh one when None), in the ranges ``<stage>.encode`` and
+    ``<stage>.cross_fill``. The fill rewrites every cross entry, pad
+    columns and scales included, so a reused cache ends as a fresh one
+    would. The self cache is allocated once at the full ``ctx``
+    (:func:`self_cache_len`); the JAX package grows it in two phases, but
+    the decode kernels read only keys below ``pos``, so the tokens are the
+    same."""
     set_fp32_precision(compute)
     with record_function(f"{stage}.encode"):
         enc_out = encode(params, mel, cfg, compute)
-    ctx = min(cfg.n_text_ctx, max(64, -(-(PROMPT_LEN + max_tokens) // 64) * 64))
     with record_function(f"{stage}.cross_fill"):
-        cache = init_cache(cfg, mel.shape[0], compute, ctx, mel.device)
+        if cache is None:
+            cache = init_cache(cfg, mel.shape[0], compute, self_cache_len(cfg, max_tokens), mel.device)
         fill_cross_cache(params, cfg, enc_out, cache, compute)
     return cache
 
@@ -107,6 +156,152 @@ def prompt_logits(
     return logits, lang_tokens
 
 
+def start_request(
+    params: dict, cfg: WhisperConfig, mel: torch.Tensor, lang_tokens: torch.Tensor, compute: Compute,
+    state: GreedyState, *, detect: bool, task: str,
+) -> torch.Tensor:
+    """Encode ``mel``, fill ``state.cache``, prefill the prompt and take
+    sample #0: ``state`` is then at ``k = 1``, ready for the loop. Returns
+    the language tokens used."""
+    max_tokens = state.tokens.shape[1]
+    encode_and_fill(params, cfg, mel, compute, max_tokens, "greedy_decode", cache=state.cache)
+    with record_function("greedy_decode.prefill"):
+        logits, lang_tokens = prompt_logits(params, cfg, state.cache, lang_tokens, compute, detect=detect, task=task)
+        first = logits.argmax(dim=-1)
+        state.k.fill_(1)
+        state.cur.copy_(first)
+        state.tokens.fill_(EOT)
+        state.tokens[:, 0] = first
+        state.done.zero_()
+    return lang_tokens
+
+
+def greedy_step(params: dict, cfg: WhisperConfig, state: GreedyState, compute: Compute) -> torch.Tensor:
+    """The loop body (the JAX package's ``body``): feed ``state.cur`` at
+    cache position ``PROMPT_LEN + k - 1``, take sample #k into column ``k``
+    of ``state.tokens`` and advance ``k``, all on the device and in place.
+    Returns the step's logits ``[B, Vp]`` f32 (EOT suppressed while ``k <
+    MIN_TOKENS``)."""
+    pos = state.k + (PROMPT_LEN - 1)  # the cache slot of the token fed
+    logits = decode_step(params, cfg, state.cur, pos, state.cache, compute)
+    # EOT suppressed while fewer than MIN_TOKENS samples exist
+    logits[:, EOT] = torch.where(state.k < MIN_TOKENS, float("-inf"), logits[:, EOT])
+    nxt = torch.where(state.done, EOT, logits.argmax(dim=-1))
+    state.tokens.index_copy_(1, state.k.reshape(1).long(), nxt[:, None].to(torch.int32))
+    state.done |= nxt == EOT
+    state.cur.copy_(nxt)
+    state.k += 1
+    return logits
+
+
+def capture_graph(fn, stream: torch.cuda.Stream):
+    """Capture ``fn()`` on ``stream`` as a CUDA graph: its work is recorded,
+    not run. Returns the graph, ``fn``'s output (tensors of the graph's
+    pool that each replay rewrites) and the hand-written kernels' launches
+    it recorded (``_build.LaunchTally``, counted at each replay). Raises if
+    ``fn`` does what a capture cannot hold, such as reading a device value
+    on the host."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), _build.recording_launches() as recorded:
+        graph.capture_begin()
+        try:
+            out = fn()
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass  # the failed step invalidated the capture: its error is the one to raise
+            raise
+        graph.capture_end()
+    return graph, out, _build.LaunchTally(recorded)
+
+
+class GreedyRunner:
+    """The greedy loop of one shape: ``params``, ``cfg``, ``compute``,
+    ``batch`` streams, a self cache of ``ctx`` and ``max_tokens`` samples.
+
+    Owns the loop state and the KV cache, which each request fills in
+    place (:func:`start_request`); :meth:`step` then takes one sample. On
+    a CUDA device the first step runs eagerly on the runner's stream, the
+    step is captured as a CUDA graph after it, and every later step, of
+    this request and of every later one, replays the graph (a capture or
+    a replay that fails raises). ``capture_s`` is the capture's wall.
+    Elsewhere each step runs eagerly. The runner holds ``params``: the
+    graph reads their memory."""
+
+    def __init__(self, params: dict, cfg: WhisperConfig, compute: Compute, batch: int, ctx: int,
+                 max_tokens: int, device: torch.device):
+        self.params, self.cfg, self.compute = params, cfg, compute
+        self.batch, self.ctx, self.max_tokens = batch, ctx, max_tokens
+        self.state = new_state(init_cache(cfg, batch, compute, ctx, device), max_tokens)
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.graph = self.tally = self.graph_logits = None
+        self.logits = None  # the last step's logits
+        self.capture_s = None
+
+    def _body(self) -> torch.Tensor:
+        return greedy_step(self.params, self.cfg, self.state, self.compute)
+
+    def step(self) -> torch.Tensor:
+        """Take one sample; returns the step's logits (on the card the
+        graph's output tensor, rewritten by the next replay)."""
+        if self.stream is None:
+            self.logits = self._body()
+        elif self.graph is None:
+            main = torch.cuda.current_stream(self.stream.device)
+            self.stream.wait_stream(main)
+            with torch.cuda.stream(self.stream):
+                self.logits = self._body()
+            self.logits.record_stream(main)
+            t0 = time.perf_counter()
+            self.graph, self.graph_logits, self.tally = capture_graph(self._body, self.stream)
+            self.capture_s = time.perf_counter() - t0
+            main.wait_stream(self.stream)
+        else:
+            self.graph.replay()
+            _build.add_launches(self.tally)
+            self.logits = self.graph_logits
+        return self.logits
+
+
+_RUNNERS: collections.OrderedDict = collections.OrderedDict()
+
+
+def greedy_runner(params: dict, cfg: WhisperConfig, compute: Compute, batch: int, max_tokens: int,
+                  device: torch.device) -> GreedyRunner:
+    """The cached runner of this shape, made on first use. Runners are
+    keyed by what fixes the graph's addresses and shapes: the params (the
+    runner holds them, so their ``id`` is not reused while it lives),
+    ``cfg``, ``compute``, the batch, ``max_tokens`` (and so ``ctx``) and
+    the device; at most ``RUNNERS_KEPT`` are kept."""
+    device = torch.device(device)
+    key = (id(params), cfg, compute, batch, max_tokens, device)
+    runner = _RUNNERS.pop(key, None)
+    if runner is None:
+        runner = GreedyRunner(params, cfg, compute, batch, self_cache_len(cfg, max_tokens), max_tokens, device)
+    _RUNNERS[key] = runner
+    while len(_RUNNERS) > RUNNERS_KEPT:
+        _RUNNERS.popitem(last=False)
+    return runner
+
+
+def cached_runners() -> list[GreedyRunner]:
+    return list(_RUNNERS.values())
+
+
+def clear_runners() -> None:
+    """Drop every cached runner, its caches and graph."""
+    _RUNNERS.clear()
+
+
+def check_positions(ctx: int, max_tokens: int) -> None:
+    """The loop's last step writes at ``PROMPT_LEN + max_tokens - 2``,
+    which must lie in the self cache: checked once per request, on the
+    host, since the step never reads its position there."""
+    if PROMPT_LEN + max_tokens - 2 >= ctx:
+        raise ValueError(f"{max_tokens} tokens after a {PROMPT_LEN}-token prompt overrun a self cache of {ctx}")
+
+
 def greedy_decode(
     params: dict,
     cfg: WhisperConfig,
@@ -118,30 +313,21 @@ def greedy_decode(
     max_tokens: int = MAX_TOKENS,
     task: str = "transcribe",
 ) -> GreedyResult:
-    """Transcribe mel ``[B, n_mels, 3000]`` to token ids, on mel's device.
+    """Transcribe mel ``[B, n_mels, 3000]`` to token ids, on mel's device,
+    through the cached :class:`GreedyRunner` of its shape.
 
     ``lang_tokens: int [B]``; with ``detect=True`` entries ``< 0`` are
     auto-detected.
     """
-    b = mel.shape[0]
-    cache = encode_and_fill(params, cfg, mel, compute, max_tokens, "greedy_decode")
-    with record_function("greedy_decode.prefill"):
-        logits, lang_tokens = prompt_logits(params, cfg, cache, lang_tokens, compute, detect=detect, task=task)
-        cur = logits.argmax(dim=-1)
-        tokens = torch.full((b, max_tokens), EOT, dtype=torch.int32, device=mel.device)
-        tokens[:, 0] = cur.to(torch.int32)
-        done = torch.zeros(b, dtype=torch.bool, device=mel.device)
-
+    check_positions(self_cache_len(cfg, max_tokens), max_tokens)
+    runner = greedy_runner(params, cfg, compute, mel.shape[0], max_tokens, mel.device)
+    state = runner.state
+    lang_tokens = start_request(params, cfg, mel, lang_tokens, compute, state, detect=detect, task=task)
     with record_function("greedy_decode.decode"):
         for k in range(1, max_tokens):
-            if k % DONE_CHECK_EVERY == 0 and bool(done.all()):
+            if k % DONE_CHECK_EVERY == 0 and bool(state.done.all()):
                 break
-            logits = decode_step(params, cfg, cur, PROMPT_LEN + k - 1, cache, compute)
-            if k < MIN_TOKENS:
-                logits[:, EOT] = float("-inf")
-            nxt = torch.where(done, EOT, logits.argmax(dim=-1))
-            tokens[:, k] = nxt.to(torch.int32)
-            done |= nxt == EOT
-            cur = nxt
+            runner.step()
+        tokens = state.tokens.clone()  # the runner's buffer serves the next request
         n_gen = (tokens != EOT).sum(dim=-1).to(torch.int32)
     return GreedyResult(tokens, n_gen, lang_tokens)

@@ -11,12 +11,16 @@ Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
 and nowhere else, so a run can show that it went through the kernels.
 While ``LAUNCH_LOG`` is a list, each launch also appends its
 ``(kernel, shape)`` there in launch order, so the kernels of a profiler
-trace can be matched to their shapes one by one.
+trace can be matched to their shapes one by one. A CUDA graph's capture
+launches nothing: inside :func:`recording_launches` the wrappers' calls
+are recorded instead of counted, and each replay of the graph adds the
+recording with :func:`add_launches`, so the counts stay exact.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -39,6 +43,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 # the same launches keyed by (kernel, shape), so a run can attribute them
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
 LAUNCH_LOG: list | None = None
+_RECORDING: list | None = None  # a capture's launches, in order
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -48,10 +53,46 @@ def reset_launches() -> None:
 
 
 def count_launch(name: str, shape: tuple) -> None:
+    if _RECORDING is not None:
+        _RECORDING.append((name, shape))
+        return
     LAUNCHES[name] += 1
     LAUNCH_SHAPES[(name, shape)] += 1
     if LAUNCH_LOG is not None:
         LAUNCH_LOG.append((name, shape))
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """While a CUDA graph captures: yields the list that the wrappers'
+    launches are recorded into, ``(name, shape)`` in order, in place of
+    counting them (a capture runs nothing)."""
+    global _RECORDING
+    if _RECORDING is not None:
+        raise RuntimeError("launches are already being recorded")
+    _RECORDING = []
+    try:
+        yield _RECORDING
+    finally:
+        _RECORDING = None
+
+
+class LaunchTally:
+    """A recording of :func:`recording_launches`, summed once so that a
+    replay adds it in a few dictionary updates."""
+
+    def __init__(self, recorded: list):
+        self.log = list(recorded)
+        self.names = collections.Counter(name for name, _ in recorded)
+        self.shapes = collections.Counter(recorded)
+
+
+def add_launches(tally: LaunchTally) -> None:
+    """Count one replay of a captured graph: every launch it recorded."""
+    LAUNCHES.update(tally.names)
+    LAUNCH_SHAPES.update(tally.shapes)
+    if LAUNCH_LOG is not None:
+        LAUNCH_LOG.extend(tally.log)
 
 
 def _nvcc() -> str:
@@ -116,6 +157,15 @@ def check(err: int, fn: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_position(fn: str, pos, device: torch.device) -> None:
+    """A kernel's position is one int32 on its inputs' device, which the
+    kernel reads from device memory (so a captured graph replays it at
+    each value); it is never read on the host here."""
+    if not (isinstance(pos, torch.Tensor) and pos.dtype == torch.int32 and pos.dim() == 0 and pos.device == device):
+        got = f"{pos.dtype} {tuple(pos.shape)} on {pos.device}" if isinstance(pos, torch.Tensor) else type(pos).__name__
+        raise TypeError(f"{fn}: the position must be a 0-d int32 tensor on {device}, got {got}")
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:

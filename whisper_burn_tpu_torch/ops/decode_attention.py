@@ -38,6 +38,15 @@ loop that reads 16 bytes a lane, and C and C' copy 16-byte chunks, so the
 caches must be 16-byte aligned. CPU tensors take the plain versions; CUDA
 tensors launch the kernel or raise.
 
+The self-attention kernels take the position (``pos``, or ``valid``) as a
+0-d int32 tensor on the inputs' device, which the kernel reads from device
+memory, as the Pallas kernels take it by scalar prefetch: the decode loop
+keeps it on the card and replays a captured CUDA graph of its step, whose
+launch arguments are fixed. Nothing here reads it on the host, so nothing
+range-checks it there: the loop checks its last position against the
+cache once per request, and the kernels clamp it into the cache. The plain
+versions mask the keys at and past it over the whole cache.
+
 The int4 self cache (``models/decoder._quantize_tokens4``) packs channel
 ``j`` and ``j + D/2`` of a token into one byte, low nibble first, biased by
 8. Its per-token scales ``[L, B, ctx, sw]`` f32 hold K lanes first, then V
@@ -72,15 +81,15 @@ _FNS: dict[str, object] = {}
 def _fn(fn: str):
     if fn not in _FNS:
         p, i = ctypes.c_void_p, ctypes.c_int
-        args = {
-            SELF: [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p],
-            MERGED: [p, i, p, p, p, p, p, i, i, i, i, i, i, p],
-            LAYER: [p, i, p, p, p, p, p, p, i, i, i, i, i, i, p],
-            LAYER_U: [p, i, p, p, p, p, p, i, i, i, i, i, i, p],
+        args = {  # the position after the layer is a device pointer
+            SELF: [p, i, p, p, p, p, p, p, p, p, p, i, p, i, i, i, i, p],
+            MERGED: [p, i, p, p, p, p, p, i, p, i, i, i, i, p],
+            LAYER: [p, i, p, p, p, p, p, p, i, p, i, i, i, i, p],
+            LAYER_U: [p, i, p, p, p, p, p, i, p, i, i, i, i, p],
             CROSS: [p, i, p, p, p, i, i, i, i, i, i, i, p],
             CROSS_U: [p, i, i, p, p, p, i, i, i, i, i, i, i, p],
-            MERGED4: [p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p],
-            LAYER4: [p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p],
+            MERGED4: [p, i, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, i, i, p],
+            LAYER4: [p, i, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, i, i, p],
         }[fn]
         _FNS[fn] = _build.declare(_build.library(NAME), fn, args)
     return _FNS[fn]
@@ -92,32 +101,36 @@ def _check_heads(d: int, n_heads: int) -> None:
 
 
 def decode_attention_layer_plain(q, k_cache, v_cache, kv_scale, layer, valid, n_heads):
+    """Over the whole cache, the keys at and past ``valid`` (a 0-d tensor)
+    masked: their ``p`` is 0 and the max is taken without them."""
     b, _, d = q.shape
+    ctx = k_cache.shape[2]
     dh = d // n_heads
+    keep = torch.arange(ctx, device=q.device) < valid  # [ctx]
     qf = q.float().reshape(b, n_heads, dh)
-    kf = k_cache[layer, :, :valid].float().reshape(b, valid, n_heads, dh)
-    vf = v_cache[layer, :, :valid].float().reshape(b, valid, n_heads, dh)
+    kf = k_cache[layer].float().reshape(b, ctx, n_heads, dh)
+    vf = v_cache[layer].float().reshape(b, ctx, n_heads, dh)
     s = torch.einsum("bhd,bthd->bht", qf, kf) * (1.0 / math.sqrt(dh))
     if kv_scale is not None:
-        s = s * kv_scale[layer, :, :valid, 0][:, None, :]
-    m = torch.full((b, n_heads), NEG_BIG, device=q.device)
-    if valid:
-        m = torch.maximum(m, s.amax(dim=-1))
-    p = torch.exp(s - m[..., None])
-    pv = p if kv_scale is None else p * kv_scale[layer, :, :valid, 1][:, None, :]
+        s = s * kv_scale[layer, :, :, 0][:, None, :]
+    s = torch.where(keep, s, NEG_BIG)
+    m = torch.maximum(torch.full((b, n_heads), NEG_BIG, device=q.device), s.amax(dim=-1))
+    p = torch.where(keep, torch.exp(s - m[..., None]), 0.0)
+    pv = p if kv_scale is None else p * kv_scale[layer, :, :, 1][:, None, :]
     acc = torch.einsum("bht,bthd->bhd", pv, vf)
     return acc.reshape(b, 1, d), m[:, None], p.sum(dim=-1)[:, None]
 
 
-def _check_self_cache(fn: str, q, k_cache, v_cache, kv_scale, layer: int, valid: int, top: int) -> None:
+def _check_self_cache(fn: str, q, k_cache, v_cache, kv_scale, layer: int, pos) -> None:
     b, _, d = q.shape
     l_dim, kb, ctx, kd = k_cache.shape
     if (kb, kd) != (b, d) or v_cache.shape != k_cache.shape or v_cache.dtype != k_cache.dtype:
         raise ValueError(f"{fn}: cache shapes do not match the query")
     if kv_scale is not None and kv_scale.shape != (l_dim, b, ctx, 2):
         raise ValueError(f"{fn}: kv_scale must be [L, B, ctx, 2]")
-    if not (0 <= valid <= ctx - top and 0 <= layer < l_dim):
-        raise ValueError(f"{fn}: position {valid} / layer {layer} out of range")
+    if not 0 <= layer < l_dim:
+        raise ValueError(f"{fn}: layer {layer} out of range")
+    _build.check_position(fn, pos, q.device)
 
 
 def _check_aligned(fn: str, *caches) -> None:
@@ -138,7 +151,7 @@ def decode_attention_layer(
     v_cache: torch.Tensor,
     kv_scale: torch.Tensor | None,  # f32 [L, B, ctx, 2] for an int8 cache: K in lane 0, V in lane 1
     layer: int,
-    valid: int,
+    valid: torch.Tensor,  # 0-d int32 on q's device
     n_heads: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention of one query per stream over the cached keys ``t < valid``
@@ -150,7 +163,7 @@ def decode_attention_layer(
     (f32 or bf16, of the query's dtype) none, ``sk = sv = 1`` (kernel E')."""
     b, _, d = q.shape
     ctx = k_cache.shape[2]
-    _check_self_cache("decode_attention_layer", q, k_cache, v_cache, kv_scale, layer, valid, 0)
+    _check_self_cache("decode_attention_layer", q, k_cache, v_cache, kv_scale, layer, valid)
     if q.device.type == "cpu":
         return decode_attention_layer_plain(q, k_cache, v_cache, kv_scale, layer, valid, n_heads)
     _check_heads(d, n_heads)
@@ -171,7 +184,7 @@ def decode_attention_layer(
     args = (q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(), v_cache.data_ptr())
     args += (kv_scale.data_ptr(),) if scaled else ()
     err = _fn(fn)(
-        *args, acc.data_ptr(), m.data_ptr(), l.data_ptr(), layer, valid, b, ctx, d, n_heads,
+        *args, acc.data_ptr(), m.data_ptr(), l.data_ptr(), layer, valid.data_ptr(), b, ctx, d, n_heads,
         _build.stream_ptr(q.device),
     )
     _build.check(err, fn)
@@ -207,9 +220,10 @@ def decode_self_attention_plain(
 ):
     state = decode_attention_layer_plain(q, k_cache, v_cache, kv_scale, layer, pos, n_heads)
     out = flash_merge_extra_key(*state, q, k_new, v_new, n_heads)
-    k_cache[layer, :, pos] = kq[:, 0]
-    v_cache[layer, :, pos] = vq[:, 0]
-    kv_scale[layer, :, pos] = new_scale[:, 0]
+    slot = pos.reshape(1).long()
+    k_cache[layer].index_copy_(1, slot, kq)
+    v_cache[layer].index_copy_(1, slot, vq)
+    kv_scale[layer].index_copy_(1, slot, new_scale)
     return out
 
 
@@ -219,7 +233,7 @@ def decode_self_attention(
     v_cache: torch.Tensor,
     kv_scale: torch.Tensor,  # f32 [L, B, ctx, 2], updated in place
     layer: int,
-    pos: int,
+    pos: torch.Tensor,  # 0-d int32 on q's device
     n_heads: int,
     k_new: torch.Tensor,  # [B, 1, D] the current token's raw K
     v_new: torch.Tensor,
@@ -233,7 +247,7 @@ def decode_self_attention(
     ``pos`` of ``layer`` in place."""
     b, _, d = q.shape
     ctx = k_cache.shape[2]
-    _check_self_cache("decode_self_attention", q, k_cache, v_cache, kv_scale, layer, pos, 1)
+    _check_self_cache("decode_self_attention", q, k_cache, v_cache, kv_scale, layer, pos)
     for t in (k_new, v_new, kq, vq):
         if t.shape != (b, 1, d):
             raise ValueError("decode_self_attention: current-token rows must be [B, 1, D]")
@@ -258,7 +272,7 @@ def decode_self_attention(
     err = _fn(SELF)(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(), v_cache.data_ptr(),
         kv_scale.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kq.data_ptr(), vq.data_ptr(),
-        new_scale.data_ptr(), out.data_ptr(), layer, pos, b, ctx, d, n_heads,
+        new_scale.data_ptr(), out.data_ptr(), layer, pos.data_ptr(), b, ctx, d, n_heads,
         _build.stream_ptr(q.device),
     )
     _build.check(err, SELF)
@@ -276,7 +290,7 @@ def decode_attention_merged(
     k_cache: torch.Tensor,  # [L, B, ctx, D] of q's dtype
     v_cache: torch.Tensor,
     layer: int,
-    pos: int,
+    pos: torch.Tensor,  # 0-d int32 on q's device
     n_heads: int,
     k_new: torch.Tensor,  # [B, 1, D] the current token's K, not yet cached
     v_new: torch.Tensor,
@@ -287,7 +301,7 @@ def decode_attention_merged(
     caller writes the token's row after its layer loop."""
     b, _, d = q.shape
     ctx = k_cache.shape[2]
-    _check_self_cache("decode_attention_merged", q, k_cache, v_cache, None, layer, pos, 1)
+    _check_self_cache("decode_attention_merged", q, k_cache, v_cache, None, layer, pos)
     if k_new.shape != (b, 1, d) or v_new.shape != (b, 1, d):
         raise ValueError("decode_attention_merged: current-token rows must be [B, 1, D]")
     if q.device.type == "cpu":
@@ -302,7 +316,7 @@ def decode_attention_merged(
     out = torch.empty((b, 1, d), dtype=torch.float32, device=q.device)
     err = _fn(MERGED)(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(), v_cache.data_ptr(),
-        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), layer, pos, b, ctx, d, n_heads,
+        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), layer, pos.data_ptr(), b, ctx, d, n_heads,
         _build.stream_ptr(q.device),
     )
     _build.check(err, MERGED)
@@ -382,8 +396,8 @@ def dequantize_self_rows(k, v, scales, lanes) -> tuple[torch.Tensor, torch.Tenso
 
 def decode_attention_layer_int4_plain(q, k_cache, v_cache, kv_scale, layer, valid, n_heads):
     lanes = int4_lanes(LAYER4, q, k_cache, v_cache, kv_scale, n_heads)
-    sc = None if kv_scale is None else kv_scale[layer, :, :valid]
-    kf, vf = dequantize_self_rows(k_cache[layer, :, :valid], v_cache[layer, :, :valid], sc, lanes)
+    sc = None if kv_scale is None else kv_scale[layer]
+    kf, vf = dequantize_self_rows(k_cache[layer], v_cache[layer], sc, lanes)
     return decode_attention_layer_plain(q, kf[None], vf[None], None, 0, valid, n_heads)
 
 
@@ -392,15 +406,16 @@ def decode_attention_merged_int4_plain(q, k_cache, v_cache, kv_scale, layer, pos
     return flash_merge_extra_key(*state, q, k_new, v_new, n_heads)
 
 
-def _int4_call(fn, q, k_cache, v_cache, kv_scale, layer, valid, n_heads, top, extra):
+def _int4_call(fn, q, k_cache, v_cache, kv_scale, layer, valid, n_heads, extra):
     """Check the inputs of kernel G (``fn = MERGED4``, ``extra = (k_new,
     v_new)``) or H (``LAYER4``, ``extra = ()``) and launch it; returns its
     outputs, or None for CPU tensors (the caller takes the plain version)."""
     b, _, d = q.shape
     l_dim, _, ctx, _ = k_cache.shape
     lanes = int4_lanes(fn, q, k_cache, v_cache, kv_scale, n_heads)
-    if not (0 <= valid <= ctx - top and 0 <= layer < l_dim):
-        raise ValueError(f"{fn}: position {valid} / layer {layer} out of range")
+    if not 0 <= layer < l_dim:
+        raise ValueError(f"{fn}: layer {layer} out of range")
+    _build.check_position(fn, valid, q.device)
     if any(t.shape != (b, 1, d) for t in extra):
         raise ValueError(f"{fn}: current-token rows must be [B, 1, D]")
     if q.device.type == "cpu":
@@ -420,7 +435,7 @@ def _int4_call(fn, q, k_cache, v_cache, kv_scale, layer, valid, n_heads, top, ex
     err = _fn(fn)(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(), v_cache.data_ptr(),
         kv_scale.data_ptr() if scales else None, *(t.data_ptr() for t in extra + outs),
-        layer, valid, b, ctx, d, n_heads, *lanes, _build.stream_ptr(q.device),
+        layer, valid.data_ptr(), b, ctx, d, n_heads, *lanes, _build.stream_ptr(q.device),
     )
     _build.check(err, fn)
     _build.count_launch(fn, (b, ctx, d, lanes[1]))
@@ -433,13 +448,13 @@ def decode_attention_layer_int4(
     v_cache: torch.Tensor,  # uint8 [L, B, ctx, D/2]
     kv_scale: torch.Tensor | None,  # f32 [L, B, ctx, sw], K lanes then V lanes (int4_lanes)
     layer: int,
-    valid: int,
+    valid: torch.Tensor,  # 0-d int32 on q's device
     n_heads: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`decode_attention_layer` over a uint8-valued self cache (kernel
     H): the unnormalized ``(acc, m, l)`` over keys ``t < valid``, with the
     values' scales in ``acc`` and left out of ``l``."""
-    outs = _int4_call(LAYER4, q, k_cache, v_cache, kv_scale, layer, valid, n_heads, 0, ())
+    outs = _int4_call(LAYER4, q, k_cache, v_cache, kv_scale, layer, valid, n_heads, ())
     if outs is None:
         return decode_attention_layer_int4_plain(q, k_cache, v_cache, kv_scale, layer, valid, n_heads)
     return outs
@@ -451,7 +466,7 @@ def decode_attention_merged_int4(
     v_cache: torch.Tensor,  # uint8 [L, B, ctx, D/2]
     kv_scale: torch.Tensor | None,  # f32 [L, B, ctx, sw]
     layer: int,
-    pos: int,
+    pos: torch.Tensor,  # 0-d int32 on q's device
     n_heads: int,
     k_new: torch.Tensor,  # [B, 1, D] the current token's raw K, not yet cached
     v_new: torch.Tensor,
@@ -460,7 +475,7 @@ def decode_attention_merged_int4(
     (kernel G): keys ``t < pos`` and the current token's raw K/V in one
     softmax, the normalized f32 ``[B, 1, D]``. Stores nothing: the caller
     quantizes and writes the token's row after its layer loop."""
-    outs = _int4_call(MERGED4, q, k_cache, v_cache, kv_scale, layer, pos, n_heads, 1, (k_new, v_new))
+    outs = _int4_call(MERGED4, q, k_cache, v_cache, kv_scale, layer, pos, n_heads, (k_new, v_new))
     if outs is None:
         return decode_attention_merged_int4_plain(q, k_cache, v_cache, kv_scale, layer, pos, n_heads, k_new, v_new)
     return outs[0]
