@@ -52,6 +52,10 @@ Phases, each timed and each fatal on failure:
    rows, and 128 x 128 mma.sync tiles for bf16 x of many rows; each row
    names its regime. Kernel A at M = 8, 32 and
    40 rows, and at the entry's 1, 4, 1500 cross-fill and 1536 encoder rows;
+   kernel I, the fused FFN, at the decode's 8 and 40 rows (K4's bias
+   order), the prefill's 32 (K7's), and the entry's 1, 4 and 1536, each in
+   bf16 and f32, both GELU forms and both bias orders, beside kernel A's
+   two launches on the same inputs and the library pair;
    B and B' at 4, 115 and 227 cached keys, B' also at the entry's one
    stream and 4, 11 and 18; C and C' (int8 and bf16) ungrouped and with 5
    streams per cross-cache entry, C' bf16 also at the entry's one entry;
@@ -60,7 +64,7 @@ Phases, each timed and each fatal on failure:
    keys; G (8 streams) and H (40) over the int4 and the mixed self caches
    at 4, 115 and 227; F in int8, bf16 and uint8 exactly, at 8, 40 and the
    entry's one stream; and the pipeline's own shapes at B = 4 and 8: A at
-   M = B and 4B, D, C, G and F), with the tolerance stated; device time per call,
+   M = B and 4B, I at B, 4B and the detection pass's B, D, C, G and F), with the tolerance stated; device time per call,
    from torch.profiler traces, of the kernel, the plain version and one
    PyTorch library call computing the same function (a yardstick only: the
    port never calls it), and the least time the card could take (bytes
@@ -125,9 +129,10 @@ KERNEL_OF = {"q4_matmul": "q4_matmul", "decode_self_attention": "self_attn",
              "decode_attention_layer_unscaled": "layer_unscaled", "decode_cross_attention": "cross_attn",
              "decode_cross_attention_unpacked": "cross_unpacked", "encoder_attention": "encoder_attn",
              "write_cache_slot": "slot", "decode_attention_merged_int4": "merged_int4",
-             "decode_attention_layer_int4": "layer_int4", "encoder_attention_heads": "encoder_heads"}
+             "decode_attention_layer_int4": "layer_int4", "encoder_attention_heads": "encoder_heads",
+             "fused_ffn": "ffn"}
 OURS = re.compile(r"\b(q4_matmul|self_attn|merged_attn|layer_attn|layer_unscaled|cross_attn|cross_unpacked"
-                  r"|encoder_attn|slot|merged_int4|layer_int4|encoder_heads)_kernel<")
+                  r"|encoder_attn|slot|merged_int4|layer_int4|encoder_heads|ffn)_kernel<")
 STAGES = {"encode", "cross_fill", "prefill", "decode"}
 DA = "whisper_burn_tpu_torch/csrc/decode_attention.cu"
 XTOL = "1e-5 of max|out|, plus one bf16 step of each p within 32 f32 steps of a bf16 rounding tie"
@@ -281,7 +286,7 @@ def q4_rows(cases, gen, path: str) -> list[dict]:
     regime its bf16 launches take (the f32 check runs the weight-read
     regime's f32 form)."""
     from whisper_burn_tpu_torch.ops import q4_kernel
-    from whisper_burn_tpu_torch.ops.q4_matmul import dequant_weight
+    from whisper_burn_tpu_torch.ops.q4_kernel import dequant_weight
 
     dev = torch.device("cuda")
     q4 = "whisper_burn_tpu_torch/csrc/q4_matmul.cu"
@@ -332,15 +337,13 @@ def q4_rows(cases, gen, path: str) -> list[dict]:
 
 def decode_linears(params, cfg, m: int, prefix: str = "") -> list[tuple]:
     """Kernel A's decode-step sites at ``m`` rows: the four projections (two
-    shapes), the FFN's two launches, and the int8 logits where the params
-    hold them (``Compute.fast()``'s bf16 logits are a torch.mm)."""
+    shapes) and the int8 logits where the params hold them
+    (``Compute.fast()``'s bf16 logits are a torch.mm)."""
     blocks = params["decoder"]["blocks"]
-    k1, k4, k5 = (f"whisper_burn_tpu/ops/{f}" for f in ("pallas_q4.py:121 (K1)", "pallas_ffn.py:153 (K4)", "pallas_q4.py:44 (K5)"))
+    k1, k5 = (f"whisper_burn_tpu/ops/{f}" for f in ("pallas_q4.py:121 (K1)", "pallas_q4.py:44 (K5)"))
     sites = [
         (f"{prefix}attn_qkv", m, blocks["attn_qkv"], None, torch.bfloat16, k1),
         (f"{prefix}attn_o/xattn_q/xattn_o", m, blocks["attn_o"], None, torch.bfloat16, k1),
-        (f"{prefix}ffn_fc1", m, blocks["fc1"], cfg.gelu, torch.bfloat16, k4),
-        (f"{prefix}ffn_fc2", m, blocks["fc2"], None, torch.bfloat16, k4),
     ]
     emb_q = params["decoder"].get("tok_emb_q")
     if emb_q is not None:
@@ -351,15 +354,82 @@ def decode_linears(params, cfg, m: int, prefix: str = "") -> list[tuple]:
 
 def prefill_linears(params, cfg, m: int, prefix: str = "") -> list[tuple]:
     """Kernel A's prefill sites at ``m`` rows (four prompt tokens per
-    utterance): the projections (two shapes) and the FFN's two launches."""
+    utterance): the projections (two shapes)."""
     blocks = params["decoder"]["blocks"]
-    k5, k7 = "whisper_burn_tpu/ops/pallas_q4.py:44 (K5)", "whisper_burn_tpu/ops/pallas_ffn.py:93 (K7)"
+    k5 = "whisper_burn_tpu/ops/pallas_q4.py:44 (K5)"
     return [
         (f"{prefix}prefill_qkv", m, blocks["attn_qkv"], None, torch.bfloat16, k5),
         (f"{prefix}prefill_proj", m, blocks["attn_o"], None, torch.bfloat16, k5),
-        (f"{prefix}prefill_fc1", m, blocks["fc1"], cfg.gelu, torch.bfloat16, k7),
-        (f"{prefix}prefill_fc2", m, blocks["fc2"], None, torch.bfloat16, k7),
     ]
+
+
+K4 = "whisper_burn_tpu/ops/pallas_ffn.py:153 (K4)"
+K7 = "whisper_burn_tpu/ops/pallas_ffn.py:93 (K7)"
+
+
+def ffn_rows(cases, gen, path: str) -> list[dict]:
+    """Kernel I at each (site, rows, stacked blocks, GELU, K4's bias order,
+    replaces) of ``cases`` against its plain version: every case in bf16
+    and f32, both GELU forms and both bias orders (bf16 1e-2 and f32 1e-5
+    of max|out|); then, in the case's own dtype (bf16), GELU and order, the
+    kernel's device time per launch, the plain version's, kernel A's two
+    launches on the same inputs (fc1 with the bias+GELU epilogue, then
+    fc2) and the library pair (torch.matmul on the pre-dequantized bf16
+    weights, GELU, torch.matmul), and the bound."""
+    from whisper_burn_tpu_torch.ops import ffn_kernel, q4_kernel
+    from whisper_burn_tpu_torch.ops.q4_kernel import dequant_weight
+
+    dev = torch.device("cuda")
+    rows = []
+    for site, m, blocks, kind, after, replaces in cases:
+        fc1, fc2 = blocks["fc1"], blocks["fc2"]
+        n_layers, d, f = fc1["qw"].shape
+        x = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
+        lyr = lambda p, l: [p[k][l] for k in ("qw", "scales", "b")]
+        err_case = 0.0
+        for dtype, rel in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+            for g in ("tanh", "erf"):
+                for order in (False, True):
+                    xi = x.to(dtype)
+                    out = ffn_kernel.fused_ffn(xi, fc1, fc2, g, layer=0, bias_after_round=order)
+                    ref = ffn_kernel.fused_ffn_plain(xi, *lyr(fc1, 0), *lyr(fc2, 0), g, order)
+                    err = max_err(out, ref)
+                    check(f"fused_ffn/{site} {dtype} {g} {'K4' if order else 'K7'} order", err, ref, rel)
+                    if dtype == torch.bfloat16 and g == kind and order == after:
+                        err_case = err
+        it = iter(range(1 << 30))
+        layer = lambda: next(it) % n_layers  # cycle layers: weights come from HBM, not L2
+        kern = lambda: ffn_kernel.fused_ffn(x, fc1, fc2, kind, layer=layer(), bias_after_round=after)
+        plain = lambda: ffn_kernel.fused_ffn_plain(x, *lyr(fc1, (l := layer())), *lyr(fc2, l), kind, after)
+
+        def two_launch():
+            l = layer()
+            h = q4_kernel.q4_matmul(x, fc1["qw"], fc1["scales"], layer=l, bias=fc1["b"], gelu=kind)
+            return q4_kernel.q4_matmul(h, fc2["qw"], fc2["scales"], layer=l, bias=fc2["b"])
+
+        w16 = [(dequant_weight(fc1["qw"][l], fc1["scales"][l], torch.bfloat16),
+                dequant_weight(fc2["qw"][l], fc2["scales"][l], torch.bfloat16)) for l in range(n_layers)]
+
+        def lib():
+            w1, w2 = w16[layer()]
+            return torch.matmul(ffn_kernel.gelu(torch.matmul(x, w1), kind), w2)
+
+        (ms, sig), plain_ms = device_ms(kern, 64, ours=True), device_ms(plain, 16)
+        two_ms, lib_ms = device_ms(two_launch, 64), device_ms(lib, 64)
+        del w16
+        # x and the output bf16, codes and scales of both weights, the biases
+        nbytes = 2 * m * d * 2 + 2 * (d * f + (d // 32) * f * 4) + (f + d) * 4
+        b_ms, b_by = bound(nbytes, 4.0 * m * d * f)
+        rows.append(dict(
+            name=f"fused_ffn/{site}", route="cuda", source="whisper_burn_tpu_torch/csrc/ffn.cu", replaces=replaces,
+            path=path, shape_key=["fused_ffn", [m, d, f, int(after)]], sig=sig, max_abs_err=err_case,
+            isolated_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            two_launch_ms=two_ms,
+            library_call="torch.matmul(gelu(torch.matmul(x, w1)), w2) on pre-dequantized bf16 weights (no biases)",
+            tol="bf16 1e-2 and f32 1e-5 of max|out|, tanh and erf, K4 and K7 order",
+            shape=f"M={m} D={d} F={f} {kind} {'K4' if after else 'K7'} order",
+        ))
+    return rows
 
 
 def kernel_checks(params, cfg, gen):
@@ -368,6 +438,9 @@ def kernel_checks(params, cfg, gen):
     dev = torch.device("cuda")
     L = cfg.n_text_layer
     rows = q4_rows(decode_linears(params, cfg, BATCH) + prefill_linears(params, cfg, 4 * BATCH), gen, "greedy")
+    blocks = params["decoder"]["blocks"]
+    rows += ffn_rows([("decode", BATCH, blocks, cfg.gelu, True, K4),
+                      ("prefill", 4 * BATCH, blocks, cfg.gelu, False, K7)], gen, "greedy")
 
     # kernel B at the main path's cache shape, at the mean decode position
     # when all MAX_TOKENS - 1 steps run (positions 4 .. 226)
@@ -511,6 +584,7 @@ def beam_kernel_checks(params, cfg, gen):
     dev = torch.device("cuda")
     L = cfg.n_text_layer
     rows = q4_rows(decode_linears(params, cfg, STREAMS, "beam_"), gen, "beam")
+    rows += ffn_rows([("beam_decode", STREAMS, params["decoder"]["blocks"], cfg.gelu, True, K4)], gen, "beam")
     d, h, ctx = cfg.n_text_state, cfg.n_text_head, 256
     it = iter(range(1 << 30))
     layer = lambda: next(it) % L  # cycle layers: caches come from HBM, not L2
@@ -640,14 +714,14 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
     L, d, h = cfg.n_text_layer, cfg.n_text_state, cfg.n_text_head
     t_enc = -(-cfg.n_audio_ctx // 128) * 128  # the encoder's padded rows, 1536
     enc, dec = fast_params["encoder"]["blocks"], fast_params["decoder"]["blocks"]
-    k5, k7 = "whisper_burn_tpu/ops/pallas_q4.py:44 (K5)", "whisper_burn_tpu/ops/pallas_ffn.py:93 (K7)"
+    k5 = "whisper_burn_tpu/ops/pallas_q4.py:44 (K5)"
     rows = q4_rows([
         ("encoder_qkv", t_enc, enc["attn_qkv"], None, torch.bfloat16, k5),
         ("encoder_attn_o", t_enc, enc["attn_o"], None, torch.bfloat16, k5),
-        ("encoder_fc1", t_enc, enc["fc1"], cfg.gelu, torch.bfloat16, k7),
-        ("encoder_fc2", t_enc, enc["fc2"], None, torch.bfloat16, k7),
         ("cross_fill_kv", cfg.n_audio_ctx, dec["xattn_kv"], None, torch.bfloat16, k5),
     ] + decode_linears(fast_params, cfg, 1, "entry_") + prefill_linears(fast_params, cfg, 4, "entry_"), gen, "entry")
+    rows += ffn_rows([("entry_decode", 1, dec, cfg.gelu, True, K4), ("entry_prefill", 4, dec, cfg.gelu, False, K7),
+                      ("entry_encoder", t_enc, enc, cfg.gelu, False, K7)], gen, "entry")
     it = iter(range(1 << 30))
     layer = lambda: next(it) % L  # cycle layers: caches come from HBM, not L2
     pos = round(mean_decode_pos(MAX_TOKENS - 1))
@@ -986,6 +1060,9 @@ def pipeline_kernel_checks(params, cfg, gen) -> list[dict]:
         prefix = f"pipeline/B={b}/"
         rows += q4_rows(decode_linears(params, pcfg, b, prefix) + prefill_linears(params, pcfg, 4 * b, prefix)
                         + prefill_linears(params, pcfg, b, prefix + "detect_"), gen, "pipeline")
+        blocks = params["decoder"]["blocks"]
+        rows += ffn_rows([(f"{prefix}decode", b, blocks, "erf", True, K4), (f"{prefix}prefill", 4 * b, blocks, "erf", False, K7),
+                          (f"{prefix}detect_prefill", b, blocks, "erf", False, K7)], gen, "pipeline")
         rows += [
             encoder_attention_row(cfg, gen, b, "pipeline", f"encoder_attention/{prefix[:-1]}"),
             cross_int4_row(cfg, gen, b, 1, "pipeline", f"decode_cross_attention/{prefix[:-1]}"),
@@ -1076,25 +1153,31 @@ def self_kernel(compute, beam: bool) -> str:
 
 
 def predicted_launches(cfg, compute, batch: int, steps: int, beam: bool, detect: bool = False) -> dict:
-    """Launches per request the shapes predict. Kernel A: the six linears of
-    each layer per step and in the prefill (and in the language-detection
-    pass with ``detect``), the int8 logits too with ``quantized_logits``;
-    without W8A8 also the encoder's four linears per layer and the cross
-    fill's one while their rows (B x 1536 and B x 1500) are below LARGE_M.
-    One self- and one cross-attention launch per layer and step (C over
-    int4, C' over int8 or float caches); two slot writes (F) per step where
-    the row is not stored by kernel B; D once per encoder layer."""
+    """Launches per request the shapes predict. Kernel A: the four
+    projections of each layer per step and in the prefill (and in the
+    language-detection pass with ``detect``), the int8 logits too with
+    ``quantized_logits``; kernel I the FFN of each layer there. Without W8A8
+    also the encoder's two projections (A) and FFN (I) per layer and the
+    cross fill's one linear (A) while their rows (B x 1536 and B x 1500) are
+    below LARGE_M. One self- and one cross-attention launch per layer and
+    step (C over int4, C' over int8 or float caches); two slot writes (F)
+    per step where the row is not stored by kernel B; D once per encoder
+    layer."""
     from whisper_burn_tpu_torch.ops.cache import FN as SLOT
     from whisper_burn_tpu_torch.ops.decode_attention import CROSS, CROSS_U, SELF
+    from whisper_burn_tpu_torch.ops.ffn_kernel import NAME as FFN
     from whisper_burn_tpu_torch.ops.q4_matmul import LARGE_M
 
     L, La = cfg.n_text_layer, cfg.n_audio_layer
     t_enc = -(-cfg.n_audio_ctx // 128) * 128
-    a = (6 * L + int(compute.quantized_logits)) * (1 + steps) + 6 * L * detect
+    a = (4 * L + int(compute.quantized_logits)) * (1 + steps) + 4 * L * detect
+    ffn = L * (1 + steps) + L * detect
     if not compute.w8a8:
-        a += 4 * La * (batch * t_enc < LARGE_M) + L * (batch * cfg.n_audio_ctx < LARGE_M)
+        enc = batch * t_enc < LARGE_M
+        a += 2 * La * enc + L * (batch * cfg.n_audio_ctx < LARGE_M)
+        ffn += La * enc
     self_fn = self_kernel(compute, beam)
-    want = {"q4_matmul": a, self_fn: L * steps, CROSS if compute.kv_packed else CROSS_U: L * steps,
+    want = {"q4_matmul": a, FFN: ffn, self_fn: L * steps, CROSS if compute.kv_packed else CROSS_U: L * steps,
             "encoder_attention": La}
     if self_fn != SELF:
         want[SLOT] = 2 * steps
@@ -1561,6 +1644,7 @@ def small_end_to_end(compute) -> dict:
     from whisper_burn_tpu_torch.ops import _build
     from whisper_burn_tpu_torch.ops.cache import FN as SLOT
     from whisper_burn_tpu_torch.ops.decode_attention import CROSS, CROSS_U
+    from whisper_burn_tpu_torch.ops.ffn_kernel import NAME as FFN
     from whisper_burn_tpu_torch.transcribe import prepare_params
 
     cfg = WhisperConfig.tiny_test().replace(
@@ -1569,7 +1653,7 @@ def small_end_to_end(compute) -> dict:
     audio = (np.random.default_rng(7).standard_normal((2, 2 * 128 * 160)) * 0.1).astype(np.float32)
     g = 3  # beams
     # every kernel the mode's paths launch
-    kernels = {"q4_matmul", "encoder_attention", self_kernel(compute, False), self_kernel(compute, True),
+    kernels = {"q4_matmul", FFN, "encoder_attention", self_kernel(compute, False), self_kernel(compute, True),
                CROSS if compute.kv_packed else CROSS_U, SLOT}
     resync = (compute.quantized_kv and not compute.kv_packed) or compute.self_v_packed
     snaps = {}  # the CPU run's cache states, by (cache, step)

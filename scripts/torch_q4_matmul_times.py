@@ -29,26 +29,25 @@ import sys
 
 import torch
 
-L, D, FFN, VOCAB = 32, 1280, 5120, 52224
+L, D, VOCAB = 32, 1280, 52224
 # (K, N, epilogue, out dtype): the decode step's and the encoder's linears
+# (the FFN is kernel I's: scripts/torch_ffn_times.py)
 LINEARS = {
     "qkv": (D, 3 * D, "bias", torch.bfloat16),
     "proj": (D, D, "bias", torch.bfloat16),
-    "fc1": (D, FFN, "tanh", torch.bfloat16),
-    "fc2": (FFN, D, "bias", torch.bfloat16),
     "logits": (D, VOCAB, None, torch.float32),
     "cross_kv": (D, 2 * D, "bias", torch.bfloat16),
 }
 # (site, rows, linear): PERF.md's kernel-A rows
 SITES = (
-    [(f"greedy_{n}", 8, n) for n in ("qkv", "proj", "fc1", "fc2", "logits")]
-    + [(f"beam_{n}", 40, n) for n in ("qkv", "proj", "fc1", "fc2", "logits")]
-    + [(f"prefill_{n}", 32, n) for n in ("qkv", "proj", "fc1", "fc2")]
-    + [(f"entry_decode_{n}", 1, n) for n in ("qkv", "proj", "fc1", "fc2")]
-    + [(f"entry_prefill_{n}", 4, n) for n in ("qkv", "proj", "fc1", "fc2")]
+    [(f"greedy_{n}", 8, n) for n in ("qkv", "proj", "logits")]
+    + [(f"beam_{n}", 40, n) for n in ("qkv", "proj", "logits")]
+    + [(f"prefill_{n}", 32, n) for n in ("qkv", "proj")]
+    + [(f"entry_decode_{n}", 1, n) for n in ("qkv", "proj")]
+    + [(f"entry_prefill_{n}", 4, n) for n in ("qkv", "proj")]
     + [("pipeline_logits", 4, "logits")]
-    + [(f"pipeline_prefill_{n}", 16, n) for n in ("qkv", "proj", "fc1", "fc2")]
-    + [(f"encoder_{n}", 1536, n) for n in ("qkv", "proj", "fc1", "fc2")]
+    + [(f"pipeline_prefill_{n}", 16, n) for n in ("qkv", "proj")]
+    + [(f"encoder_{n}", 1536, n) for n in ("qkv", "proj")]
     + [("cross_fill_kv", 1500, "cross_kv")]
 )
 REGIME_ROWS = (8, 16, 32, 40, 63)
@@ -131,21 +130,20 @@ def main() -> int:
     for name in LINEARS:
         lin = weights(name, g)
         k, n, epi, out_dtype = LINEARS[name]
-        gelu = epi if epi in ("tanh", "erf") else None
         layers = lin["qw"].shape[0]
         for site, m, lin_name in SITES:
             if lin_name != name:
                 continue
             x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
             call = lambda layer: q4_kernel.q4_matmul(
-                x, lin["qw"], lin["scales"], layer=layer, bias=lin["b"], gelu=gelu, out_dtype=out_dtype
+                x, lin["qw"], lin["scales"], layer=layer, bias=lin["b"], out_dtype=out_dtype
             )
             out["us"][site] = time_us(call, layers, 32 if m >= 1500 else 256)
             if hasattr(q4_kernel, "regime"):
                 out["regime"][site] = q4_kernel.regime(m, x.dtype)
         if forced is None or name == "cross_kv":
             continue
-        epi_code = 0 if epi is None else {"bias": 1, "tanh": 2, "erf": 3}[epi]
+        epi_code = 0 if epi is None else 1  # +bias
         for m in REGIME_ROWS:
             x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
             y = torch.empty((m, n), dtype=out_dtype, device="cuda")

@@ -37,6 +37,7 @@ from whisper_burn_tpu_torch.ops.encoder_attention import (
     encoder_attention_heads_plain,
     encoder_attention_plain,
 )
+from whisper_burn_tpu_torch.ops.ffn_kernel import fused_ffn, fused_ffn_plain
 from whisper_burn_tpu_torch.ops.q4_kernel import q4_matmul, q4_matmul_plain, regime
 
 pytestmark = pytest.mark.cuda
@@ -113,6 +114,48 @@ def test_q4_matmul_regimes(gen):
     assert regime(1536, torch.float32) == "weight_read"
     assert regime(1, torch.bfloat16) == regime(8, torch.bfloat16) == "weight_read"
     assert regime(1500, torch.bfloat16) == regime(1536, torch.bfloat16) == "tensor_core"
+
+
+# Kernel I at Large-V3's FFN (1280 <-> 5120): the greedy decode's 8 rows and
+# the beam's 40 (F split over clusters, met in the workspace), the entry's
+# 1, the prefill's 4, the encoder's 1536 (24 row tiles, no workspace); and
+# Whisper tiny's D = 384 (clusters of 6) at 100 rows (two row tiles, the
+# last ragged).
+FFN_SHAPES = [(8, 1280, 5120), (40, 1280, 5120), (1, 1280, 5120), (4, 1280, 5120), (1536, 1280, 5120),
+              (100, 384, 1536)]
+
+
+def _ffn_inputs(gen, m, d, f, dtype):
+    def lin(k, n):
+        return {"qw": torch.randint(-8, 8, (2, k, n), generator=gen, device="cuda", dtype=torch.int8),
+                "scales": torch.rand((2, k // 32, n), generator=gen, device="cuda") * 0.01,
+                "b": torch.randn((2, n), generator=gen, device="cuda") * 0.1}
+    return torch.randn((m, d), generator=gen, device="cuda").to(dtype), lin(d, f), lin(f, d)
+
+
+@pytest.mark.parametrize("m,d,f", FFN_SHAPES)
+@pytest.mark.parametrize("kind", ["tanh", "erf"])
+@pytest.mark.parametrize("bias_after_round", [False, True], ids=["k7", "k4"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_fused_ffn_kernel(gen, m, d, f, kind, bias_after_round, dtype, tol):
+    x, fc1, fc2 = _ffn_inputs(gen, m, d, f, dtype)
+    _build.reset_launches()
+    out = fused_ffn(x, fc1, fc2, kind, layer=1, bias_after_round=bias_after_round)
+    assert _build.LAUNCHES["fused_ffn"] == 1 and sum(_build.LAUNCHES.values()) == 1
+    torch.cuda.synchronize()
+    p1, p2 = ({k: v[1] for k, v in p.items()} for p in (fc1, fc2))
+    ref = fused_ffn_plain(x, p1["qw"], p1["scales"], p1["b"], p2["qw"], p2["scales"], p2["b"], kind, bias_after_round)
+    assert out.shape == (m, d) and out.dtype == dtype
+    assert _rel_err(out, ref) <= tol
+
+
+@pytest.mark.parametrize("m", [8, 40, 1536])
+def test_fused_ffn_bitwise_repeatable(gen, m):
+    """No float atomics, the splits met in index order: two calls give the
+    same bits (and the counters are left ready for the next launch)."""
+    x, fc1, fc2 = _ffn_inputs(gen, m, 1280, 5120, torch.bfloat16)
+    first, second, third = (fused_ffn(x, fc1, fc2, "tanh", layer=0, bias_after_round=True) for _ in range(3))
+    assert torch.equal(first, second) and torch.equal(second, third)
 
 
 @pytest.mark.parametrize("pos", [0, 1, 63])

@@ -106,12 +106,15 @@ def w8a8_setup(setup):
 
 
 @pytest.mark.parametrize("norm", ["slaney", None])
-def test_mel_matches_jax(norm):
+@pytest.mark.parametrize("n_mels", [80, 128])  # 128: Large-V3's front end
+def test_mel_matches_jax(norm, n_mels):
     audio = (np.random.default_rng(8).standard_normal((2, 48000)) * 0.1).astype(np.float32)
-    ref = JMel(n_mels=80, norm=norm)(jnp.asarray(audio))
-    out = MelFrontend(n_mels=80, norm=norm)(torch.from_numpy(audio))
-    assert out.shape == (2, 80, 300)
-    _close(out, ref, 1e-5)
+    ref = JMel(n_mels=n_mels, norm=norm)(jnp.asarray(audio))
+    out = MelFrontend(n_mels=n_mels, norm=norm)(torch.from_numpy(audio))
+    assert out.shape == (2, n_mels, 300)
+    # 128 bins: the narrowest filters span few FFT bins, so the two FFTs'
+    # f32 rounding reaches the log less averaged (measured 1.3e-5 at most)
+    _close(out, ref, 1e-5 if n_mels == 80 else 2e-5)
 
 
 def test_encode_matches_jax(caches):

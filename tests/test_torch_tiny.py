@@ -17,12 +17,14 @@ import jax
 import jax.numpy as jnp
 
 from whisper_burn_tpu.models import WhisperConfig as JConfig
+from whisper_burn_tpu.models.beam import beam_decode as j_beam
 from whisper_burn_tpu.models.params import random_params as j_random_params
 from whisper_burn_tpu.models.whisper import greedy_decode as j_greedy
 from whisper_burn_tpu.ops import Compute as JCompute
 from whisper_burn_tpu.ops.compute import KernelBackend
 from whisper_burn_tpu.transcribe import prepare_params as j_prepare
 
+from whisper_burn_tpu_torch.models.beam import beam_decode
 from whisper_burn_tpu_torch.models.config import WhisperConfig
 from whisper_burn_tpu_torch.models.params import random_params
 from whisper_burn_tpu_torch.models.whisper import greedy_decode
@@ -64,6 +66,37 @@ def test_tiny_greedy_matches_jax(mode):
     assert sum(_build.LAUNCHES.values()) == 0  # CPU tensors: plain versions only
     np.testing.assert_array_equal(out.tokens.numpy(), np.asarray(ref.tokens))
     np.testing.assert_array_equal(out.n_generated.numpy(), np.asarray(ref.n_generated))
+
+
+@pytest.mark.parametrize("decode", ["greedy", "beam"])
+@pytest.mark.parametrize("case", ["translate", "mixed_detect_erf"])
+def test_tiny_task_and_detect_match_jax(decode, case):
+    """``task="translate"`` with explicit languages, and ``detect=True`` on a
+    batch of one explicit and one auto-detected language (entry < 0) with
+    the exact GELU form, through ``greedy_decode`` and ``beam_decode`` (3
+    beams) in ``Compute.parity()``: the tokens, the token counts and the
+    language tokens used equal the JAX package's (beam scores within 1e-5)."""
+    jc, tc = COMPUTES["parity"]
+    jcfg, cfg = (JCFG, CFG) if case == "translate" else (JCFG.replace(gelu="erf"), CFG.replace(gelu="erf"))
+    mel = np.random.default_rng(4).standard_normal((B, cfg.n_mels, 2 * cfg.n_audio_ctx)).astype(np.float32)
+    if case == "translate":
+        lang, kw = np.array([cfg.lang_token_start, cfg.lang_token_start + 1], np.int32), dict(task="translate")
+    else:
+        lang, kw = np.array([cfg.lang_token_start + 2, -1], np.int32), dict(detect=True)
+    if decode == "beam":
+        kw["beam_width"] = 3
+    jparams = j_prepare(j_random_params(jcfg, seed=0), jc)
+    params = prepare_params(random_params(cfg, seed=0, device="cpu"), tc)
+    j_fn, fn = (j_greedy, greedy_decode) if decode == "greedy" else (j_beam, beam_decode)
+    ref = j_fn(jparams, jcfg, jnp.asarray(mel), jnp.asarray(lang), jc, max_tokens=TOKENS, **kw)
+    out = fn(params, cfg, torch.from_numpy(mel), torch.from_numpy(lang), tc, max_tokens=TOKENS, **kw)
+    np.testing.assert_array_equal(out.tokens.numpy(), np.asarray(ref.tokens))
+    np.testing.assert_array_equal(out.n_generated.numpy(), np.asarray(ref.n_generated))
+    np.testing.assert_array_equal(out.lang_tokens.numpy(), np.asarray(ref.lang_tokens))
+    if case != "translate":
+        assert out.lang_tokens[0] == lang[0] and out.lang_tokens[1] >= cfg.lang_token_start
+    if decode == "beam":
+        np.testing.assert_allclose(out.scores.numpy(), np.asarray(ref.scores), rtol=1e-5, atol=1e-5)
 
 
 def test_narrow_heads_refused_on_cuda_tensors_only():

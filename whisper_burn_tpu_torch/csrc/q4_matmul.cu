@@ -2,10 +2,9 @@
 // with a fused epilogue (none, +bias, +bias then GELU).
 //
 // Replaces the TPU kernels of whisper_burn_tpu/ops/pallas_q4.py (_kernel
-// K5, _kernel_stacked K1) and whisper_burn_tpu/ops/pallas_ffn.py (_kernel
-// K7, _kernel_stacked K4): the stacked forms are this kernel with the
-// weight pointer offset to one layer by the wrapper, and the fused FFN is
-// two launches (fc1 with the bias+GELU epilogue, then fc2 with +bias).
+// K5, _kernel_stacked K1): the stacked form is this kernel with the weight
+// pointer offset to one layer by the wrapper. The fused FFN of
+// ops/pallas_ffn.py (K4, K7) is kernel I, csrc/ffn.cu.
 //
 // Two regimes in one source, all instances of q4_matmul_kernel, one launch
 // per call, chosen by q4_matmul_regime() from M and x's dtype:
@@ -38,10 +37,18 @@
 //     (one scale row), a 4-stage cp.async pipeline for the x and code
 //     tiles; while 8 warps run mma.sync.m16n8k16 (bf16 in, f32 accumulate)
 //     from ldmatrix fragments on one step, they dequantize the next step's
-//     codes to bf16 (code x scale, rounded once, as the TPU kernel casts w
-//     to the compute dtype before its dot) into the other of two B tiles:
-//     one barrier a step. Ragged M and N are masked (zero-filled loads,
-//     predicated stores), the epilogue fused.
+//     codes to bf16 into the other of two B tiles: one barrier a step.
+//     Ragged M and N are masked (zero-filled loads, predicated stores), the
+//     epilogue fused.
+//
+// Rounding, as the Pallas kernels round: for bf16 x every weight is
+// bf16(code x bf16(scale)) (pallas_q4.py casts codes and scales to the
+// compute dtype and multiplies there). A code (at most 8 bits) times a bf16
+// scale is exact in f32, so rounding the f32 product once gives bf16's
+// multiply. Each scale is rounded once, by the thread that staged it,
+// before the barrier that publishes it. f32 x dequantizes in f32. A bias
+// is added in the output dtype after the sum is rounded to it, as the JAX
+// package adds it to the kernel's result (models/decoder.py, ops/linear.py).
 //
 // MMA_MIN_ROWS = 64, by measurement (PERF.md, kernel A's findings): at 63 rows
 // the weight-read form beats the 128-row tiles on every decode shape but
@@ -82,9 +89,13 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
 }
 
-// epilogue: 0 none, 1 +bias, 2 +bias then tanh-GELU, 3 +bias then erf-GELU
+__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+// epilogue: 0 none, 1 +bias, 2 +bias then tanh-GELU, 3 +bias then erf-GELU;
+// the bias is added in the output dtype TY, to the sum rounded to it
+template <typename TY>
 __device__ __forceinline__ float epilogue_op(float v, const float* bias, int n, int epilogue) {
-  if (epilogue >= 1) v += bias[n];
+  if (epilogue >= 1) v = std::is_same<TY, float>::value ? v + bias[n] : round_bf16(round_bf16(v) + round_bf16(bias[n]));
   if (epilogue == 2) v = gelu_tanh(v);
   if (epilogue == 3) v = gelu_erf(v);
   return v;
@@ -161,6 +172,14 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], const 
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// four staged f32 scales rounded to bf16 in place (the bf16 forms' weights
+// are bf16(code x bf16(scale)))
+__device__ __forceinline__ void round_scales4(float* p) {
+  float4 v = *reinterpret_cast<float4*>(p);
+  v = make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w));
+  *reinterpret_cast<float4*>(p) = v;
 }
 
 // ---- (a) weight-read regime ------------------------------------------------
@@ -280,7 +299,7 @@ __device__ __forceinline__ void weight_read(const TX* __restrict__ x, const int8
       if (m0 + m >= M || n >= N) continue;
       float v = 0.f;
       for (int q = 0; q < S; ++q) v += *cluster.map_shared_rank(part + o, q);
-      store(y + (size_t)(m0 + m) * N + n, epilogue_op(v, bias, n, epilogue));
+      store(y + (size_t)(m0 + m) * N + n, epilogue_op<TY>(v, bias, n, epilogue));
     }
     cluster.sync();  // peers have read `part` before it is reused or freed
   }
@@ -290,8 +309,8 @@ __device__ __forceinline__ void weight_read(const TX* __restrict__ x, const int8
 // its own K steps (one 32-row scale block each) through a private cp.async
 // ring, with no block barrier in the loop: codes [32][64] (4 lanes to a
 // row's 64 bytes), their scale row and x's rows of the step. Each half step
-// of 16 rows is dequantized to bf16 into the warp's B tile (code x scale,
-// rounded once, as the tensor-core regime), and mma.sync takes x's rows
+// of 16 rows is dequantized to bf16 into the warp's B tile (code x bf16
+// scale, rounded once, as the tensor-core regime), and mma.sync takes x's rows
 // padded to 16 (rows past M read a zero row). The block's warps meet in
 // shared memory; each block then pushes its partial sums to the block of
 // the cluster that owns those outputs (distributed shared memory), and one
@@ -385,13 +404,14 @@ __device__ __forceinline__ void weight_read_mma(const __nv_bfloat16* __restrict_
   for (int i = 0; i < my_steps; ++i) {
     const int st = i % WM_STAGES;
     cp_async_wait<WM_STAGES - 2>();
+    if (lane < WM_COLS / 4) round_scales4(scl(st) + lane * 4);  // the four this lane staged
     __syncwarp();
     if (i + WM_STAGES - 1 < my_steps) load(i + WM_STAGES - 1, (i + WM_STAGES - 1) % WM_STAGES);
     cp_async_commit();
     const __nv_bfloat16* xst = xs(st);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      {  // dequantize rows 16h .. 16h+15, 32 codes a lane, rounded to bf16 once
+      {  // dequantize rows 16h .. 16h+15, 32 codes a lane: bf16(code x bf16 scale)
         const int r = lane & 15, c0 = (lane >> 4) * 32;
         const uint4* q = reinterpret_cast<const uint4*>(codes(st) + (16 * h + r) * WM_CS + c0);
         const float4* sc = reinterpret_cast<const float4*>(scl(st) + c0);
@@ -472,7 +492,7 @@ __device__ __forceinline__ void weight_read_mma(const __nv_bfloat16* __restrict_
     if (n >= N) continue;
     float v = 0.f;
     for (int q = 0; q < S; ++q) v += recv[q * chunk + (o - o_lo)];
-    store(y + (size_t)m * N + n, epilogue_op(v, bias, n, epilogue));
+    store(y + (size_t)m * N + n, epilogue_op<TY>(v, bias, n, epilogue));
   }
 }
 
@@ -535,7 +555,7 @@ __device__ __forceinline__ void tensor_core(const __nv_bfloat16* __restrict__ x,
     if (st < kt_n) load(st, st);
     cp_async_commit();
   }
-  // dequantize a step's codes into B tile `buf`: 16 codes a thread, rounded to bf16 once
+  // dequantize a step's codes into B tile `buf`: 16 codes a thread, bf16(code x bf16 scale)
   auto dequantize = [&](int st, int buf) {
     const int r = tid >> 3, c = (tid & 7) * 16;
     const uint4 q = *reinterpret_cast<const uint4*>(&sm.c[st][r][c]);
@@ -554,6 +574,7 @@ __device__ __forceinline__ void tensor_core(const __nv_bfloat16* __restrict__ x,
     dst[1] = make_uint4(out[4], out[5], out[6], out[7]);
   };
   cp_async_wait<TC_STAGES - 2>();
+  if (tid < TC_BN / 4 && kt_n > 0) round_scales4(&sm.s[0][tid * 4]);  // the four this thread staged
   __syncthreads();
   if (kt_n > 0) dequantize(0, 0);
   // one barrier a step: after it, step kt's B tile and step kt+1's codes
@@ -561,6 +582,8 @@ __device__ __forceinline__ void tensor_core(const __nv_bfloat16* __restrict__ x,
   for (int kt = 0; kt < kt_n; ++kt) {
     const int st = kt % TC_STAGES;
     cp_async_wait<TC_STAGES - 3>();
+    // step kt+1's scale row has landed; its dequantize follows the barrier
+    if (tid < TC_BN / 4 && kt + 1 < kt_n) round_scales4(&sm.s[(kt + 1) % TC_STAGES][tid * 4]);
     __syncthreads();
     if (kt + TC_STAGES - 1 < kt_n) load(kt + TC_STAGES - 1, (kt + TC_STAGES - 1) % TC_STAGES);
     cp_async_commit();
@@ -598,8 +621,8 @@ __device__ __forceinline__ void tensor_core(const __nv_bfloat16* __restrict__ x,
       for (int h = 0; h < 2; ++h) {
         const int m = m0 + wm * 64 + i * 16 + gr + h * 8;
         if (m >= M) continue;
-        store2(y + (size_t)m * N + n, epilogue_op(acc[i][j][2 * h], bias, n, epilogue),
-               epilogue_op(acc[i][j][2 * h + 1], bias, n + 1, epilogue));
+        store2(y + (size_t)m * N + n, epilogue_op<TY>(acc[i][j][2 * h], bias, n, epilogue),
+               epilogue_op<TY>(acc[i][j][2 * h + 1], bias, n + 1, epilogue));
       }
     }
 }

@@ -21,8 +21,9 @@ Large-V3, served by its general kernel); layouts do not bind the port, the
 values do, so it keeps one layout and one cross kernel.
 
 The decode step follows the JAX package's flash path (``_decode_step_flash``).
-Per layer, kernel A serves the four projections and the FFN (by layer
-index, no weight copy) and kernel C the cross-attention (C over int4, C'
+Per layer, kernel A serves the four projections and kernel I the FFN
+(both by layer index, no weight copy; fc2's bias after the rounding, as
+the JAX step adds it to K4's sum) and kernel C the cross-attention (C over int4, C'
 over int8 or float caches; per-channel K scales folded into the query, V
 scales into the output; with ``batch_groups=G`` the G streams of an
 utterance share its cross cache). The self-attention takes one of these
@@ -80,6 +81,7 @@ from whisper_burn_tpu_torch.ops.decode_attention import (
     flash_merge_extra_key,
     unpack_int4,
 )
+from whisper_burn_tpu_torch.ops.ffn_kernel import K4_MAX_ROWS
 from whisper_burn_tpu_torch.ops.linear import (
     apply_ffn,
     apply_linear,
@@ -311,7 +313,8 @@ def prefill(
     returns the last position's logits.
     Writes the self K/V into ``cache`` (quantized per token for an int8 or
     int4 cache) unless ``write_cache`` is False (language detection, with
-    ``logit_rows``). Its linears run at M = B*T through kernel A; its
+    ``logit_rows``). Its linears run at M = B*T through kernel A and its FFN
+    through kernel I (fc2's bias in K7's order); its
     attentions are plain PyTorch over the dequantized cross cache, as the
     JAX package leaves them to XLA."""
     dec = params["decoder"]
@@ -408,7 +411,7 @@ def decode_step(
         x = x + apply_reduce_linear(blocks["xattn_o"], a.to(compute.dtype), compute, layer=layer)
 
         h = layer_norm(x, *_ln(blocks, "mlp_ln", layer))
-        x = x + apply_ffn(blocks, h, cfg.gelu, compute, layer=layer)
+        x = x + apply_ffn(blocks, h, cfg.gelu, compute, layer=layer, bias_after_round=b <= K4_MAX_ROWS)
     if new_k:  # one slot across all layers: [L, B, 1, D(/2)] rows, [L, B, 1, kw + vw] scales
         ks, vs = torch.stack(new_k), torch.stack(new_v)
         if quantized_self:

@@ -33,7 +33,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("q4_matmul", "decode_attention", "encoder_attention", "cache_slot")
+SOURCES = ("q4_matmul", "ffn", "decode_attention", "encoder_attention", "cache_slot")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

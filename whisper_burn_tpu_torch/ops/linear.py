@@ -14,8 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from whisper_burn_tpu_torch.models.layers import gelu as _gelu
 from whisper_burn_tpu_torch.ops.compute import Compute
+from whisper_burn_tpu_torch.ops.ffn_kernel import fused_ffn, gelu
 from whisper_burn_tpu_torch.ops.q4_matmul import LARGE_M, q4_matmul, rows
 
 
@@ -35,25 +35,21 @@ def w8a8_matmul(x: torch.Tensor, qw8: torch.Tensor, s8: torch.Tensor, compute: C
     return (yi.float() * xs * s8.float()).to(compute.dtype)
 
 
-def apply_linear(
-    params: dict, x: torch.Tensor, compute: Compute, *, layer: int | None = None,
-    gelu: str | None = None,
-) -> torch.Tensor:
-    """``y = x @ W (+ b)``, then GELU when ``gelu`` names its form."""
+def apply_linear(params: dict, x: torch.Tensor, compute: Compute, *, layer: int | None = None) -> torch.Tensor:
+    """``y = x @ W (+ b)``: the product rounded to the compute dtype, then
+    the bias added in it, as the JAX package does."""
     p = params
     if "qw8" in p and ("qw" not in p or (compute.w8a8 and rows(x) >= LARGE_M)):
         p = _at(p, layer)
         y = w8a8_matmul(x, p["qw8"], p["s8"], compute)
     elif "qw" in p:
-        return q4_matmul(
-            x, p["qw"], p["scales"], compute, layer=layer, bias=p.get("b"), gelu=gelu
-        )
+        return q4_matmul(x, p["qw"], p["scales"], compute, layer=layer, bias=p.get("b"))
     else:
         p = _at(p, layer)
         y = (x.to(compute.dtype) @ p["w"].to(compute.dtype)).to(compute.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
-    return _gelu(y, gelu) if gelu is not None else y
+    return y
 
 
 # row-parallel linears need no reduction at tp=1
@@ -79,11 +75,28 @@ def cross_kv_proj(bp: dict, enc: torch.Tensor, compute: Compute, layer: int | No
     )
 
 
+def fusable(fc1: dict, fc2: dict) -> bool:
+    """Whether the JAX package fuses this FFN (``pallas_ffn.fused_ffn_pallas``
+    and its stacked form): Q4 codes and biases in both linears, and an F
+    its f-tiles divide (``ffn_bf``: a multiple of 512)."""
+    if not all(k in p for p in (fc1, fc2) for k in ("qw", "scales", "b")):
+        return False
+    d, f = fc1["qw"].shape[-2:]
+    return f % 512 == 0 and tuple(fc2["qw"].shape[-2:]) == (f, d)
+
+
 def apply_ffn(
-    bp: dict, x: torch.Tensor, gelu_kind: str, compute: Compute, layer: int | None = None
+    bp: dict, x: torch.Tensor, gelu_kind: str, compute: Compute, layer: int | None = None,
+    bias_after_round: bool = False,
 ) -> torch.Tensor:
-    """fc1 -> GELU -> fc2. With Q4 weights below ``LARGE_M`` rows this is
-    two launches of kernel A (fc1 with the bias+GELU epilogue, fc2 with
-    +bias) — the port of the fused Pallas FFN."""
-    h = apply_linear(bp["fc1"], x, compute, layer=layer, gelu=gelu_kind)
-    return apply_reduce_linear(bp["fc2"], h, compute, layer=layer)
+    """fc1 -> GELU -> fc2. Where the JAX package fuses it (Q4 weights,
+    :func:`fusable`, below ``LARGE_M`` rows) this is one launch of kernel I
+    (``ops/ffn_kernel.py``), fc2's bias in K4's order with
+    ``bias_after_round`` (the decode step) and K7's without; elsewhere the
+    two linears, GELU on fc1's rounded output, as the JAX package's
+    unfused path."""
+    fc1, fc2 = bp["fc1"], bp["fc2"]
+    if rows(x) < LARGE_M and fusable(fc1, fc2):
+        return fused_ffn(x.to(compute.dtype), fc1, fc2, gelu_kind, layer=layer, bias_after_round=bias_after_round)
+    h = gelu(apply_linear(fc1, x, compute, layer=layer), gelu_kind)
+    return apply_reduce_linear(fc2, h, compute, layer=layer)

@@ -1,15 +1,16 @@
 """Kernel A: the quantized matmul with a fused epilogue, and its plain version.
 
 Counterpart of ``whisper_burn_tpu/ops/pallas_q4.py`` (``_kernel`` K5,
-``_kernel_stacked`` K1) and ``whisper_burn_tpu/ops/pallas_ffn.py``
-(``_kernel`` K7, ``_kernel_stacked`` K4); source ``csrc/q4_matmul.cu``.
+``_kernel_stacked`` K1); source ``csrc/q4_matmul.cu``. The fused FFN of
+``pallas_ffn.py`` is kernel I (``ops/ffn_kernel.py``).
 
 ``y = x @ (qw[layer] * scales[layer])`` with f32 accumulation, then
 optionally ``+ bias[layer]`` and GELU. ``layer`` indexes stacked
 ``[L, K, N]`` / ``[L, K/32, N]`` / ``[L, N]`` tensors by pointer offset, so
-no slice is copied. The fused FFN is two launches: fc1 with the bias+GELU
-epilogue, fc2 with +bias. Its hidden ``[M, 4D]`` activation passes through
-device memory, which the TPU kernel avoided (PERF.md).
+no slice is copied. Weights round as the Pallas kernels round them: for
+bf16 x each is ``bf16(code x bf16(scale))``, for f32 x the f32 product
+(:func:`dequant_weight`). The bias is added in the output dtype to the
+sum rounded to it, as the JAX package adds it to the kernel's result.
 
 One launch per call, in one of two regimes the C entry point picks from M
 and x's dtype (:func:`regime`): the weight-read regime (f32 x, and bf16 x
@@ -34,21 +35,31 @@ from whisper_burn_tpu_torch.models.layers import gelu as _gelu
 from whisper_burn_tpu_torch.ops import _build
 
 NAME = "q4_matmul"
+Q4_BLOCK = 32
 REGIMES = ("weight_read", "tensor_core")
 _EPILOGUE = {None: 1, "tanh": 2, "erf": 3}
 _FN = None
+
+
+def dequant_weight(qw: torch.Tensor, scales: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Materialize ``W [K, N]`` in ``dtype``: codes and scales cast to it and
+    multiplied there, as the Pallas kernels and the JAX package do (in bf16
+    each weight is ``bf16(code x bf16(scale))``)."""
+    k, n = qw.shape
+    w = qw.reshape(k // Q4_BLOCK, Q4_BLOCK, n).to(dtype) * scales.to(dtype)[:, None, :]
+    return w.reshape(k, n)
 
 
 def q4_matmul_plain(
     x2: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
     bias: torch.Tensor | None, gelu: str | None, out_dtype: torch.dtype,
 ) -> torch.Tensor:
-    """Dequantize, then an f32 matmul; ``x2: [M, K]``, ``qw: [K, N]``."""
-    k, n = qw.shape
-    w = (qw.float().reshape(k // 32, 32, n) * scales.float()[:, None, :]).reshape(k, n)
-    y = x2.float() @ w
+    """Dequantize in x's dtype, then an f32 matmul; ``x2: [M, K]``,
+    ``qw: [K, N]``. The bias is added in ``out_dtype`` after the rounding."""
+    w = dequant_weight(qw, scales, torch.bfloat16 if x2.dtype == torch.bfloat16 else torch.float32)
+    y = x2.float() @ w.float()
     if bias is not None:
-        y = y + bias.float()
+        y = (y.to(out_dtype) + bias.to(out_dtype)).float()
     if gelu is not None:
         y = _gelu(y, gelu)
     return y.to(out_dtype)

@@ -12,11 +12,10 @@ from __future__ import annotations
 
 import torch
 
-from whisper_burn_tpu_torch.models.layers import gelu as _gelu
 from whisper_burn_tpu_torch.ops.compute import Compute
+from whisper_burn_tpu_torch.ops.q4_kernel import dequant_weight
 from whisper_burn_tpu_torch.ops.q4_kernel import q4_matmul as q4_kernel
 
-Q4_BLOCK = 32
 LARGE_M = 4096
 
 
@@ -27,13 +26,6 @@ def rows(x: torch.Tensor) -> int:
     return m
 
 
-def dequant_weight(qw: torch.Tensor, scales: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Materialize ``W^T [K, N]`` in ``dtype``."""
-    k, n = qw.shape
-    w = qw.reshape(k // Q4_BLOCK, Q4_BLOCK, n).to(dtype) * scales.to(dtype)[:, None, :]
-    return w.reshape(k, n)
-
-
 def q4_matmul(
     x: torch.Tensor,
     qw: torch.Tensor,
@@ -42,21 +34,16 @@ def q4_matmul(
     *,
     layer: int | None = None,
     bias: torch.Tensor | None = None,
-    gelu: str | None = None,
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """``x [..., K] -> [..., N]`` in ``out_dtype`` (default compute dtype),
-    with optional ``+ bias`` and GELU; ``layer`` indexes stacked weights."""
+    with an optional ``+ bias`` in ``out_dtype`` after the rounding;
+    ``layer`` indexes stacked weights."""
     out_dtype = out_dtype or compute.dtype
     if rows(x) < LARGE_M:
-        return q4_kernel(
-            x.to(compute.dtype), qw, scales, layer=layer, bias=bias, gelu=gelu,
-            out_dtype=out_dtype,
-        )
+        return q4_kernel(x.to(compute.dtype), qw, scales, layer=layer, bias=bias, out_dtype=out_dtype)
     if layer is not None:
         qw, scales = qw[layer], scales[layer]
         bias = None if bias is None else bias[layer]
     y = (x.to(compute.dtype) @ dequant_weight(qw, scales, compute.dtype)).to(out_dtype)
-    if bias is not None:
-        y = y + bias.to(y.dtype)
-    return _gelu(y, gelu) if gelu is not None else y
+    return y + bias.to(y.dtype) if bias is not None else y
