@@ -26,9 +26,11 @@ Phases, each timed and each fatal on failure:
    ``WhisperPipeline`` on the raw parameters in the int4 self mode,
    ``transcribe_batch`` of 5 x 30 s with the language detected (bucketed to
    8) and ``transcribe_long`` of 75 s (3 windows, bucketed to 4), each
-   after a warm-up call; and ``encoder_attention_heads``: kernel D' through
+   after a warm-up call; ``encoder_attention_heads``: kernel D' through
    its own op (no model path reaches it) at B=8 x 1500 frames, Large-V3 and Medium
-   widths. The first request of a path is its warm-up. Every greedy
+   widths; and ``medium_ffn``: kernel I through its op at Whisper Medium's
+   width (1024 <-> 4096, 24 stacked layers, K4's bias order), 8 rows, two
+   requests. The first request of a path is its warm-up. Every greedy
    request runs its decode loop through a cached runner's CUDA graph of
    the step (``models/whisper.py``): the runner's first request takes one
    eager step, captures the step and replays it for the rest (a line
@@ -53,9 +55,12 @@ Phases, each timed and each fatal on failure:
    names its regime. Kernel A at M = 8, 32 and
    40 rows, and at the entry's 1, 4, 1500 cross-fill and 1536 encoder rows;
    kernel I, the fused FFN, at the decode's 8 and 40 rows (K4's bias
-   order), the prefill's 32 (K7's), and the entry's 1, 4 and 1536, each in
-   bf16 and f32, both GELU forms and both bias orders, beside kernel A's
-   two launches on the same inputs and the library pair;
+   order), the prefill's 32 (K7's), the entry's 1, 4 and 1536, and
+   Medium's 8 rows (its op's path), each in bf16 and f32, both GELU forms
+   and both bias orders, beside kernel A's two launches on the same inputs
+   and the library pair; a line ``{"phase": "kernel_i_plan", ...}`` before
+   each case's row gives the launch it takes (regime, grid, threads, the
+   cooperative attribute);
    B and B' at 4, 115 and 227 cached keys, B' also at the entry's one
    stream and 4, 11 and 18; C and C' (int8 and bf16) ungrouped and with 5
    streams per cross-cache entry, C' bf16 also at the entry's one entry;
@@ -132,7 +137,7 @@ KERNEL_OF = {"q4_matmul": "q4_matmul", "decode_self_attention": "self_attn",
              "decode_attention_layer_int4": "layer_int4", "encoder_attention_heads": "encoder_heads",
              "fused_ffn": "ffn"}
 OURS = re.compile(r"\b(q4_matmul|self_attn|merged_attn|layer_attn|layer_unscaled|cross_attn|cross_unpacked"
-                  r"|encoder_attn|slot|merged_int4|layer_int4|encoder_heads|ffn)_kernel<")
+                  r"|encoder_attn|slot|merged_int4|layer_int4|encoder_heads|ffn)(?:_wgmma)?_kernel[<(]")
 STAGES = {"encode", "cross_fill", "prefill", "decode"}
 DA = "whisper_burn_tpu_torch/csrc/decode_attention.cu"
 XTOL = "1e-5 of max|out|, plus one bf16 step of each p within 32 f32 steps of a bf16 rounding tie"
@@ -385,6 +390,9 @@ def ffn_rows(cases, gen, path: str) -> list[dict]:
         fc1, fc2 = blocks["fc1"], blocks["fc2"]
         n_layers, d, f = fc1["qw"].shape
         x = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
+        # the launch this case takes: its regime, grid, block and the cooperative attribute
+        log({"phase": "kernel_i_plan", "site": site, "path": path, "rows": m, "d": d, "f": f,
+             **ffn_kernel._plan(dev, m, d, f, True)[0]})
         lyr = lambda p, l: [p[k][l] for k in ("qw", "scales", "b")]
         err_case = 0.0
         for dtype, rel in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
@@ -432,6 +440,45 @@ def ffn_rows(cases, gen, path: str) -> list[dict]:
     return rows
 
 
+# Whisper Medium's decoder FFN (1024 <-> 4096, 24 layers) at the greedy batch's rows
+MEDIUM_FFN_LAYERS, MEDIUM_D, MEDIUM_F = 24, 1024, 4096
+
+
+def medium_ffn_blocks(gen) -> dict:
+    """Stacked Q4 FFN weights of Whisper Medium's width, fabricated on the card."""
+    def lin(k, n):
+        return {"qw": torch.randint(-8, 8, (MEDIUM_FFN_LAYERS, k, n), generator=gen, device="cuda", dtype=torch.int8),
+                "scales": torch.rand((MEDIUM_FFN_LAYERS, k // 32, n), generator=gen, device="cuda") * 0.01,
+                "b": torch.randn((MEDIUM_FFN_LAYERS, n), generator=gen, device="cuda") * 0.1}
+    return {"fc1": lin(MEDIUM_D, MEDIUM_F), "fc2": lin(MEDIUM_F, MEDIUM_D)}
+
+
+def medium_ffn_path(cfg) -> tuple[dict, dict]:
+    """Kernel I at Whisper Medium's width through its own entry point, the
+    op ``fused_ffn`` as the decode step calls it (K4's bias order, one
+    layer of the stacked weights a call): 8 rows through each of 24 layers,
+    two requests; outputs finite and of the input's shape."""
+    from whisper_burn_tpu_torch.ops import _build
+    from whisper_burn_tpu_torch.ops.ffn_kernel import fused_ffn
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 21)
+    blocks = medium_ffn_blocks(g)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for r in range(NEW_PATH_REQUESTS):
+        x = torch.randn((BATCH, MEDIUM_D), generator=g, device="cuda").to(torch.bfloat16)
+        t0 = time.perf_counter()
+        for layer in range(MEDIUM_FFN_LAYERS):
+            x = x + fused_ffn(x, blocks["fc1"], blocks["fc2"], cfg.gelu, layer=layer, bias_after_round=True)
+        torch.cuda.synchronize()
+        log({"path": "medium_ffn", "request": r, "wall_ms": (time.perf_counter() - t0) * 1e3,
+             "launches": dict(_build.LAUNCHES)})
+        if x.shape != (BATCH, MEDIUM_D) or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"medium_ffn: {tuple(x.shape)}, finite {bool(torch.isfinite(x).all())}")
+    return dict(_build.LAUNCHES), shape_counts()
+
+
 def kernel_checks(params, cfg, gen):
     from whisper_burn_tpu_torch.ops.decode_attention import decode_self_attention, decode_self_attention_plain
 
@@ -441,6 +488,7 @@ def kernel_checks(params, cfg, gen):
     blocks = params["decoder"]["blocks"]
     rows += ffn_rows([("decode", BATCH, blocks, cfg.gelu, True, K4),
                       ("prefill", 4 * BATCH, blocks, cfg.gelu, False, K7)], gen, "greedy")
+    rows += ffn_rows([("medium_decode", BATCH, medium_ffn_blocks(gen), cfg.gelu, True, K4)], gen, "medium_ffn")
 
     # kernel B at the main path's cache shape, at the mean decode position
     # when all MAX_TOKENS - 1 steps run (positions 4 .. 226)
@@ -1848,7 +1896,7 @@ def main() -> int:
     del fn, args
     # the pipeline in the int4 self mode, and kernel D' through its op
     for label, run in (("pipeline", lambda: pipeline_path(raw, cfg, int4self)),
-                       ("encoder_attention_heads", encoder_heads_path)):
+                       ("encoder_attention_heads", encoder_heads_path), ("medium_ffn", lambda: medium_ffn_path(cfg))):
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         launches[label], counts[label] = run()

@@ -5,16 +5,19 @@ phase, on one CUDA card.
 
 Builds a copy of the checkout's ``csrc/ffn.cu`` into ``build/variants/``
 with thread 0 of every block writing the card's global timer (ns) at each
-phase of the kernel: start, its warp's W1 rows landed, fc1 done, g
-exchanged (the cluster barrier after GELU), G gathered, W2 rows landed,
-fc2 done, its sums in shared memory, the exit barrier passed, and for the
-last split to arrive the start and end of the splits' sum. It runs the
-kernel at Large-V3's FFN (1280 <-> 5120, bf16, K4's bias order) at 1, 8
-and 40 rows, 40 launches cycling 32 layers each (the stamps of the last
-launch are kept), and times each shape with CUDA events over 256
-launches. Prints one JSON line per shape: µs per launch, and for each
-phase the min, median and max over the blocks of µs since the first
-block started (on a block of several steps, the last step's stamps).
+phase of the kernel. Decode regime: start, copies issued, fc1 done (every
+residue's sums in shared memory), g written, grid barrier passed, W2 waited
+for, fc2 done (the warps' sums in shared memory), output written; the fc2
+blocks and the fc1-only blocks apart. Encoder
+regime: start, fc1 tiles done, grid barrier passed, fc2 tiles done. It
+runs the kernel at Large-V3's FFN (1280 <-> 5120, bf16, K4's bias order) at
+1, 8 and 40 rows and at 1536 (K7's order), 40 launches cycling 32 layers
+each (the stamps of the last launch are kept), and times each shape with
+CUDA events over 256 launches. Prints one JSON line per shape: µs per
+launch, and for each phase the min, median and max over the blocks that
+reach it of µs since the first block started, and their count; and the
+median SM clock (MHz) over a block's launch, from ``clock64`` against the
+global timer.
 """
 
 from __future__ import annotations
@@ -31,29 +34,32 @@ import torch
 from torch_q4_matmul_times import card, time_us
 
 L, D, F = 32, 1280, 5120
-PHASES = ["start", "w1_landed", "fc1_done", "g_exchanged", "g_gathered", "w2_landed", "fc2_done",
-          "sums_in_smem", "exit_barrier", "last_split_sum", "last_split_done"]
-# (code the stamp follows, phase index)
+DECODE = ["start", "copies_issued", "fc1_done", "g_written", "barrier_passed", "w2_landed", "fc2_done",
+          "out_written"]
+DECODE_SLOTS = list(range(8))
+ENCODER = ["start", "fc1_tiles_done", "barrier_passed", "fc2_tiles_done"]
+# (code the stamp follows or precedes, slot): decode slots 0-7, encoder 8-11
 AFTER = [
-    ("  Smem<T, MT> sm(smem_raw, D, cs, ks);\n", 0),
-    ("      wait_own(sc1w);  // W1(s)\n", 1),
-    ("    cluster.sync();  // every block's g is in place (and P is read)\n", 3),
-    ("    __syncthreads();  // G complete\n", 4),
-    ("    wait_own(sc2w);  // W2(s)\n", 5),
-    ("  __syncthreads();  // the sums are in P\n", 7),
-    ('  asm volatile("barrier.cluster.wait.acquire.aligned;\\n" ::: "memory");\n', 8),
-    ("  if (!*sm.flag) return;\n", 9),
+    ("  const DecLayout L = dec_layout(blockIdx.x, D, F, a.C, a.e);\n", 0),
+    ("    __syncthreads();  // every residue's sums are in P\n", 2),
+    ("  grid_sync(a.bar, target);  // all of g is written\n", 4),
+    ("  mbar_wait(&bars[nparts], 0);\n", 5),
+    ("      store(out + (size_t)(m0 + r) * D + n0 + c, finish<BF>(v, b2s[c], a.bias_after_round));\n    }\n", 7),
+    ("  const int M = a.M, tm = (M + BM - 1) / BM;\n", 8),
+    ("      grid_sync(a.bar, target);\n", 10),
+    ("    gq0 += Q;\n", 11),
 ]
 BEFORE = [
-    ("    // this warp's W1 rows are read: they take the next step's\n", 2),
-    ("    // this warp's W2 rows are read: they take the next step's\n", 6),
-    ("  if (tid == 0) *counter = 0u;", 10),
+    ("  const T* x = static_cast<const T*>(a.x);\n", 1),
+    ("  grid_sync(a.bar, target);  // all of g is written\n", 3),
+    ("    for (int idx = tid; idx < rows * UNIT; idx += THREADS) {\n", 6),
+    ("    if (phase == 1) {  // g complete in every block before any of it is read\n", 9),
 ]
 HEADER = """
-__device__ unsigned long long ffn_phase_stamp[8192][16];
+__device__ unsigned long long ffn_phase_stamp[1024][32];
 #define STAMP(i) do { if (threadIdx.x == 0) { unsigned long long t_; \\
   asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t_)); \\
-  ffn_phase_stamp[blockIdx.x + gridDim.x * blockIdx.y][i] = t_; } } while (0)
+  ffn_phase_stamp[blockIdx.x][i] = t_; ffn_phase_stamp[blockIdx.x][16 + (i)] = clock64(); } } while (0)
 extern "C" int ffn_phase_stamps(void* dst) {
   return (int)cudaMemcpyFromSymbol(dst, ffn_phase_stamp, sizeof(ffn_phase_stamp));
 }
@@ -61,12 +67,14 @@ extern "C" int ffn_phase_stamps(void* dst) {
 
 
 def instrumented(src: str) -> str:
-    src = src.replace("namespace cg = cooperative_groups;\n", "namespace cg = cooperative_groups;\n" + HEADER, 1)
-    for anchor, i in AFTER + BEFORE:  # (the W1 wait is in the bf16 and the f32 branch)
-        if not src.count(anchor):
-            raise SystemExit(f"torch_ffn_phases: no anchor for phase {PHASES[i]} in ffn.cu")
-        stamp = f"  STAMP({i});\n"
-        src = src.replace(anchor, anchor + stamp if (anchor, i) in AFTER else stamp + anchor)
+    src = src.replace("namespace {\n", HEADER + "\nnamespace {\n", 1)
+    for anchor, i in AFTER + BEFORE:
+        if src.count(anchor) != 1:
+            raise SystemExit(f"torch_ffn_phases: anchor for slot {i} found {src.count(anchor)} times in ffn.cu")
+    for anchor, i in AFTER:
+        src = src.replace(anchor, anchor + f"  STAMP({i});\n")
+    for anchor, i in BEFORE:
+        src = src.replace(anchor, f"  STAMP({i});\n" + anchor)
     return src
 
 
@@ -79,7 +87,7 @@ def main() -> int:
         return 1
     root = Path(sys.argv[1]).resolve()
     sys.path.insert(0, str(root))
-    from whisper_burn_tpu_torch.ops import _build
+    from whisper_burn_tpu_torch.ops import _build, ffn_kernel
 
     out_dir = root / "build" / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -89,9 +97,8 @@ def main() -> int:
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), str(src)], check=True,
                    capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib_path))
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    launch = _build.declare(lib, "fused_ffn", [p, i, p, p, p, p, p, p, p, p, ll, p, i, i, i, i, i, i, p])
-    plan = _build.declare(lib, "ffn_plan", [i, i, i, i, p])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    launch = _build.declare(lib, "fused_ffn", [p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p])
     stamps = _build.declare(lib, "ffn_phase_stamps", [p])
 
     g = torch.Generator(device="cuda")
@@ -103,38 +110,49 @@ def main() -> int:
                 "b": torch.randn((L, n), generator=g, device="cuda") * 0.1}
 
     fc1, fc2 = lin(D, F), lin(F, D)
+    units = [ffn_kernel._units(fc1["qw"], fc1["scales"]), ffn_kernel._units(fc2["qw"], fc2["scales"])]
     print(json.dumps({"card": card()}), flush=True)
-    for m in (1, 8, 40):
+    for m, after in ((1, True), (8, True), (40, True), (1536, False)):
         x = torch.randn((m, D), generator=g, device="cuda").to(torch.bfloat16)
         out = torch.empty((m, D), dtype=torch.bfloat16, device="cuda")
-        pl = (ctypes.c_longlong * 5)()
-        _build.check(plan(m, D, F, 1, ctypes.addressof(pl)), "ffn_plan")
-        cs, nsplit, tiles = pl[0], pl[1], pl[2]
-        ws = torch.empty((max(pl[4], 4),), device="cuda")
-        counters = torch.zeros((tiles * cs,), dtype=torch.int32, device="cuda")
+        plan, _, _ = ffn_kernel._plan(x.device, m, D, F, True)
+        scratch = torch.empty((plan["scratch"],), dtype=torch.bfloat16, device="cuda")
+        barrier = torch.zeros((1,), dtype=torch.int64, device="cuda")
 
         def call(layer):
             err = launch(x.data_ptr(), 1, fc1["qw"][layer].data_ptr(), fc1["scales"][layer].data_ptr(),
                          fc1["b"][layer].data_ptr(), fc2["qw"][layer].data_ptr(), fc2["scales"][layer].data_ptr(),
-                         fc2["b"][layer].data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(), counters.data_ptr(),
-                         m, D, F, nsplit, 0, 1, _build.stream_ptr(x.device))
+                         fc2["b"][layer].data_ptr(), *(u[layer].data_ptr() for u in units), out.data_ptr(),
+                         scratch.data_ptr(), barrier.data_ptr(),
+                         m, D, F, 0, int(after), _build.stream_ptr(x.device))
             _build.check(err, "fused_ffn (phases)")
 
         for layer in range(40):
             torch.cuda._sleep(1_000_000)  # launches apart: each one's stamps are its own
             call(layer % L)
         torch.cuda.synchronize()
-        buf = np.zeros((8192, 16), np.uint64)
+        buf = np.zeros((1024, 32), np.uint64)
         _build.check(stamps(buf.ctypes.data), "ffn_phase_stamps")
-        blocks = buf[: cs * nsplit * tiles, : len(PHASES)].astype(np.float64)
+        names, slots = (ENCODER, range(8, 12)) if plan["regime"] else (DECODE, DECODE_SLOTS)
+        blocks = buf[: plan["blocks"], list(slots)].astype(np.float64)
         t0 = blocks[:, 0].min()
-        row = {"rows": m, "splits": nsplit, "us_per_launch": time_us(call, L, 256)}
-        for k, name in enumerate(PHASES):
-            col = blocks[:, k]
-            # a phase only the last split reaches keeps older launches' stamps elsewhere
-            col = (col[col >= t0] - t0) / 1e3
-            if len(col):
-                row[name] = [float(np.min(col)), float(np.median(col)), float(np.max(col)), int(len(col))]
+        row = {"rows": m, "plan": plan, "us_per_launch": time_us(call, L, 256)}
+        # the SM clock over each block's launch: clock64 against the global timer, first to last stamp
+        last = 7 if not plan["regime"] else 11
+        ns = buf[: plan["blocks"], last].astype(np.float64) - buf[: plan["blocks"], slots[0]].astype(np.float64)
+        cyc = buf[: plan["blocks"], 16 + last].astype(np.float64) - buf[: plan["blocks"], 16 + slots[0]].astype(np.float64)
+        ok = ns > 0
+        if ok.any():
+            row["sm_mhz"] = float(np.median(cyc[ok] / ns[ok] * 1e3))
+        # decode: the fc2 blocks (the first D / 16) and the fc1-only blocks apart
+        groups = {"all": blocks} if plan["regime"] else {"fc2_blocks": blocks[: D // 16], "fc1_blocks": blocks[D // 16:]}
+        for group, rows in groups.items():
+            row[group] = {}
+            for k, name in enumerate(names):
+                col = rows[:, k]
+                col = (col[col >= t0] - t0) / 1e3  # blocks that reach the phase in the last launch
+                if len(col):
+                    row[group][name] = [float(np.min(col)), float(np.median(col)), float(np.max(col)), int(len(col))]
         print(json.dumps(row), flush=True)
     return 0
 

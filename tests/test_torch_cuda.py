@@ -117,12 +117,13 @@ def test_q4_matmul_regimes(gen):
 
 
 # Kernel I at Large-V3's FFN (1280 <-> 5120): the greedy decode's 8 rows and
-# the beam's 40 (F split over clusters, met in the workspace), the entry's
-# 1, the prefill's 4, the encoder's 1536 (24 row tiles, no workspace); and
-# Whisper tiny's D = 384 (clusters of 6) at 100 rows (two row tiles, the
-# last ragged).
+# the beam's 40 (the decode regime: weights held in shared memory, one grid
+# barrier), the entry's 1, the prefill's 4, the encoder's 1536 (the encoder
+# regime's wgmma tiles); Whisper Medium's (1024 <-> 4096) at 8, 40 and 1536
+# rows; and Whisper tiny's D = 384 at 100 rows (one ragged row tile, half
+# a column tile).
 FFN_SHAPES = [(8, 1280, 5120), (40, 1280, 5120), (1, 1280, 5120), (4, 1280, 5120), (1536, 1280, 5120),
-              (100, 384, 1536)]
+              (8, 1024, 4096), (40, 1024, 4096), (1536, 1024, 4096), (100, 384, 1536)]
 
 
 def _ffn_inputs(gen, m, d, f, dtype):
@@ -151,11 +152,25 @@ def test_fused_ffn_kernel(gen, m, d, f, kind, bias_after_round, dtype, tol):
 
 @pytest.mark.parametrize("m", [8, 40, 1536])
 def test_fused_ffn_bitwise_repeatable(gen, m):
-    """No float atomics, the splits met in index order: two calls give the
-    same bits (and the counters are left ready for the next launch)."""
+    """No float atomics, every sum in a fixed order: three calls give the
+    same bits, and so do two replays of a CUDA graph that captured the
+    launch (the cooperative launch is captured, and its barrier count is
+    left ready for the next launch)."""
     x, fc1, fc2 = _ffn_inputs(gen, m, 1280, 5120, torch.bfloat16)
     first, second, third = (fused_ffn(x, fc1, fc2, "tanh", layer=0, bias_after_round=True) for _ in range(3))
     assert torch.equal(first, second) and torch.equal(second, third)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        captured = fused_ffn(x, fc1, fc2, "tanh", layer=0, bias_after_round=True)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    replayed = captured.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, first) and torch.equal(captured, first)
+    assert torch.equal(fused_ffn(x, fc1, fc2, "tanh", layer=0, bias_after_round=True), first)
 
 
 @pytest.mark.parametrize("pos", [0, 1, 63])

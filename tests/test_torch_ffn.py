@@ -15,6 +15,11 @@ and K1, in interpret mode, on the same seeded numpy inputs:
 * The two faults this replaced stay visible: dequantizing in f32 differs
   from the Pallas kernels in more than 25% of bf16 outputs, and K7's bias
   order against K4 in more than 10%.
+* Whisper Medium's width (8 rows, 1024 <-> 4096), bf16 and f32, against
+  K7 and K4, at the same tolerances.
+* The second copy of the weights that kernel I's decode regime reads
+  (``unit_layout``): codes and scales where its lanes read them, and its
+  mma fragments reproducing the product.
 * One prefill and one decode step of a tiny model in ``Compute.fast()``
   against the JAX package's on its Pallas kernels: at ``tiny_test()``
   widths (an F the JAX package does not fuse) and at D = 128 (F = 512,
@@ -48,7 +53,7 @@ from whisper_burn_tpu_torch.models.decoder import decode_step, init_cache, prefi
 from whisper_burn_tpu_torch.models.params import random_params, repack_f32
 from whisper_burn_tpu_torch.ops import _build
 from whisper_burn_tpu_torch.ops.compute import Compute
-from whisper_burn_tpu_torch.ops.ffn_kernel import fused_ffn, fused_ffn_plain
+from whisper_burn_tpu_torch.ops.ffn_kernel import fused_ffn, fused_ffn_plain, unit_layout
 from whisper_burn_tpu_torch.ops.linear import apply_ffn, fusable
 from whisper_burn_tpu_torch.ops.q4_kernel import q4_matmul
 from whisper_burn_tpu_torch.transcribe import prepare_params
@@ -73,10 +78,10 @@ def _linear(rng, l_dim, k, n):
     return {"qw": np.stack(qws), "scales": np.stack(scs), "b": b}
 
 
-def _ffn(seed):
+def _ffn(seed, m=M, d=D, f=F):
     rng = np.random.default_rng(seed)
-    fc1, fc2 = _linear(rng, L, D, F), _linear(rng, L, F, D)
-    x = (rng.standard_normal((M, D)) * 0.5).astype(np.float32)
+    fc1, fc2 = _linear(rng, L, d, f), _linear(rng, L, f, d)
+    x = (rng.standard_normal((m, d)) * 0.5).astype(np.float32)
     return x, fc1, fc2
 
 
@@ -135,6 +140,60 @@ def test_fused_ffn_bf16_matches_pallas(kind, stacked):
     out = fused_ffn(torch.from_numpy(x).to(BF), _t(fc1), _t(fc2), kind, layer=0, bias_after_round=stacked)
     assert out.dtype == BF
     _assert_bf16_match(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+@pytest.mark.parametrize("stacked", [False, True], ids=["k7", "k4"])
+def test_fused_ffn_medium_width_matches_pallas(dtype, stacked):
+    """Whisper Medium's FFN (1024 <-> 4096) at the greedy batch's 8 rows,
+    against K7 and K4 in interpret mode, at the tolerances above."""
+    x, fc1, fc2 = _ffn(7, 8, 1024, 4096)
+    kind = "erf"
+    if dtype == torch.float32:
+        ref = _k4_ref(x, fc1, fc2, 1, kind, JF32, jnp.float32) if stacked else _k7_ref(x, fc1, fc2, 1, kind, JF32)
+        out = fused_ffn(torch.from_numpy(x), _t(fc1), _t(fc2), kind, layer=1, bias_after_round=stacked)
+        np.testing.assert_allclose(_np(out), np.asarray(ref, np.float32), rtol=1e-5, atol=1e-5)
+    else:
+        xb = jnp.asarray(x).astype(jnp.bfloat16)
+        ref = _k4_ref(xb, fc1, fc2, 1, kind, JBF16, jnp.bfloat16) if stacked else _k7_ref(xb, fc1, fc2, 1, kind, JBF16)
+        out = fused_ffn(torch.from_numpy(x).to(BF), _t(fc1), _t(fc2), kind, layer=1, bias_after_round=stacked)
+        assert out.shape == (8, 1024) and out.dtype == BF
+        _assert_bf16_match(out, ref)
+
+
+def test_unit_layout_feeds_the_mma_fragments():
+    """The decode regime's copy of the weights (``unit_layout``): each
+    16-column unit's 32-row blocks hold their codes where csrc/ffn.cu's
+    lanes read them, then their scales; and the mma.sync fragments the
+    kernel builds from them (16-row step h: rows 8t + 4h .. 8t + 4h + 3 of
+    a block as the mma's k = 2t, 2t+1, 2t+8, 2t+9; n8 tile j: columns 2n +
+    j) give x . W, simulated here in f32 with the k permutation applied to
+    x as the kernel's 16-byte A loads apply it."""
+    rng = np.random.default_rng(8)
+    k, n = 64, 48
+    qw = rng.integers(-8, 8, (2, k, n)).astype(np.int8)
+    sc = rng.random((2, k // 32, n)).astype(np.float32)
+    units = unit_layout(torch.from_numpy(qw), torch.from_numpy(sc)).numpy()
+    assert units.shape == (2, n // 16, k // 32, 576) and units.dtype == np.uint8
+    x = rng.standard_normal((16, k)).astype(np.float32)
+    for layer in range(2):
+        y = np.zeros((16, n), np.float32)
+        for u in range(n // 16):
+            for kb in range(k // 32):
+                blk = units[layer, u, kb]
+                assert np.array_equal(blk[512:].view(np.float32), sc[layer, kb, 16 * u:16 * u + 16])
+                codes = blk[:512].view(np.int8).reshape(8, 4, 4, 2, 2)  # lane (g, t), word q, row p, column c
+                for g in range(8):
+                    for t in range(4):
+                        for h in range(2):
+                            rows = 32 * kb + 8 * t + 4 * h + np.arange(4)  # the mma's k = 2t, 2t+1, 2t+8, 2t+9
+                            for j in range(2):
+                                w = codes[g, t, 2 * h:2 * h + 2, :, j].reshape(4)  # rows 8t+4h .. +3, column 2g + j
+                                col = 16 * u + 2 * g + j
+                                assert np.array_equal(w, qw[layer, rows, col])
+                                y[:, col] += x[:, rows] @ (w * sc[layer, kb, col])
+        np.testing.assert_allclose(y, x @ (qw[layer].reshape(k // 32, 32, n) * sc[layer][:, None]).reshape(k, n),
+                                   rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("fault", ["f32_dequant", "k7_bias_order"])

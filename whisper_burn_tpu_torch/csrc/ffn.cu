@@ -10,94 +10,115 @@
 // FFN: the sum rounded, then the bias added in the compute dtype, as
 // models/decoder.py does after it). bias_after_round picks K4's order; the
 // wrapper offsets the weight pointers to one layer, so nothing is copied.
-// As in K4 and K7 the hidden h = x . W1 + b1 and g = gelu(h) never reach
-// device memory: they live in registers and shared memory.
 //
 // Rounding, as the Pallas kernels round: for bf16 x every weight is
 // bf16(code x bf16(scale)) (a code times a bf16 scale is exact in f32, so
-// rounding the f32 product once is bf16's multiply; each scale is rounded
-// once, by the thread that staged it); h is summed in f32, g = gelu(h) is
-// rounded to bf16, the fc2 sum is f32. f32 x is f32 throughout. GELU is
-// the tanh form or, for "erf", K4's Abramowitz & Stegun 7.1.26 erf (about
-// 3e-6 from the exact erf), so that the kernel and its plain version agree
-// with K4 and K7 to the last f32 step.
+// rounding the product once is bf16's multiply); h is summed in f32, g =
+// gelu(h) is rounded to bf16, the fc2 sum is f32. f32 x is f32 throughout.
+// GELU is the tanh form or, for "erf", K4's Abramowitz & Stegun 7.1.26 erf
+// (about 3e-6 from the exact erf), so that the kernel and its plain version
+// agree with K4 and K7 to the last f32 step.
 //
 // Bound. At the decode shapes (M = 1-40 rows, Large-V3 1280 <-> 5120) the
 // work is reading the weights once: 2 (D F + D F / 32 x 4) = 14.75 MB, 4.4
 // us at 3.35 TB/s whatever M. The encoder's 1536 rows (B = 1) are bound by
 // operations: 4 M D F = 40.3 GFLOP, 40.7 us at 989 TFLOP/s.
 //
-// Design. F is cut into steps of 32 cs columns, cs (at most 8) the blocks
-// of a thread block cluster; a block owns 32 of the step's F columns in fc1
-// and D / cs of the output columns in fc2 (Large-V3: 32 of 256, and 160 of
-// 1280). Its warps split both: two warps to each 32 output columns (one
-// where the cluster size is odd, shape_plan); in fc1 each warp
-// takes its own run of 32-row K steps, in fc2 its half of the step's rows
-// at its 32 columns.
-//  - At a step's start every warp issues, with cp.async, its parts of the
-//    block's W1 slice [D][32] (40 KB) and W2 slice [32 cs][D / cs] (40 KB)
-//    and their scales: the whole slice is in flight at once, and each warp
-//    waits for its own part only, with no block barrier.
-//  - fc1: each warp runs mma.sync (m16n8k16, bf16 in, f32 out) on x's rows
-//    (read from global memory) and the codes. A lane builds its B fragments
-//    from four 32-bit words of codes: within each 16-row K step rows
-//    4t..4t+3 stand for the mma's k = 2t, 2t+1, 2t+8, 2t+9, and column n of
-//    n8 tile j is column 4n + j, so that an A fragment is one 8-byte load
-//    and a B fragment one word a row; a byte permute and one logic op turn
-//    two codes into bf16 200 + c, and one bf16x2 subtract and multiply into
-//    bf16(c x s). Rows are stored rotated within each group of four (row
-//    4t+i at 4t+((i+t)&3)) so those loads meet no bank conflict. The warps'
-//    sums meet in shared memory, added in warp order; + b1, GELU and the
-//    rounding give g [M][32].
-//  - The cluster's blocks exchange g through distributed shared memory:
-//    every block then holds G [M][32 cs] and runs fc2 on it for its own
-//    output columns, the same fragments from the W2 slice.
-//  - Rows: a tile of at most 64 rows (four m16 tiles) per cluster. Below 64
-//    rows one tile, and the steps are split over as many clusters as the
-//    card holds at once (20 at Large-V3 below 17 rows, 10 above): each
-//    cluster writes its f32 sums to a workspace, bumps an integer counter
-//    per owner, and the last to arrive sums the splits in index order, adds
-//    the bias and rounds (then resets the counter, so a replayed graph needs
-//    no memset). From 64 rows each cluster walks every step for its own row
-//    tile, its output sums in registers, and no workspace is used.
-// What bounds it on the card: not the weight read but the chain of
-// dependent phases after it (fc1, the exchange, fc2, the splits' sum);
-// scripts/torch_ffn_phases.py stamps each phase, PERF.md has the readings.
-// No float atomics: every sum runs in a fixed order, so two launches on the
-// same inputs give the same bits. The workspace and the counters are the
-// wrapper's, made once per (device, shape); launches of one shape must not
-// run concurrently on two streams.
+// fc2 sums over all of F, so no block can finish alone. Both regimes meet
+// that the same way: every block writes its part of g = gelu(fc1(x)) to a
+// scratch [M, F] in x's dtype (80 KB at 8 rows, 15.7 MB at 1536: it stays
+// in the 50 MB L2, so g now passes through device memory, where K4 and K7
+// keep it on the chip), all blocks meet once at a grid-wide barrier, and
+// then each block computes fc2 for output columns that it owns whole,
+// summing all of F in a fixed order. The launch is cooperative, so every
+// block is resident at once; the barrier is a 64-bit count that only grows
+// (grid_sync), ready for the next launch or graph replay with no reset. No
+// float atomics: two launches give the same bits.
+//
+// Decode regime (bf16 below 64 rows; f32 at any rows): one block to an SM,
+// each holding its whole share of the weights in shared memory, copied in
+// from its first instruction by 1D bulk copies (cp.async.bulk, completing
+// on mbarriers) out of a second copy of the weights in 16-column units
+// (ops/ffn_kernel.unit_layout; KB_BYTES below), each unit one contiguous
+// run. The plan (dec_plan) gives each of the first D / 16 blocks one fc2
+// unit (16 output columns over all of F) and e fc1 units (16 columns of F
+// over all of D), each later block C fc1 units, weighing what a block must
+// read before the barrier (Large-V3 at up to 32 rows: 80 blocks of 3 + 1
+// units and 27 of 3).
+// - Copies: K part p of every W1 unit of the block on barrier p (nparts
+//   parts), then W2's unit and the biases on one more barrier.
+// - fc1: a job is (residue, unit group): the K blocks (32 rows) of D are
+//   dealt round-robin to the residues, so all warps share the part that
+//   lands last, and a warp runs mma.sync (m16n8k16, bf16 in, f32 out) for
+//   up to five units on one load of x's A fragments (16 bytes a row),
+//   waiting for each K block's part just before using it. Within a K block
+//   lane (g, t) holds x's columns 8t..8t+7 and the codes of the same rows
+//   at columns 2g, 2g + 1 (one 16-byte load); 16-row step h takes rows 8t
+//   + 4h .. 8t + 4h + 3 as the mma's k = 2t, 2t+1, 2t+8, 2t+9. A byte
+//   permute and one logic op turn two codes into bf16 200 + c, and one
+//   bf16x2 subtract and multiply into bf16(c x s). The residues' sums meet
+//   in shared memory in order; + b1, GELU and the rounding give g.
+// - fc2: after the barrier each fc2 block runs the same mma over its W2
+//   unit, its warps dealt F's K blocks round-robin, with g's fragments
+//   read through L2 (ld.global.cg); the warps' sums added in warp order,
+//   then the bias. 16 warps up to 32 rows of bf16 (8 above, and for f32),
+//   to keep more loads and more independent work in flight.
+// f32 takes the same plan with one FMA a weight on CUDA cores, row tiles of
+// 64 rows walked in turn, weights still read once.
+//
+// Encoder regime (bf16, 64 rows and up: the entry's and a B = 1 window's
+// 1536): two products on the tensor cores, one persistent block to an SM
+// walking 128 x 128 output tiles: fc1 (x . W1, epilogue + b1, GELU, g to
+// the scratch), the grid barrier, fc2 (g . W2, epilogue the bias). For
+// each 64-deep K chunk TMA (cp.async.bulk.tensor, 2D tensor maps encoded
+// through the runtime's driver entry point) brings the A tile [128][64] in
+// the 128-byte swizzle, the codes [64][128] and their scales into one of
+// six stages (one mbarrier each); the block's 256 threads dequantize the
+// codes once into two bf16 panels [64 k][64 n] in the swizzle a wgmma
+// descriptor names, and two warpgroups (64 rows each) run wgmma.m64n128k16
+// on them, the A operand and the B panels both read from shared memory,
+// with the sums in registers across the tile's chunks. Chunk q + 1 is
+// dequantized while chunk q's wgmma runs; a stage is refilled as soon as
+// its chunk's products are done, six chunks ahead.
+//
+// What bounds it on the card (scripts/torch_ffn_phases.py, PERF.md): at
+// the decode shapes the weights land when a plain copy of 14.75 MB would
+// (about 6.5 us after the start), then fc1's last part, the barrier and
+// fc2, whose blocks each read all of g from L2; at 1536 rows the stream
+// of A and B tiles from L2 (each tile's x or g rows are read again for
+// every column tile), with the dequant on its path. The scratch and the
+// barrier word are the wrapper's, made once per (device, shape); launches
+// of one shape must not run concurrently on two streams.
 
-#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 
-namespace cg = cooperative_groups;
-
 namespace {
 
-constexpr int FC = 32;          // F columns a block owns in fc1 (a W2 scale row)
-constexpr int MAX_CS = 8;       // blocks of a cluster
-constexpr int TILE_ROWS = 64;   // rows of a row tile: four m16 tiles
-constexpr int GP = 16;          // G row pad (elements): conflict-free 8-byte loads
-constexpr int MAX_THREADS = 320;
+constexpr int THREADS = 256;  // the encoder regime: two warpgroups
+// the decode regime's warps: 16 for bf16 up to 32 rows (more loads and
+// more warps in flight to hide each one's latency), else 8
+__host__ __device__ constexpr int dec_warps(bool bf16, int mt) { return bf16 && mt <= 2 ? 16 : 8; }
+constexpr size_t SMEM_LIMIT = 232448;
+constexpr size_t ONE_PER_SM = 118 * 1024;  // more than half an SM's shared memory: one block to an SM
 
-struct FfnArgs {
-  const void* x;         // [M, D] f32 or bf16
-  const int8_t* qw1;     // [D, F]
-  const float* s1;       // [D/32, F]
-  const float* b1;       // [F]
-  const int8_t* qw2;     // [F, D]
-  const float* s2;       // [F/32, D]
-  const float* b2;       // [D]
-  void* out;             // [M, D], x's dtype
-  float* ws;             // [tiles][nsplit][R][D] f32 when nsplit > 1
-  unsigned* counters;    // [tiles][cs]
-  int M, D, F, cs, ks, nsplit, gelu_erf, bias_after_round;
-};
+// decode regime
+constexpr int UNIT = 16;      // columns of a unit: of F in fc1, of the output in fc2
+constexpr int MAX_PARTS = 8;  // K parts of W1, each on its own barrier
+
+// encoder regime
+constexpr int BM = 128, BN = 128, BK = 64, STAGES = 6, NP = BN / 64;  // two panels of 64 columns: one n128 product
+constexpr int A_BYTES = BM * BK * 2, BQ_BYTES = BK * BN, BS_BYTES = BK / 32 * BN * 4;
+constexpr int SLOT_BYTES = A_BYTES + BQ_BYTES + BS_BYTES;  // 25 KB: every stage on a 1024-byte boundary
+constexpr int PANEL = BK * 64;                             // bf16 of a dequantized panel [64 k][64 n]
+constexpr size_t ENC_SMEM = 1024 + (size_t)STAGES * SLOT_BYTES + 2 * NP * PANEL * 2 + STAGES * 8;
+
+__host__ __device__ inline size_t up(size_t v, size_t a) { return (v + a - 1) / a * a; }
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
@@ -118,20 +139,38 @@ __device__ __forceinline__ float erf_as(float x) {
 }
 
 __device__ __forceinline__ float gelu_erf(float x) { return 0.5f * x * (1.0f + erf_as(x * 0.70710678118654752f)); }
+__device__ __forceinline__ float gelu(float x, int erf) { return erf ? gelu_erf(x) : gelu_tanh(x); }
+
+// fc2's bias in K7's order (in the f32 sum, one rounding) or K4's (the sum
+// rounded, then the bias added in bf16)
+template <bool BF>
+__device__ __forceinline__ float finish(float v, float b, int after) {
+  if (BF && after) return round_bf16(v) + round_bf16(b);
+  return v + b;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// A Q4 code c (-8 to 7) as the bf16 200 + c is its low nibble xor 0x48
+// under the bf16 exponent byte 0x43; subtracting 200 gives c exactly and
+// one bf16 multiply bf16(c x s): two codes per instruction of each kind.
+__device__ __forceinline__ uint32_t bf16x2_sub_mul(uint32_t v, uint32_t s2) {
+  const uint32_t k200 = 0x43484348u;  // bf16 200 twice
+  const __nv_bfloat162 c = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v), *reinterpret_cast<const __nv_bfloat162*>(&k200));
+  const __nv_bfloat162 w = __hmul2(c, *reinterpret_cast<const __nv_bfloat162*>(&s2));
+  return *reinterpret_cast<const uint32_t*>(&w);
+}
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// bytes lo and hi of w (selector 0x4n4m: byte m low, byte n high) as bf16 200 + c
+__device__ __forceinline__ uint32_t codes200(uint32_t w, uint32_t sel) {
+  return (__byte_perm(w, 0u, sel) & 0x000F000Fu) ^ 0x43484348u;
 }
 
 __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], const uint32_t b[2]) {
@@ -142,510 +181,835 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], const 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&v);
+// ---- mbarriers and TMA
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
 }
 
-// Where weight row r (of a slice) is stored: rotated within its group of
-// four, so that lane t's rows 4t+i (i fixed) fall in four bank groups.
-__device__ __forceinline__ int row_at(int r) { return (r & ~3) | ((r + (r >> 2)) & 3); }
+__device__ __forceinline__ void mbar_fence_init() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
 
-// B fragments of four n8 tiles for one 16-row K step: w[i] holds the codes
-// of row 4t+i at columns 4g..4g+3; tile j takes column 4g+j, and its rows
-// 4t, 4t+1 (b0) and 4t+2, 4t+3 (b1) stand for the mma's k = 2t, 2t+1 and
-// 2t+8, 2t+9. s2[j]: column 4g+j's scale as a bf16 pair. A Q4 code c (-8
-// to 7) becomes the bf16 200 + c by a byte permute and one logic op (its
-// low nibble xor 0x48 under the bf16 exponent byte 0x43), then c exactly by
-// subtracting 200, then bf16(c x s) by one bf16 multiply: two codes per
-// instruction of each kind.
-__device__ __forceinline__ uint32_t bf16x2_sub_mul(uint32_t v, uint32_t s2) {
-  const uint32_t k200 = 0x43484348u;  // bf16 200 twice
-  const __nv_bfloat162 c = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v), *reinterpret_cast<const __nv_bfloat162*>(&k200));
-  const __nv_bfloat162 w = __hmul2(c, *reinterpret_cast<const __nv_bfloat162*>(&s2));
-  return *reinterpret_cast<const uint32_t*>(&w);
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ void b_fragments(const uint32_t w[4], const uint32_t s2[4], uint32_t b[4][2]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t lo = (__byte_perm(w[0], w[1], 0x4400u + 0x1111u * j) & 0x000F000Fu) ^ 0x43484348u;
-    const uint32_t hi = (__byte_perm(w[2], w[3], 0x4400u + 0x1111u * j) & 0x000F000Fu) ^ 0x43484348u;
-    b[j][0] = bf16x2_sub_mul(lo, s2[j]);
-    b[j][1] = bf16x2_sub_mul(hi, s2[j]);
-  }
+// A wait that cannot end (a copy that never lands) traps after some
+// seconds, so a fault fails the launch instead of holding the card.
+constexpr unsigned SPIN_LIMIT = 1u << 26;
+
+__device__ __forceinline__ bool mbar_try(uint64_t* bar, unsigned parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(ok)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
 }
 
-// Four scales (already rounded to bf16) as bf16 pairs.
-__device__ __forceinline__ void scale_pairs(float4 v, uint32_t s2[4]) {
-  const float f[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) s2[j] = pack_bf16(f[j], f[j]);
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  for (unsigned n = 0; !mbar_try(bar, parity); ++n)
+    if (n == SPIN_LIMIT) __trap();
 }
 
-// The block's shared memory, carved from one dynamic buffer. Each warp
-// owns a part of the weight slices: its K steps of W1 (fc1) and its rows
-// of W2 at its 32 output columns (fc2), which it loads, waits for and
-// reads alone.
-template <typename T, int MT>
-struct Smem {
-  int8_t* w1;     // [W][cs/ks * 32 rows][FC] codes, rows at row_at
-  float* sc1;     // [W][cs/ks][FC]
-  int8_t* w2;     // [W][FR/ks rows][32] codes, rows at row_at
-  float* sc2;     // [W][cs/ks][32]
-  float* P;       // [W][R][FC]: the warps' fc1 sums; at the end their fc2 sums ...
-  T* G;           // [R][GS]: ... sharing their space with the cluster's g
-  T* gown;        // [R][FC]: this block's g, read by its peers
-  unsigned* flag;
+// a 2D box of `map` at (column c0, row c1) into shared memory, completing on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
 
-  __host__ __device__ static size_t pg_bytes(int D, int cs, int ks) {
-    const int warps = D / (32 * cs) * ks, R = 16 * MT;
-    const size_t p = (size_t)warps * R * FC * 4, g = (size_t)R * (FC * cs + GP) * sizeof(T);
-    return p > g ? p : g;
+// `bytes` contiguous bytes into shared memory, completing on bar (16-byte aligned, a multiple of 16)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
+}
+
+// between generic-proxy writes (g, the dequantized panels) and async-proxy reads (TMA, wgmma)
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async;\n" ::: "memory"); }
+
+// A grid-wide barrier on a 64-bit count that only grows: a launch's
+// arrivals are [k grid, (k + 1) grid) for some k. Each block reads the
+// count once before it can have reached it (grid_target, at its start) and
+// waits, after its own arrival, for the end of its launch's range. Nothing
+// is reset: the word is ready for the next launch or graph replay.
+__device__ __forceinline__ unsigned long long grid_target(const unsigned long long* bar) {
+  unsigned long long now;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(now) : "l"(bar) : "memory");
+  return (now / gridDim.x + 1) * gridDim.x;
+}
+
+__device__ void grid_sync(unsigned long long* bar, unsigned long long target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u64 [%0], 1;\n" ::"l"(bar) : "memory");
+    for (unsigned n = 0;; ++n) {
+      unsigned long long now;
+      asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n" : "=l"(now) : "l"(bar) : "memory");
+      if (now >= target) break;
+      if (n == SPIN_LIMIT) __trap();
+      __nanosleep(20);
+    }
   }
-  __host__ __device__ static size_t bytes(int D, int cs, int ks) {
-    return (size_t)D * FC * 2 + (size_t)D * 8 + pg_bytes(D, cs, ks) + (size_t)16 * MT * FC * sizeof(T) + 16;
-  }
-  __device__ Smem(unsigned char* p, int D, int cs, int ks) {
-    w1 = reinterpret_cast<int8_t*>(p);
-    sc1 = reinterpret_cast<float*>(w1 + D * FC);
-    w2 = reinterpret_cast<int8_t*>(sc1 + D);
-    sc2 = reinterpret_cast<float*>(w2 + D * FC);
-    P = sc2 + D;
-    G = reinterpret_cast<T*>(P);
-    gown = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(P) + pg_bytes(D, cs, ks));
-    flag = reinterpret_cast<unsigned*>(gown + 16 * MT * FC);
-  }
+  __syncthreads();
+}
+
+// =========================================================================
+// Decode regime
+
+// The decode regime reads each weight as a second copy in units of 16
+// columns (ops/ffn_kernel.unit_layout): [N/16][K/32][KB_BYTES], each 32-row
+// K block its codes (512 bytes: lane 4g + t of a warp finds at 16 lane ..
+// its codes of rows 8t..8t+7 at columns 2g and 2g + 1; byte 4q + 2p + c is
+// row 8t + 2q + p, column 2g + c), then its 16 f32 scales.
+constexpr int KB_BYTES = 512 + 64;
+
+struct DecArgs {
+  const void* x;            // [M, D]
+  const unsigned char* w1;  // W1 [D, F] in units
+  const unsigned char* w2;  // W2 [F, D] in units
+  const float* b1;
+  const float* b2;
+  void* g;    // scratch [M, F], x's dtype
+  void* out;  // [M, D]
+  unsigned long long* bar;
+  int M, D, F, C, e, nparts, gelu_erf, bias_after_round;
 };
 
-// At most 320 threads a block (two warps to each 32 output columns at
-// Large-V3); below 17 rows two blocks to a multiprocessor.
-template <typename T, int MT>
-__global__ void __launch_bounds__(MAX_THREADS, MT == 1 ? 2 : 1) ffn_kernel(const FfnArgs a) {
-  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int R = 16 * MT;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int cs = a.cs, ks = a.ks, D = a.D, M = a.M;
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int split = blockIdx.x / cs, tile = blockIdx.y;
-  const int m0 = tile * TILE_ROWS, mrows = min(TILE_ROWS, M - m0);
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int W = nthreads >> 5, warp = tid >> 5, lane = tid & 31;
-  const int nw = W / ks;                  // 32-column groups of the block's output
-  const int g = lane >> 2, t = lane & 3;
-  const int Dc = D / cs, n0 = rank * Dc;  // this block's output columns
-  const int cw = (warp % nw) * 32;        // this warp's, within them,
-  const int FR = FC * cs, GS = FR + GP;   // F rows of a step; G's row stride
-  const int fr_w = FR / ks, r0w = (warp / nw) * fr_w;  // and its rows of the step's FR
-  const int kw = cs / ks, ks0 = warp * kw;  // its fc1 K steps (of 32 rows): kw of the D/32
-  const int steps = a.F / FR;
-  const int s_lo = split * steps / a.nsplit, s_hi = (split + 1) * steps / a.nsplit;
-  const T* x = static_cast<const T*>(a.x);
-  // where this lane's B-fragment words sit in a 16-row group of a weight
-  // part (rows 4t..4t+3, columns 4g..4g+3), in rows of 32 bytes
-  int boff[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) boff[i] = row_at(4 * t + i) * 32 + 4 * g;
+// A block's work and where its weights sit in its shared memory: its W1
+// units at 0 as in device memory, W2's unit, the biases of its fc1 units
+// and of its fc2 unit.
+struct DecLayout {
+  int c1, u0, fc2;  // fc1 units [u0, u0 + c1); fc2 unit, or -1
+  size_t w2, bias, end;
+};
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<T, MT> sm(smem_raw, D, cs, ks);
-  int8_t* w1w = sm.w1 + warp * kw * 32 * FC;
-  float* sc1w = sm.sc1 + warp * kw * FC;
-  int8_t* w2w = sm.w2 + warp * fr_w * 32;
-  float* sc2w = sm.sc2 + warp * kw * 32;
+__host__ __device__ inline DecLayout dec_layout(int b, int D, int F, int C, int e) {
+  const int U1 = F / UNIT, U2 = D / UNIT;
+  DecLayout l;
+  if (b < U2) {
+    l.fc2 = b, l.u0 = b * e;
+    const int left = U1 - l.u0;
+    l.c1 = left < 0 ? 0 : (left < e ? left : e);
+  } else {
+    l.fc2 = -1, l.u0 = U2 * e + (b - U2) * C;
+    l.c1 = U1 - l.u0 < C ? U1 - l.u0 : C;
+  }
+  l.w2 = up((size_t)l.c1 * (D / 32) * KB_BYTES, 128);
+  l.bias = l.w2 + (l.fc2 >= 0 ? (size_t)(F / 32) * KB_BYTES : 0);
+  l.end = l.bias + (size_t)UNIT * (l.c1 + 1) * 4;
+  return l;
+}
 
-  auto load_w1 = [&](int s) {  // this warp's K rows of the step's W1 slice, and their scales
-    const int f0 = s * FR + rank * FC;
-    const int8_t* src = a.qw1 + (size_t)ks0 * 32 * a.F + f0;
-    for (int i = lane; i < kw * 64; i += 32) {
-      const int r = i >> 1, c = (i & 1) * 16;
-      cp_async16(w1w + row_at(r) * FC + c, src + (size_t)r * a.F + c);
-    }
-    for (int i = lane; i < kw * 8; i += 32)  // float4 i: scale row i/8
-      cp_async16(sc1w + 4 * i, a.s1 + (size_t)(ks0 + (i >> 3)) * a.F + f0 + (i & 7) * 4);
-  };
-  auto load_w2 = [&](int s) {  // this warp's rows of the step's W2 at its 32 columns, and their scales
-    const int fr0 = s * FR + r0w;
-    const int8_t* src = a.qw2 + (size_t)fr0 * D + n0 + cw;
-    for (int i = lane; i < fr_w * 2; i += 32) {
-      const int r = i >> 1, c = (i & 1) * 16;
-      cp_async16(w2w + row_at(r) * 32 + c, src + (size_t)r * D + c);
-    }
-    for (int i = lane; i < kw * 8; i += 32)
-      cp_async16(sc2w + 4 * i, a.s2 + (size_t)(fr0 / 32 + (i >> 3)) * D + n0 + cw + (i & 7) * 4);
-  };
-  // wait for this warp's oldest pending slice; round the scales this lane
-  // staged to bf16 in place (bf16 x only); publish both within the warp
-  auto wait_own = [&](float* sc) {
-    cp_async_wait<1>();
-    if constexpr (BF) {
-      for (int i = lane; i < kw * 8; i += 32) {
-        const float4 v = reinterpret_cast<float4*>(sc)[i];
-        reinterpret_cast<float4*>(sc)[i] = make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w));
-      }
-    }
-    __syncwarp();
-  };
+// fc1's jobs: the block's c1 units in ng groups of at most ug (the
+// accumulators a warp holds: 5 units up to 16 rows, 3 above), and its K
+// blocks dealt round-robin to nres residues; a job is (residue, group), so
+// the warps share every K part, and a warp reads its A fragments once for
+// its group.
+struct DecJobs {
+  int ng, ug, nres;
+};
 
-  // fc2's sums over this split's steps: bf16 as mma fragments [MT][4 tiles][4],
-  // f32 as one column (lane) of rows 0..R-1
-  float acc2[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) acc2[i] = 0.f;
+__host__ __device__ inline DecJobs dec_jobs(int c1, int D, int mt, int warps) {
+  DecJobs j;
+  const int cap = mt == 1 ? 5 : 3;
+  j.ng = c1 > 0 ? (c1 + cap - 1) / cap : 1;
+  j.ug = c1 > 0 ? (c1 + j.ng - 1) / j.ng : 0;
+  j.nres = warps / j.ng < D / 32 ? warps / j.ng : D / 32;
+  return j;
+}
 
-  load_w1(s_lo);
-  cp_async_commit();
-  load_w2(s_lo);
-  cp_async_commit();
-  for (int s = s_lo; s < s_hi; ++s) {
-    const int f0 = s * FR + rank * FC;
-    float* Pw = sm.P + warp * R * FC;
+// f32 partial sums after the weights: fc1's [nres][R][16 c1], later fc2's [warps][R][16]
+__host__ __device__ inline size_t dec_partials(int c1, int D, int mt, int warps) {
+  const int R = 16 * mt;
+  const size_t a = (size_t)dec_jobs(c1, D, mt, warps).nres * R * UNIT * c1, b = (size_t)warps * R * UNIT;
+  return a > b ? a : b;
+}
 
-    // ---- fc1: this warp's part of h [R][FC], over its kw K steps
-    if constexpr (BF) {
-      float acc1[MT][4][4];
+// acc += A[rows, K] . tile_u for the nu (at most UG) units of a group
+// (bf16) over the K blocks kb0, kb0 + kstep, ... (nkb of them), then the
+// sums to out[r][16 u + c] (row stride ldo). A: bf16 rows of stride lda
+// (x, or g read through L2 with CG); rows at `rows` and above are zero
+// (HALF: `rows` is at most 8). Unit u's blocks are at wt + u ustride. For
+// a K block lane (g, t) holds A's columns 8t..8t+7 of it (one 16-byte load
+// a row, used for every unit of the group) and each unit's codes of the
+// same rows at columns 2g, 2g + 1 (one 16-byte load): 16-row step h takes
+// rows 8t + 4h .. 8t + 4h + 3 as the mma's k = 2t, 2t+1, 2t+8, 2t+9, and
+// n8 tile j column 2n + j. The A fragments of NB blocks are loaded before
+// any is used, to keep bytes in flight; with bars, each block's W1 part
+// (kbp blocks a part) is waited for just before the block is used.
+template <int MT, bool HALF, int UG, int NB, bool CG>
+__device__ __forceinline__ void group_mma(const __nv_bfloat16* A, int lda, int rows, const unsigned char* wt,
+                                          size_t ustride, int nu, int kb0, int kstep, int nkb, float* out, int ldo,
+                                          uint64_t* bars, int kbp) {
+  constexpr int NQ = HALF ? 1 : 2;  // m8 halves of an m16 tile that hold rows
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float acc[UG][MT][2][4];
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+  for (int u = 0; u < UG; ++u)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc1[i][j][e] = 0.f;
-      // x's A fragments of K step k: rows g and g+8 of each m16 tile, k 4t..4t+3 of each half
-      auto load_a = [&](int k, uint32_t (&af)[2][MT][4]) {
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int e = 0; e < 4; ++e) acc[u][i][j][e] = 0.f;
+  for (int i0 = 0; i0 < nkb; i0 += NB) {
+    uint4 av[NB][MT][NQ];
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            const int ra = mt * 16 + g, rb = ra + 8, kx = (ks0 + k) * 32 + h * 16 + 4 * t;
-            const uint2 lo = ra < mrows ? __ldg(reinterpret_cast<const uint2*>(x + (size_t)(m0 + ra) * D + kx)) : make_uint2(0u, 0u);
-            const uint2 hi = rb < mrows ? __ldg(reinterpret_cast<const uint2*>(x + (size_t)(m0 + rb) * D + kx)) : make_uint2(0u, 0u);
-            af[h][mt][0] = lo.x, af[h][mt][1] = hi.x, af[h][mt][2] = lo.y, af[h][mt][3] = hi.y;
-          }
-      };
-      wait_own(sc1w);  // W1(s)
-      for (int k = 0; k < kw; ++k) {
-        uint32_t af[2][MT][4];
-        load_a(k, af);
-        uint32_t s2[4];
-        scale_pairs(*reinterpret_cast<const float4*>(sc1w + k * FC + 4 * g), s2);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int kb = k * 32 + h * 16;
-          uint32_t w[4], b[4][2];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) w[i] = *reinterpret_cast<const uint32_t*>(w1w + kb * FC + boff[i]);
-          b_fragments(w, s2, b);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma_bf16(acc1[mt][j], af[h][mt], b[j]);
-        }
-      }
-      // element e of tile j is row g + 8 (e >> 1), column 8t + 4 (e & 1) + j
+    for (int b = 0; b < NB; ++b)
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int q = 0; q < NQ; ++q) {
+          const int r = mt * 16 + g + 8 * q, kb = kb0 + (i0 + b) * kstep;
+          const uint4* p = reinterpret_cast<const uint4*>(A + (size_t)r * lda + 32 * kb + 8 * t);
+          av[b][mt][q] = r < rows && i0 + b < nkb ? (CG ? __ldcg(p) : __ldg(p)) : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (i0 + b < nkb) {
+        const int kb = kb0 + (i0 + b) * kstep;
+        if (bars) mbar_wait(&bars[kb / kbp], 0);
+#pragma unroll
+        for (int u = 0; u < UG; ++u) {
+          if (u < nu) {
+            const unsigned char* blk = wt + u * ustride + (size_t)kb * KB_BYTES;
+            const uint4 w = *reinterpret_cast<const uint4*>(blk + 16 * lane);
+            const float* sr = reinterpret_cast<const float*>(blk + 512) + 2 * g;
+            const uint32_t s2[2] = {pack_bf16(sr[0], sr[0]), pack_bf16(sr[1], sr[1])};
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const uint32_t lo = h ? w.z : w.x, hi = h ? w.w : w.y;  // rows 8t+4h, +1 and +2, +3
+              uint32_t bf[2][2];
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {  // byte j (row p = 0) low, byte 2 + j (row p = 1) high
+                bf[j][0] = bf16x2_sub_mul(codes200(lo, 0x4240u + 0x0101u * j), s2[j]);
+                bf[j][1] = bf16x2_sub_mul(codes200(hi, 0x4240u + 0x0101u * j), s2[j]);
+              }
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt) {
+                const uint4 ra = av[b][mt][0], rb = HALF ? make_uint4(0u, 0u, 0u, 0u) : av[b][mt][NQ - 1];
+                const uint32_t af[4] = {h ? ra.z : ra.x, h ? rb.z : rb.x, h ? ra.w : ra.y, h ? rb.w : rb.y};
+                mma_bf16(acc[u][mt][0], af, bf[0]);
+                mma_bf16(acc[u][mt][1], af, bf[1]);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+  // element e of tile j: row g + 8 (e >> 1), column 2 (2t + (e & 1)) + j
+#pragma unroll
+  for (int u = 0; u < UG; ++u)
+    if (u < nu)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            Pw[(mt * 16 + g + 8 * (e >> 1)) * FC + 8 * t + 4 * (e & 1) + j] = acc1[mt][j][e];
-    } else {
-      float acc1[R];
-#pragma unroll
-      for (int m = 0; m < R; ++m) acc1[m] = 0.f;
-      wait_own(sc1w);  // W1(s)
-      for (int k = 0; k < kw; ++k) {
-        const float sc = sc1w[k * FC + lane];
-        for (int kk = 0; kk < 32; ++kk) {
-          const int r = (ks0 + k) * 32 + kk;
-          const float wv = static_cast<float>(w1w[row_at(k * 32 + kk) * FC + lane]) * sc;
-#pragma unroll
-          for (int m = 0; m < R; ++m) {
-            const float xv = m < mrows ? __ldg(reinterpret_cast<const float*>(x) + (size_t)(m0 + m) * D + r) : 0.f;
-            acc1[m] = fmaf(xv, wv, acc1[m]);
-          }
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < R; ++m) Pw[m * FC + lane] = acc1[m];
-    }
-    // this warp's W1 rows are read: they take the next step's
-    if (s + 1 < s_hi) load_w1(s + 1);
-    cp_async_commit();
+            out[(mt * 16 + g + 8 * (e >> 1)) * ldo + UNIT * u + 4 * t + 2 * (e & 1) + j] = acc[u][mt][j][e];
+}
 
-    // ---- g = gelu(h + b1), the warps' sums taken in order and rounded to T
-    if (s == s_lo) __syncthreads();  // every warp's sum is in P
-    else cluster.sync();  // and the peers have gathered the previous step's g
-    for (int i = tid; i < mrows * FC; i += nthreads) {
-      float h = sm.P[i];
-      for (int w = 1; w < W; ++w) h += sm.P[w * R * FC + i];
-      h += a.b1[f0 + (i & (FC - 1))];
-      store(sm.gown + i, a.gelu_erf ? gelu_erf(h) : gelu_tanh(h));
-    }
-    cluster.sync();  // every block's g is in place (and P is read)
-    {  // the cluster's g into G, four 16-byte pieces in flight a thread
-      constexpr int VPR = FC * sizeof(T) / 16;  // 16-byte pieces of a g row
-      const int per_peer = mrows * VPR, total = cs * per_peer;
-      for (int i0 = tid; i0 < total; i0 += 4 * nthreads) {
-        uint4 v[4];
+// The same in f32 on CUDA cores, one unit after another: lane l takes
+// column l % 16 and every other row from l / 16.
+template <int MT, bool CG>
+__device__ __forceinline__ void group_f32(const float* A, int lda, int rows, const unsigned char* wt, size_t ustride,
+                                          int nu, int kb0, int kstep, int nkb, float* out, int ldo, uint64_t* bars,
+                                          int kbp) {
+  constexpr int RL = 8 * MT;
+  const int lane = threadIdx.x & 31, c = lane & 15, r0 = lane >> 4;
+  for (int u = 0; u < nu; ++u) {
+    float acc[RL];
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int i = i0 + u * nthreads;
-          if (i < total) {
-            const int q = i / per_peer, rem = i - q * per_peer, m = rem / VPR, c = rem - m * VPR;
-            v[u] = reinterpret_cast<const uint4*>(cluster.map_shared_rank(sm.gown + m * FC, q))[c];
-          }
-        }
+    for (int i = 0; i < RL; ++i) acc[i] = 0.f;
+    for (int i = 0; i < nkb; ++i) {
+      const int kb = kb0 + i * kstep;
+      if (bars) mbar_wait(&bars[kb / kbp], 0);
+      const unsigned char* blk = wt + u * ustride + (size_t)kb * KB_BYTES;
+      const float sc = reinterpret_cast<const float*>(blk + 512)[c];
+      for (int kk = 0; kk < 32; ++kk) {
+        const int code = static_cast<int8_t>(blk[16 * (4 * (c >> 1) + (kk >> 3)) + 4 * ((kk >> 1) & 3) + 2 * (kk & 1) + (c & 1)]);
+        const float w = static_cast<float>(code) * sc;
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int i = i0 + u * nthreads;
-          if (i < total) {
-            const int q = i / per_peer, rem = i - q * per_peer, m = rem / VPR, c = rem - m * VPR;
-            reinterpret_cast<uint4*>(sm.G + m * GS + q * FC)[c] = v[u];
-          }
+        for (int q = 0; q < RL; ++q) {
+          const int r = r0 + 2 * q;
+          const float* p = A + (size_t)r * lda + 32 * kb + kk;
+          const float v = r < rows ? (CG ? __ldcg(p) : __ldg(p)) : 0.f;
+          acc[q] = fmaf(v, w, acc[q]);
         }
       }
     }
-    // the last step's g read from the peers: arrive at the cluster barrier
-    // that lets them leave (waited for at the end)
-    if (s + 1 == s_hi) asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-    __syncthreads();  // G complete
-
-    // ---- fc2: this warp's rows of G at its 32 output columns
-    wait_own(sc2w);  // W2(s)
-    if constexpr (BF) {
-      for (int kb = 0; kb < fr_w; kb += 16) {
-        uint32_t s2[4], w[4], b[4][2];
-        scale_pairs(*reinterpret_cast<const float4*>(sc2w + (kb >> 5) * 32 + 4 * g), s2);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) w[i] = *reinterpret_cast<const uint32_t*>(w2w + kb * 32 + boff[i]);
-        b_fragments(w, s2, b);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const int ra = mt * 16 + g, rb = ra + 8, kg = r0w + kb + 4 * t;
-          const uint2 lo = ra < mrows ? *reinterpret_cast<const uint2*>(sm.G + ra * GS + kg) : make_uint2(0u, 0u);
-          const uint2 hi = rb < mrows ? *reinterpret_cast<const uint2*>(sm.G + rb * GS + kg) : make_uint2(0u, 0u);
-          const uint32_t af[4] = {lo.x, hi.x, lo.y, hi.y};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(acc2 + (mt * 4 + j) * 4, af, b[j]);
-        }
-      }
-    } else {
-      for (int k = 0; k < fr_w; ++k) {
-        const float wv = static_cast<float>(w2w[row_at(k) * 32 + lane]) * sc2w[(k >> 5) * 32 + lane];
-        const float* gr = reinterpret_cast<const float*>(sm.G) + r0w + k;
-#pragma unroll
-        for (int m = 0; m < R; ++m) acc2[m] = fmaf(gr[m * GS], wv, acc2[m]);
-      }
-    }
-    // this warp's W2 rows are read: they take the next step's
-    if (s + 1 < s_hi) load_w2(s + 1);
-    cp_async_commit();
-    __syncthreads();  // G is read before the next step's sums overwrite it
+    for (int q = 0; q < RL; ++q) out[(r0 + 2 * q) * ldo + UNIT * u + c] = acc[q];
   }
-  cp_async_wait<0>();
+}
 
-  // ---- the warps' fc2 sums into P as [warp][row][32]
-  float* Qw = sm.P + warp * R * FC;
-  if constexpr (BF) {
-    // element e of tile j is row g + 8 (e >> 1), column 8t + 4 (e & 1) + j
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          Qw[(mt * 16 + g + 8 * (e >> 1)) * FC + 8 * t + 4 * (e & 1) + j] = acc2[(mt * 4 + j) * 4 + e];
-  } else {
-#pragma unroll
-    for (int m = 0; m < R; ++m) Qw[m * FC + lane] = acc2[m];
+template <typename T, int MT, bool HALF>
+__global__ void __launch_bounds__(32 * dec_warps(std::is_same<T, __nv_bfloat16>::value, MT), 1)
+    ffn_kernel(const DecArgs a) {
+  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int R = 16 * MT;  // rows of a row tile
+  constexpr int WARPS = dec_warps(BF, MT), THREADS = 32 * WARPS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const int D = a.D, F = a.F, M = a.M, nparts = a.nparts, kbp = D / 32 / nparts;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const DecLayout L = dec_layout(blockIdx.x, D, F, a.C, a.e);
+  const int c1 = L.c1, W = UNIT * c1, f0 = UNIT * L.u0, n0 = UNIT * L.fc2;
+  const unsigned long long target = grid_target(a.bar);
+  float* P = reinterpret_cast<float*>(sm + up(L.end, 16));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(P + dec_partials(c1, D, MT, WARPS));
+  const float* b1s = reinterpret_cast<const float*>(sm + L.bias);
+  const float* b2s = b1s + W;
+
+  if (tid == 0) {
+    for (int p = 0; p <= nparts; ++p) mbar_init(&bars[p], 1);
+    mbar_fence_init();
   }
-  __syncthreads();  // the sums are in P
+  __syncthreads();
+  // ---- every copy of the block's weights, issued at once by warp 0: K
+  // part p of each W1 unit on barrier p (b1's columns with part 0), W2's
+  // unit in one piece a warp and b2's columns on barrier nparts
+  if (warp == 0) {
+    const size_t part = (size_t)kbp * KB_BYTES, piece = (size_t)(F / 32 / WARPS) * KB_BYTES;
+    if (lane == 0) {
+      if (c1)
+        for (int p = 0; p < nparts; ++p) mbar_expect(&bars[p], c1 * part + (p ? 0 : 4 * W));
+      if (L.fc2 >= 0) mbar_expect(&bars[nparts], WARPS * piece + 4 * UNIT);
+    }
+    __syncwarp();
+    const int n1 = c1 ? c1 * nparts + 1 : 0, n2 = L.fc2 >= 0 ? WARPS + 1 : 0;
+    for (int k = lane; k < n1 + n2; k += 32) {
+      if (k < n1 - 1) {  // part p of unit i
+        const int p = k / c1, i = k - p * c1;
+        bulk_load(sm + ((size_t)i * nparts + p) * part, a.w1 + ((size_t)(L.u0 + i) * nparts + p) * part, part, &bars[p]);
+      } else if (k == n1 - 1) {
+        bulk_load(sm + L.bias, a.b1 + f0, 4 * W, &bars[0]);
+      } else if (k - n1 < WARPS) {
+        const size_t off = (size_t)(k - n1) * piece;
+        bulk_load(sm + L.w2 + off, a.w2 + (size_t)L.fc2 * WARPS * piece + off, piece, &bars[nparts]);
+      } else {
+        bulk_load(sm + L.bias + 4 * W, a.b2 + n0, 4 * UNIT, &bars[nparts]);
+      }
+    }
+  }
 
-  // ---- the result: out (one split) or the workspace, then the last split sums
-  const int nsplit = a.nsplit;
+  const T* x = static_cast<const T*>(a.x);
+  T* gs = static_cast<T*>(a.g);
+  const int tiles = (M + R - 1) / R, nkb = D / 32;
+  const DecJobs J = dec_jobs(c1, D, MT, WARPS);
+  // ---- fc1: jobs (residue, unit group), a warp each; each K block once its part has landed
+  for (int rt = 0; rt < tiles; ++rt) {
+    const int m0 = rt * R, rows = M - m0 < R ? M - m0 : R;
+    for (int j = warp; j < (c1 ? J.nres * J.ng : 0); j += WARPS) {
+      const int res = j / J.ng, i0 = (j - res * J.ng) * J.ug;
+      const int nu = c1 - i0 < J.ug ? c1 - i0 : J.ug, n = (nkb - res + J.nres - 1) / J.nres;
+      const unsigned char* wt = sm + (size_t)i0 * nkb * KB_BYTES;
+      const size_t ustride = (size_t)nkb * KB_BYTES;
+      float* out = P + (size_t)res * R * W + UNIT * i0;
+      if constexpr (BF && MT == 1)
+        group_mma<MT, HALF, 5, 5, false>(x + (size_t)m0 * D, D, rows, wt, ustride, nu, res, J.nres, n, out, W, bars,
+                                         kbp);
+      else if constexpr (BF)
+        group_mma<MT, false, 3, 2, false>(x + (size_t)m0 * D, D, rows, wt, ustride, nu, res, J.nres, n, out, W,
+                                          bars, kbp);
+      else
+        group_f32<MT, false>(x + (size_t)m0 * D, D, rows, wt, ustride, nu, res, J.nres, n, out, W, bars, kbp);
+    }
+    __syncthreads();  // every residue's sums are in P
+    // h = the residues' sums in order + b1; g = gelu(h) in x's dtype, to the scratch
+    for (int idx = tid; idx < rows * W; idx += THREADS) {
+      const int r = idx / W, c = idx - r * W;
+      float h = 0.f;
+      for (int res = 0; res < J.nres; ++res) h += P[((size_t)res * R + r) * W + c];
+      store(gs + (size_t)(m0 + r) * F + f0 + c, gelu(h + b1s[c], a.gelu_erf));
+    }
+    __syncthreads();  // P is read before the next row tile's sums
+  }
+
+  grid_sync(a.bar, target);  // all of g is written
+  if (L.fc2 < 0) return;
+
+  // ---- fc2: this block's 16 output columns over all of F, its K blocks dealt to the warps round-robin
+  mbar_wait(&bars[nparts], 0);
+  const int nkb2 = F / 32 / WARPS;
   T* out = static_cast<T*>(a.out);
-  auto finish = [&](float v, int n) {  // + b2 in K7's order (f32, one rounding) or K4's
-    const float b = a.b2[n];
-    if (BF && a.bias_after_round) return round_bf16(v) + round_bf16(b);
-    return v + b;
-  };
-  for (int i = tid; i < mrows * Dc; i += nthreads) {  // a column's row parts summed in order
-    const int row = i / Dc, col = i - row * Dc, grp = col >> 5;
-    float v = 0.f;
-    for (int p = 0; p < ks; ++p) v += sm.P[((p * nw + grp) * R + row) * FC + (col & 31)];
-    if (nsplit == 1) store(out + (size_t)(m0 + row) * D + n0 + col, finish(v, n0 + col));
-    else a.ws[((size_t)(tile * nsplit + split) * R + row) * D + n0 + col] = v;
-  }
-  // no block leaves while a peer may still read its g
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-  if (nsplit == 1) return;
-  __threadfence();
-  __syncthreads();
-  unsigned* counter = a.counters + tile * cs + rank;
-  if (tid == 0) *sm.flag = atomicAdd(counter, 1u) == static_cast<unsigned>(nsplit - 1);
-  __syncthreads();
-  if (!*sm.flag) return;
-  __threadfence();
-  const int q4 = Dc / 4;
-  for (int i = tid; i < mrows * q4; i += nthreads) {
-    const int row = i / q4, col = (i - row * q4) * 4;
-    const float* src = a.ws + ((size_t)tile * nsplit * R + row) * D + n0 + col;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int q0 = 0; q0 < nsplit; q0 += 16) {  // sixteen splits' loads in flight, summed in index order
-      float4 p[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        if (q0 + j < nsplit) p[j] = __ldcg(reinterpret_cast<const float4*>(src + (size_t)(q0 + j) * R * D));
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        if (q0 + j < nsplit) v.x += p[j].x, v.y += p[j].y, v.z += p[j].z, v.w += p[j].w;
+  for (int rt = 0; rt < tiles; ++rt) {
+    const int m0 = rt * R, rows = M - m0 < R ? M - m0 : R;
+    float* Q = P + (size_t)warp * R * UNIT;
+    if constexpr (BF)
+      group_mma<MT, HALF, 1, HALF ? 10 : (MT == 1 ? 5 : 2), true>(
+          gs + (size_t)m0 * F, F, rows, sm + L.w2, 0, 1, warp, WARPS, nkb2, Q, UNIT, nullptr, 1);
+    else
+      group_f32<MT, true>(gs + (size_t)m0 * F, F, rows, sm + L.w2, 0, 1, warp, WARPS, nkb2, Q, UNIT, nullptr, 1);
+    __syncthreads();
+    for (int idx = tid; idx < rows * UNIT; idx += THREADS) {
+      const int r = idx / UNIT, c = idx - r * UNIT;
+      float v = 0.f;
+      for (int w = 0; w < WARPS; ++w) v += P[((size_t)w * R + r) * UNIT + c];
+      store(out + (size_t)(m0 + r) * D + n0 + c, finish<BF>(v, b2s[c], a.bias_after_round));
     }
-    T* o = out + (size_t)(m0 + row) * D + n0 + col;
-    store(o, finish(v.x, n0 + col));
-    store(o + 1, finish(v.y, n0 + col + 1));
-    store(o + 2, finish(v.z, n0 + col + 2));
-    store(o + 3, finish(v.w, n0 + col + 3));
-  }
-  if (tid == 0) *counter = 0u;  // every split has arrived: ready for the next launch
-}
-
-using KernelFn = void (*)(FfnArgs);
-
-KernelFn instance(int bf16, int mt) {
-  static const KernelFn table[2][4] = {
-      {ffn_kernel<float, 1>, ffn_kernel<float, 2>, ffn_kernel<float, 3>, ffn_kernel<float, 4>},
-      {ffn_kernel<__nv_bfloat16, 1>, ffn_kernel<__nv_bfloat16, 2>, ffn_kernel<__nv_bfloat16, 3>,
-       ffn_kernel<__nv_bfloat16, 4>}};
-  return table[bf16][mt - 1];
-}
-
-size_t smem_bytes(int bf16, int mt, int D, int cs, int ks) {
-  switch (mt + 4 * bf16) {
-    case 1: return Smem<float, 1>::bytes(D, cs, ks);
-    case 2: return Smem<float, 2>::bytes(D, cs, ks);
-    case 3: return Smem<float, 3>::bytes(D, cs, ks);
-    case 4: return Smem<float, 4>::bytes(D, cs, ks);
-    case 5: return Smem<__nv_bfloat16, 1>::bytes(D, cs, ks);
-    case 6: return Smem<__nv_bfloat16, 2>::bytes(D, cs, ks);
-    case 7: return Smem<__nv_bfloat16, 3>::bytes(D, cs, ks);
-    default: return Smem<__nv_bfloat16, 4>::bytes(D, cs, ks);
+    __syncthreads();
   }
 }
 
-struct Plan {
-  int cs, ks, threads, tiles, mt, steps;
+// =========================================================================
+// Encoder regime
+
+struct EncMaps {
+  CUtensorMap x, g;    // bf16 [M, D] and [M, F], box {64, 128}, 128-byte swizzle
+  CUtensorMap w1, s1;  // codes [D, F] box {128, 64}; scales [D/32, F] box {128, 2}
+  CUtensorMap w2, s2;  // codes [F, D] box {128, 64}; scales [F/32, D] box {128, 2}
+};
+
+struct EncArgs {
+  const float* b1;
+  const float* b2;
+  __nv_bfloat16* g;  // scratch [M, F]
+  __nv_bfloat16* out;
+  unsigned long long* bar;
+  int M, D, F, gelu_erf, bias_after_round;
+};
+
+// A's shared-memory matrix descriptor: K-major, 128-byte swizzle, 1024 B
+// between 8-row groups; tiles start on 1024-byte boundaries, and a
+// 16-element step along a row moves the start by 32 B
+__device__ __forceinline__ uint64_t gdesc(const void* p) {
+  const uint32_t a = smem_addr(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// keeps the compiler from moving reads or writes of d across the asynchronous mma
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// B's descriptor for wgmma.m64n128k16 over both panels [64 k][64 n]: N-major
+// (the transposed-B flag), the panels 8 KB apart (the leading byte
+// offset), 1024 B between 8-row groups of k
+__device__ __forceinline__ uint64_t gdesc_n128(const void* p) {
+  const uint32_t a = smem_addr(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)((PANEL * 2) >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// d0 | d1 [64 x 128] += A[64 x 16] (shared, K-major) * B[16 x 128] (shared, N-major)
+__device__ __forceinline__ void wgmma_n128(float (&d0)[32], float (&d1)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d0[4]), "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]),
+        "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]), "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]),
+        "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]), "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]),
+        "+f"(d0[24]), "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]), "+f"(d0[28]), "+f"(d0[29]), "+f"(d0[30]), "+f"(d0[31]),
+        "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]), "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
+        "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]), "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]),
+        "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]), "+f"(d1[19]), "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]), "+f"(d1[23]),
+        "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]), "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// A chunk's codes [64][BN] and scales [2][BN] into NP bf16 panels [64 k][64
+// n] in the 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8)):
+// each thread takes 8 columns (its scales paired once a scale row) at
+// rows r0, r0 + RS, ... (RS = THREADS / (BN / 8)).
+__device__ __forceinline__ void dequant(const unsigned char* bq, const float* bs, __nv_bfloat16* dst) {
+  constexpr int CPR = BN / 8, RS = THREADS / CPR, ROWS = BK / RS;  // 8-column runs a row; rows a step, a thread
+  static_assert(32 % RS == 0, "a thread's row r0 + i RS (r0 < RS) lies in scale row i RS / 32");
+  const int c8 = threadIdx.x % CPR, r0 = threadIdx.x / CPR, cc = c8 & 7;
+  uint32_t s2[BK / 32][4];
+#pragma unroll
+  for (int sr = 0; sr < BK / 32; ++sr) {
+    const float4 sa = *reinterpret_cast<const float4*>(bs + sr * BN + c8 * 8);
+    const float4 sb = *reinterpret_cast<const float4*>(bs + sr * BN + c8 * 8 + 4);
+    s2[sr][0] = pack_bf16(sa.x, sa.y), s2[sr][1] = pack_bf16(sa.z, sa.w);
+    s2[sr][2] = pack_bf16(sb.x, sb.y), s2[sr][3] = pack_bf16(sb.z, sb.w);
+  }
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int r = r0 + i * RS, sr = i * RS / 32;
+    const uint2 w = *reinterpret_cast<const uint2*>(bq + r * BN + c8 * 8);
+    uint4 v;
+    v.x = bf16x2_sub_mul(codes200(w.x, 0x4140u), s2[sr][0]);
+    v.y = bf16x2_sub_mul(codes200(w.x, 0x4342u), s2[sr][1]);
+    v.z = bf16x2_sub_mul(codes200(w.y, 0x4140u), s2[sr][2]);
+    v.w = bf16x2_sub_mul(codes200(w.y, 0x4342u), s2[sr][3]);
+    *reinterpret_cast<uint4*>(dst + (c8 >> 3) * PANEL + r * 64 + ((cc ^ (r & 7)) << 3)) = v;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) ffn_wgmma_kernel(const __grid_constant__ EncMaps maps, const EncArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  __nv_bfloat16* bbf = reinterpret_cast<__nv_bfloat16*>(sm + STAGES * SLOT_BYTES);  // [2 chunks][NP panels][PANEL]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + STAGES * SLOT_BYTES + 2 * NP * PANEL * 2);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp >> 2;
+  const int M = a.M, tm = (M + BM - 1) / BM;
+  const unsigned long long target = grid_target(a.bar);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  unsigned gq0 = 0;  // chunks this block consumed in earlier phases: chunk gq is in stage gq % STAGES
+  for (int phase = 0; phase < 2; ++phase) {
+    const CUtensorMap* am = phase ? &maps.g : &maps.x;
+    const CUtensorMap* bm = phase ? &maps.w2 : &maps.w1;
+    const CUtensorMap* bsm = phase ? &maps.s2 : &maps.s1;
+    const int K = phase ? a.F : a.D, N = phase ? a.D : a.F;
+    const int nk = (K + BK - 1) / BK, ntiles = tm * ((N + BN - 1) / BN);
+    const int mine = ntiles > (int)blockIdx.x ? (ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+    const int Q = mine * nk;  // this block's chunks: its tiles blockIdx.x + i gridDim.x, nk chunks each
+    auto issue = [&](int q) {
+      const int tile = blockIdx.x + (q / nk) * gridDim.x, kc = q % nk;
+      const int s = (gq0 + q) % STAGES;
+      unsigned char* slot = sm + s * SLOT_BYTES;
+      mbar_expect(&full[s], SLOT_BYTES);
+      tma_load(slot, am, kc * BK, (tile % tm) * BM, &full[s]);
+      tma_load(slot + A_BYTES, bm, (tile / tm) * BN, kc * BK, &full[s]);
+      tma_load(slot + A_BYTES + BQ_BYTES, bsm, (tile / tm) * BN, kc * (BK / 32), &full[s]);
+    };
+    auto land_and_dequant = [&](int q) {
+      const unsigned gq = gq0 + q, s = gq % STAGES;
+      mbar_wait(&full[s], (gq / STAGES) & 1u);
+      const unsigned char* slot = sm + s * SLOT_BYTES;
+      dequant(slot + A_BYTES, reinterpret_cast<const float*>(slot + A_BYTES + BQ_BYTES), bbf + (q & 1) * NP * PANEL);
+      fence_async_smem();  // the panels, to the async proxy
+    };
+    if (phase == 1) {  // g complete in every block before any of it is read
+      fence_proxy_async();
+      grid_sync(a.bar, target);
+      fence_proxy_async();
+    }
+    if (tid == 0)
+      for (int q = 0; q < STAGES && q < Q; ++q) issue(q);
+    if (Q) land_and_dequant(0);
+    __syncthreads();
+
+    float acc[NP][32];
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+    for (int q = 0; q < Q; ++q) {
+      const unsigned char* A = sm + ((gq0 + q) % STAGES) * SLOT_BYTES + wg * (64 * BK * 2);
+      const __nv_bfloat16* B = bbf + (q & 1) * NP * PANEL;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_n128(acc[0], acc[1], gdesc(A + kk * 32), gdesc_n128(B + kk * 16 * 64));
+      wg_commit();
+      if (q + 1 < Q) land_and_dequant(q + 1);  // while the products run
+      wg_wait0();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
+      if (q % nk == nk - 1) {  // the tile's last chunk: its epilogue
+        const int tile = blockIdx.x + (q / nk) * gridDim.x;
+        const int row0 = (tile % tm) * BM + warp * 16 + (lane >> 2), col0 = (tile / tm) * BN + 2 * (lane & 3);
+        // acc[p][4j + e]: row row0 + 8 (e >> 1), column col0 + 64 p + 8 j + (e & 1)
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int row = row0 + 8 * hf, col = col0 + 64 * p + 8 * j;
+              const float v0 = acc[p][4 * j + 2 * hf], v1 = acc[p][4 * j + 2 * hf + 1];
+              if (row < M && col < N) {
+                if (phase == 0)
+                  *reinterpret_cast<uint32_t*>(a.g + (size_t)row * a.F + col) =
+                      pack_bf16(gelu(v0 + a.b1[col], a.gelu_erf), gelu(v1 + a.b1[col + 1], a.gelu_erf));
+                else
+                  *reinterpret_cast<uint32_t*>(a.out + (size_t)row * a.D + col) =
+                      pack_bf16(finish<true>(v0, a.b2[col], a.bias_after_round),
+                                finish<true>(v1, a.b2[col + 1], a.bias_after_round));
+              }
+              acc[p][4 * j + 2 * hf] = 0.f, acc[p][4 * j + 2 * hf + 1] = 0.f;
+            }
+      }
+      __syncthreads();  // both warpgroups' products of chunk q are done: its stage is free
+      if (tid == 0 && q + STAGES < Q) issue(q + STAGES);
+    }
+    gq0 += Q;
+  }
+}
+
+// =========================================================================
+// Host side
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so that nothing new is linked
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major [rows, cols] tensor, boxes of [box_rows, box_cols]; out-of-bounds elements read as zero
+bool encode2d(CUtensorMap* m, const void* ptr, CUtensorMapDataType dt, int esize, uint64_t cols, uint64_t rows,
+           uint32_t box_cols, uint32_t box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_fn();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * esize};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t estrides[2] = {1, 1};
+  return fn(m, dt, 2, const_cast<void*>(ptr), dims, strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// encode2d, remembered: a layer's maps are the same at every step
+bool map2d(CUtensorMap* m, const void* ptr, CUtensorMapDataType dt, int esize, uint64_t cols, uint64_t rows,
+           uint32_t box_cols, uint32_t box_rows, CUtensorMapSwizzle swizzle) {
+  struct Key {
+    const void* ptr;
+    uint64_t cols, rows;
+    uint32_t box_cols, box_rows;
+    int dt, swizzle;
+  };
+  static Key keys[512];
+  static CUtensorMap maps[512];
+  Key k;
+  memset(&k, 0, sizeof(k));
+  k.ptr = ptr, k.cols = cols, k.rows = rows, k.box_cols = box_cols, k.box_rows = box_rows, k.dt = dt, k.swizzle = swizzle;
+  const size_t h = ((reinterpret_cast<uintptr_t>(ptr) >> 4) ^ (cols * 131) ^ (rows * 31) ^ (box_cols * 7) ^ box_rows) % 512;
+  if (memcmp(&keys[h], &k, sizeof(k)) == 0) {
+    *m = maps[h];
+    return true;
+  }
+  if (!encode2d(m, ptr, dt, esize, cols, rows, box_cols, box_rows, swizzle)) return false;
+  keys[h] = k, maps[h] = *m;
+  return true;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+struct DecPlan {
+  int C, e, nparts, mt, half, warps, grid;  // half: bf16 of at most 8 rows
   size_t smem;
 };
 
-// The shape's cluster size, warps, row tiles and shared memory; false if
-// the kernel does not take it.
-bool shape_plan(int M, int D, int F, int bf16, Plan* p) {
-  if (M <= 0 || D <= 0 || F <= 0 || D % 32) return false;
-  int cs = MAX_CS;
-  while ((D / 32) % cs) --cs;  // the largest cluster whose blocks own whole warps of columns
-  const int nw = D / (32 * cs);
-  p->cs = cs;
-  p->ks = 2 * 32 * nw <= MAX_THREADS && cs % 2 == 0 ? 2 : 1;  // warps to each 32 columns
-  p->threads = 32 * nw * p->ks;
-  if (p->threads > MAX_THREADS || F % (FC * cs)) return false;
-  p->tiles = (M + TILE_ROWS - 1) / TILE_ROWS;
-  const int rows = M < TILE_ROWS ? M : TILE_ROWS;
-  p->mt = (rows + 15) / 16;
-  p->steps = F / (FC * cs);
-  p->smem = smem_bytes(bf16, p->mt, D, cs, p->ks);
-  return p->smem <= 232448;
+size_t dec_block_smem(int b, int D, int F, const DecPlan& p) {
+  const DecLayout l = dec_layout(b, D, F, p.C, p.e);
+  return 1024 + up(l.end, 16) + dec_partials(l.c1, D, p.mt, p.warps) * 4 + 8 * (MAX_PARTS + 1);
 }
 
-cudaLaunchConfig_t config(const Plan& p, int nsplit, cudaStream_t stream, cudaLaunchAttribute* attr) {
+// Units to blocks: each of the first D/16 blocks one fc2 unit and e fc1
+// units, each later one C fc1 units. Before the grid barrier a block
+// needs only its W1 units (its W2 unit lands while it waits), so the split
+// weighs a block's fc1 units whole and its W2 unit at a quarter (W2_WEIGHT):
+// the smallest largest block, then the fewest units a block (more blocks),
+// within one block to an SM and its shared memory. W1 is copied in the
+// most K parts (each its own barrier) that divide D / 32.
+constexpr double W2_WEIGHT = 0.25;
+
+bool dec_plan(int M, int D, int F, bool bf16, DecPlan* p) {
+  const int nsm = sm_count();
+  if (M <= 0 || D <= 0 || F <= 0 || D % 32 || (bf16 && M >= 64) || !nsm) return false;
+  const int U1 = F / UNIT, U2 = D / UNIT;
+  p->mt = M >= 64 ? 4 : (M + 15) / 16;
+  p->half = bf16 && M <= 8;
+  p->warps = dec_warps(bf16, p->mt);
+  if (U2 > nsm || F % (32 * p->warps)) return false;
+  p->nparts = 1;
+  for (int n = 1; n <= MAX_PARTS; ++n)
+    if ((D / 32) % n == 0) p->nparts = n;
+  const double w1u = 18.0 * D, w2u = 18.0 * F;  // a unit's codes and scales, bytes
+  double best = 0;
+  DecPlan q = *p;
+  p->C = 0;
+  for (int C = 1; C <= U1; ++C)
+    for (int e = 0; e <= C; ++e) {
+      const int rest = U1 - U2 * e;
+      if (rest < 0) break;
+      q.C = C, q.e = e, q.grid = U2 + (rest + C - 1) / C;
+      const double cost = C * w1u > e * w1u + W2_WEIGHT * w2u ? C * w1u : e * w1u + W2_WEIGHT * w2u;
+      if (q.grid > nsm || (p->C && cost >= best)) continue;
+      size_t need = dec_block_smem(0, D, F, q);
+      if (q.grid > U2) {
+        const size_t other = dec_block_smem(U2, D, F, q);
+        need = other > need ? other : need;
+      }
+      if (need > SMEM_LIMIT) continue;
+      q.smem = need > ONE_PER_SM ? need : ONE_PER_SM;
+      *p = q, best = cost;
+    }
+  return p->C > 0;
+}
+
+using DecKernel = void (*)(DecArgs);
+
+// the decode instances: 0-3 f32 (mt 1-4), 4 bf16 of at most 8 rows, 5-8 bf16 (mt 1-4)
+int dec_index(int bf16, const DecPlan& p) { return bf16 ? (p.half ? 4 : 4 + p.mt) : p.mt - 1; }
+
+DecKernel dec_instance(int index) {
+  static const DecKernel table[9] = {
+      ffn_kernel<float, 1, false>,         ffn_kernel<float, 2, false>,         ffn_kernel<float, 3, false>,
+      ffn_kernel<float, 4, false>,         ffn_kernel<__nv_bfloat16, 1, true>,  ffn_kernel<__nv_bfloat16, 1, false>,
+      ffn_kernel<__nv_bfloat16, 2, false>, ffn_kernel<__nv_bfloat16, 3, false>, ffn_kernel<__nv_bfloat16, 4, false>};
+  return table[index];
+}
+
+// Raises an instance's shared-memory cap to what the launch needs: index
+// 0-8 the decode instances (dec_index), 9 the encoder's.
+template <typename K>
+cudaError_t allow_smem(K kernel, int index, size_t smem) {
+  static size_t allowed[10] = {};
+  if (smem <= allowed[index]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) allowed[index] = smem;
+  return err;
+}
+
+int enc_grid(int M, int D, int F) {
+  const int tm = (M + BM - 1) / BM;
+  const int t1 = tm * ((F + BN - 1) / BN), t2 = tm * ((D + BN - 1) / BN);
+  const int t = t1 > t2 ? t1 : t2;
+  return t < sm_count() ? t : sm_count();
+}
+
+bool encoder_regime(int M, int bf16) { return bf16 && M >= 64; }
+
+cudaLaunchConfig_t config(int grid, int threads, size_t smem, cudaStream_t stream, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.cs * nsplit, p.tiles);
-  cfg.blockDim = dim3(p.threads);
-  cfg.dynamicSmemBytes = p.smem;
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  attr[0].id = cudaLaunchAttributeCooperative;  // every block resident at once: the grid barrier
+  attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
 }
 
-// Raises an instance's shared-memory cap to what the launch needs.
-cudaError_t allow_smem(int bf16, int mt, size_t smem) {
-  static size_t allowed[2][4] = {};
-  if (smem <= allowed[bf16][mt - 1]) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(instance(bf16, mt), cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err == cudaSuccess) allowed[bf16][mt - 1] = smem;
-  return err;
-}
-
 }  // namespace
 
-// The plan of a shape: plan[0] cluster size, [1] splits of F (clusters per
-// row tile), [2] row tiles, [3] rows per tile in the workspace, [4] the
-// workspace's f32 count (0 with one split). The splits fill the clusters
-// the card holds at once, as evenly as the steps allow. Returns a CUDA
-// error code (0 on success).
+// The plan of a shape: plan[0] regime (0 decode, 1 encoder), [1] blocks,
+// [2] the scratch's elements (M x F, x's dtype), [3] shared memory bytes a
+// block, [4] C and [5] e (decode: fc1 units of a later block, of an fc2
+// block), [6] K parts of W1 (decode), [7] 1: a cooperative launch, [8]
+// threads a block. Returns a CUDA error code (0 on success;
+// cudaErrorInvalidValue for a shape the kernel does not take).
 extern "C" int ffn_plan(int M, int D, int F, int x_bf16, long long* plan) {
-  Plan p;
-  if (!shape_plan(M, D, F, x_bf16 != 0, &p)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(x_bf16 != 0, p.mt, p.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = config(p, 1, nullptr, attr);
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, instance(x_bf16 != 0, p.mt), &cfg);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int nsplit = 1;
-  if (clusters > p.tiles) {
-    int cap = clusters / p.tiles;
-    cap = cap < p.steps ? cap : p.steps;
-    const int per = (p.steps + cap - 1) / cap;  // steps per split
-    nsplit = (p.steps + per - 1) / per;
+  for (int i = 0; i < 9; ++i) plan[i] = 0;
+  if (M <= 0 || D <= 0 || F <= 0 || D % 32 || F % 32 || !sm_count()) return static_cast<int>(cudaErrorInvalidValue);
+  plan[2] = (long long)M * F;
+  plan[7] = 1;
+  if (encoder_regime(M, x_bf16)) {
+    plan[0] = 1, plan[1] = enc_grid(M, D, F), plan[3] = (long long)ENC_SMEM, plan[8] = THREADS;
+    return 0;
   }
-  plan[0] = p.cs;
-  plan[1] = nsplit;
-  plan[2] = p.tiles;
-  plan[3] = 16 * p.mt;
-  plan[4] = nsplit > 1 ? (long long)p.tiles * nsplit * 16 * p.mt * D : 0;
+  DecPlan p;
+  if (!dec_plan(M, D, F, x_bf16 != 0, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  plan[1] = p.grid, plan[3] = (long long)p.smem, plan[4] = p.C, plan[5] = p.e, plan[6] = p.nparts;
+  plan[8] = 32 * p.warps;
   return 0;
 }
 
 // x: [M, D] f32 or bf16 (x_bf16); qw1 int8 [D, F], s1 f32 [D/32, F], b1 f32
-// [F]; qw2 int8 [F, D], s2 f32 [F/32, D], b2 f32 [D]; out: [M, D] in x's
-// dtype. ws: f32 of ws_floats and counters: uint32 [tiles x cs], zero at
-// the first launch (the kernel leaves them zero), both from ffn_plan with
-// the same nsplit. gelu_erf: 0 tanh, 1 erf; bias_after_round: 1 for K4's
-// order. Needs D % 32 == 0, F a multiple of 32 x the cluster size, 16-byte
-// aligned tensors. One launch on `stream`; returns its CUDA error code.
+// [F]; qw2 int8 [F, D], s2 f32 [F/32, D], b2 f32 [D]; w1u, w2u: the same
+// codes and scales in units (KB_BYTES; read below 64 rows of bf16 and for
+// f32, may be null otherwise); out: [M, D] in x's dtype; g: the
+// scratch, M x F in x's dtype; bar: one uint64, zero before the first
+// launch. gelu_erf: 0 tanh, 1 erf; bias_after_round: 1 for K4's order.
+// 16-byte aligned tensors. One cooperative launch on `stream`; returns its
+// CUDA error code.
 extern "C" int fused_ffn(const void* x, int x_bf16, const void* qw1, const void* s1, const void* b1,
-                         const void* qw2, const void* s2, const void* b2, void* out, void* ws,
-                         long long ws_floats, void* counters, int M, int D, int F, int nsplit,
+                         const void* qw2, const void* s2, const void* b2, const void* w1u, const void* w2u,
+                         void* out, void* g, void* bar, int M, int D, int F,
                          int gelu_erf, int bias_after_round, void* stream) {
-  Plan p;
-  if (!shape_plan(M, D, F, x_bf16 != 0, &p) || nsplit < 1 || nsplit > p.steps) return static_cast<int>(cudaErrorInvalidValue);
-  if (nsplit > 1 && ws_floats < (long long)p.tiles * nsplit * 16 * p.mt * D) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(x_bf16 != 0, p.mt, p.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  FfnArgs a;
-  a.x = x;
-  a.qw1 = static_cast<const int8_t*>(qw1);
-  a.s1 = static_cast<const float*>(s1);
-  a.b1 = static_cast<const float*>(b1);
-  a.qw2 = static_cast<const int8_t*>(qw2);
-  a.s2 = static_cast<const float*>(s2);
-  a.b2 = static_cast<const float*>(b2);
-  a.out = out;
-  a.ws = static_cast<float*>(ws);
-  a.counters = static_cast<unsigned*>(counters);
-  a.M = M, a.D = D, a.F = F, a.cs = p.cs, a.ks = p.ks, a.nsplit = nsplit, a.gelu_erf = gelu_erf;
-  a.bias_after_round = bias_after_round;
+  if (M <= 0 || D <= 0 || F <= 0 || D % 32 || F % 32) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = config(p, nsplit, static_cast<cudaStream_t>(stream), attr);
-  err = cudaLaunchKernelEx(&cfg, instance(x_bf16 != 0, p.mt), a);
+  const CUtensorMapDataType U8 = CU_TENSOR_MAP_DATA_TYPE_UINT8, F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUtensorMapSwizzle NONE = CU_TENSOR_MAP_SWIZZLE_NONE;
+  cudaError_t err;
+  if (encoder_regime(M, x_bf16)) {
+    EncMaps maps;
+    const CUtensorMapDataType B16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    if (!map2d(&maps.x, x, B16, 2, D, M, BK, BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !map2d(&maps.g, g, B16, 2, F, M, BK, BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !map2d(&maps.w1, qw1, U8, 1, F, D, BN, BK, NONE) || !map2d(&maps.s1, s1, F32, 4, F, D / 32, BN, BK / 32, NONE) ||
+        !map2d(&maps.w2, qw2, U8, 1, D, F, BN, BK, NONE) || !map2d(&maps.s2, s2, F32, 4, D, F / 32, BN, BK / 32, NONE))
+      return static_cast<int>(cudaErrorInvalidValue);
+    EncArgs a;
+    a.b1 = static_cast<const float*>(b1);
+    a.b2 = static_cast<const float*>(b2);
+    a.g = static_cast<__nv_bfloat16*>(g);
+    a.out = static_cast<__nv_bfloat16*>(out);
+    a.bar = static_cast<unsigned long long*>(bar);
+    a.M = M, a.D = D, a.F = F, a.gelu_erf = gelu_erf, a.bias_after_round = bias_after_round;
+    if ((err = allow_smem(ffn_wgmma_kernel, 9, ENC_SMEM)) != cudaSuccess) return static_cast<int>(err);
+    const cudaLaunchConfig_t cfg = config(enc_grid(M, D, F), THREADS, ENC_SMEM, st, attr);
+    err = cudaLaunchKernelEx(&cfg, ffn_wgmma_kernel, maps, a);
+  } else {
+    DecPlan p;
+    if (!dec_plan(M, D, F, x_bf16 != 0, &p)) return static_cast<int>(cudaErrorInvalidValue);
+    if (!w1u || !w2u) return static_cast<int>(cudaErrorInvalidValue);
+    DecArgs a;
+    a.x = x;
+    a.w1 = static_cast<const unsigned char*>(w1u);
+    a.w2 = static_cast<const unsigned char*>(w2u);
+    a.b1 = static_cast<const float*>(b1);
+    a.b2 = static_cast<const float*>(b2);
+    a.g = g;
+    a.out = out;
+    a.bar = static_cast<unsigned long long*>(bar);
+    a.M = M, a.D = D, a.F = F, a.C = p.C, a.e = p.e, a.nparts = p.nparts;
+    a.gelu_erf = gelu_erf, a.bias_after_round = bias_after_round;
+    const int index = dec_index(x_bf16 != 0, p);
+    const DecKernel kernel = dec_instance(index);
+    if ((err = allow_smem(kernel, index, p.smem)) != cudaSuccess) return static_cast<int>(err);
+    const cudaLaunchConfig_t cfg = config(p.grid, 32 * p.warps, p.smem, st, attr);
+    err = cudaLaunchKernelEx(&cfg, kernel, a);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
