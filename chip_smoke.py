@@ -30,23 +30,24 @@ Phases, each timed and each fatal on failure:
    its own op (no model path reaches it) at B=8 x 1500 frames, Large-V3 and Medium
    widths; and ``medium_ffn``: kernel I through its op at Whisper Medium's
    width (1024 <-> 4096, 24 stacked layers, K4's bias order), 8 rows, two
-   requests. The first request of a path is its warm-up. Every greedy
-   request runs its decode loop through a cached runner's CUDA graph of
-   the step (``models/whisper.py``): the runner's first request takes one
-   eager step, captures the step and replays it for the rest (a line
-   ``{"phase": "graph_capture", ...}`` logs each capture's wall), later
-   requests replay it from the first step. Every launch counter is set to
-   0 just before each path and read just after (a replay adds what its
-   capture recorded); each request's launches are held against the counts
-   the shapes predict, and its host syncs counted (at most one per done
-   check). Then each greedy path (and the entry and the pipeline's
+   requests. The first request of a path is its warm-up. Every request
+   runs its decode loop through a cached runner's CUDA graphs of the step
+   (``models/whisper.py``, ``models/beam.py``): the runner's first request
+   takes one eager step, captures the step (a beam runner once from each
+   buffer of its self-cache pair) and replays it for the rest (a line
+   ``{"phase": "graph_capture", ...}`` logs each runner's capture wall),
+   later requests replay it from the first step. Every launch counter is
+   set to 0 just before each path and read just after (a replay adds what
+   its capture recorded); each request's launches are held against the
+   counts the shapes predict, and its host syncs counted (at most one per
+   done check). Then each path (and the entry and the pipeline's
    ``transcribe_batch``) runs one eager reference request, the loop's body
-   called step by step from this script, whose tokens must equal the
-   replayed request's bit for bit (``{"phase": "eager_reference", ...}``):
-   ``greedy`` and the entry at their own token counts against their last
-   request, the pipeline at 224, the others at 32 tokens against two
-   requests of a runner of their own (the first captures, the second
-   replays);
+   called step by step from this script, whose tokens (and a beam's
+   scores) must equal the replayed request's bit for bit (``{"phase":
+   "eager_reference", ...}``): ``greedy`` and the entry at their own token
+   counts against their last request, the pipeline at 224, the others at
+   32 tokens against two requests of a runner of their own (the first
+   captures, the second replays);
 4. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' Large-V3 shapes (kernel A, the Q4 matmul,
    in its two regimes: the weight read, K split over a thread block
@@ -67,9 +68,15 @@ Phases, each timed and each fatal on failure:
    D (also at the entry's B = 1) and D' (Large-V3 and Medium widths); E
    and E' at 4, 115 and 227 valid
    keys; G (8 streams) and H (40) over the int4 and the mixed self caches
-   at 4, 115 and 227; F in int8, bf16 and uint8 exactly, at 8, 40 and the
-   entry's one stream; and the pipeline's own shapes at B = 4 and 8: A at
-   M = B and 4B, I at B, 4B and the detection pass's B, D, C, G and F), with the tolerance stated; device time per call,
+   at 4, 115 and 227; F exactly, its slot form (K, V and the scale row in
+   one launch) at each greedy path's shape (8 streams, the entry's one,
+   the pipeline's 4 and 8) and its beam form (the slot written and the
+   streams gathered by parent into the other buffer of the pair) at each
+   beam path's 40 streams, the beam form also timed at slots 4, 115 and
+   226 beside the slot form followed by index_select (lines ``{"phase":
+   "kernel_f_beam_positions", ...}``); and the pipeline's own shapes at B
+   = 4 and 8: A at M = B and 4B, I at B, 4B and the detection pass's B, D,
+   C and G), with the tolerance stated; device time per call,
    from torch.profiler traces, of the kernel, the plain version and one
    PyTorch library call computing the same function (a yardstick only: the
    port never calls it), and the least time the card could take (bytes
@@ -80,15 +87,15 @@ Phases, each timed and each fatal on failure:
    by one), whose traces give each kernel's device time per launch at
    each main-path shape, the stages ``greedy_decode`` and ``beam_decode``
    mark, and the decode step split into the hand-written kernels, the
-   beam's self-cache reorder (its ``beam_decode.reorder`` ranges), the
-   logits (``decode_step.logits``), other device work and idle (and one
-   line of the encoder's device ms in each traced request); and for each
-   greedy one a second, replayed request under torch.profiler
-   (``{"phase": "traced_replay_<path>", ...}``: the replayed step's wall,
-   device busy, idle share and device operations per step, its tokens
-   equal to the eager one's); a kernel row of a path without a traced
-   request takes its isolated time; and the device memory with every
-   runner alive;
+   beam's reorder of its tokens (the rest of its ``beam_decode.reorder``
+   ranges), the logits (``decode_step.logits``), other device work and
+   idle (and one line of the encoder's device ms in each traced request);
+   and for each of them and every other beam path a replayed request
+   under torch.profiler (``{"phase": "traced_replay_<path>", ...}``: the
+   replayed step's wall, device busy, idle share and device operations
+   per step, its tokens equal to the eager one's); a kernel row of a path
+   without a traced request takes its isolated time; and the device
+   memory with every runner alive;
 5. end to end at a small config in f32, for the int4 serving modes (int8,
    int4 and mixed self caches), ``Compute.parity()`` and
    ``Compute.fastest()``: the same greedy and beam tokens, and the same
@@ -133,14 +140,17 @@ KERNEL_OF = {"q4_matmul": "q4_matmul", "decode_self_attention": "self_attn",
              "decode_attention_merged": "merged_attn", "decode_attention_layer": "layer_attn",
              "decode_attention_layer_unscaled": "layer_unscaled", "decode_cross_attention": "cross_attn",
              "decode_cross_attention_unpacked": "cross_unpacked", "encoder_attention": "encoder_attn",
-             "write_cache_slot": "slot", "decode_attention_merged_int4": "merged_int4",
+             "write_cache_slot": "slot", "write_cache_slot_beam": "slot_beam",
+             "decode_attention_merged_int4": "merged_int4",
              "decode_attention_layer_int4": "layer_int4", "encoder_attention_heads": "encoder_heads",
              "fused_ffn": "ffn"}
 OURS = re.compile(r"\b(q4_matmul|self_attn|merged_attn|layer_attn|layer_unscaled|cross_attn|cross_unpacked"
-                  r"|encoder_attn|slot|merged_int4|layer_int4|encoder_heads|ffn)(?:_wgmma)?_kernel[<(]")
+                  r"|encoder_attn|slot|slot_beam|merged_int4|layer_int4|encoder_heads|ffn)(?:_wgmma)?_kernel[<(]")
 STAGES = {"encode", "cross_fill", "prefill", "decode"}
 DA = "whisper_burn_tpu_torch/csrc/decode_attention.cu"
 XTOL = "1e-5 of max|out|, plus one bf16 step of each p within 32 f32 steps of a bf16 rounding tie"
+F_SRC = "whisper_burn_tpu_torch/csrc/cache_slot.cu"
+K9 = "whisper_burn_tpu/ops/pallas_cache.py:33 (K9)"
 
 
 def at(pos: int) -> torch.Tensor:
@@ -623,10 +633,8 @@ def encoder_attention_row(cfg, gen, b: int, path: str, name: str) -> dict:
 
 
 def beam_kernel_checks(params, cfg, gen):
-    """The kernels at the beam path's shapes: kernel A at M = STREAMS, E, F
-    and C with BEAM_WIDTH streams per cross-cache entry; and the device
-    time of the beam step's self-cache reorder at ctx 256."""
-    from whisper_burn_tpu_torch.ops.cache import write_cache_slot, write_cache_slot_plain
+    """The kernels at the beam path's shapes: kernel A at M = STREAMS, E
+    and C with BEAM_WIDTH streams per cross-cache entry (F: kernel_f_checks)."""
     from whisper_burn_tpu_torch.ops.decode_attention import decode_attention_layer, decode_attention_layer_plain
 
     dev = torch.device("cuda")
@@ -675,43 +683,10 @@ def beam_kernel_checks(params, cfg, gen):
         bound_of_pos=lambda p: layer_attention_bound(p, d, h),
     ))
 
-    # the beam step's reorder of the self caches (not a kernel of the port:
-    # index_select, as the JAX package leaves jnp.take to XLA): each
-    # stream takes a parent among its utterance's beams
-    parent = torch.randint(0, BEAM_WIDTH, (BATCH, BEAM_WIDTH), generator=gen, device=dev)
-    src = (torch.arange(BATCH, device=dev)[:, None] * BEAM_WIDTH + parent).reshape(STREAMS)
-    reorder = lambda: [c.index_select(1, src) for c in (kc, vc, sc)]
-    nbytes = 2 * (kc.numel() + vc.numel() + sc.numel() * 4)  # read and write each cache once
-    reorder_row = {"ms": device_ms(reorder, 16), "bound_ms": bound(nbytes, 0.0)[0], "bytes": nbytes,
-                   "shape": f"2 x int8 [{L}, {STREAMS}, {ctx}, {d}] + f32 scales"}
-
-    # kernel F: one slot of the int8 self cache across all layers and streams
-    new = torch.randint(-127, 128, (L, STREAMS, 1, d), generator=gen, device=dev, dtype=torch.int8)
-    for p in (0, pos, ctx - 1):
-        out, ref = kc.clone(), kc.clone()
-        write_cache_slot(out, new, at(p))
-        write_cache_slot_plain(ref, new, at(p))
-        if not torch.equal(out, ref):
-            raise AssertionError(f"write_cache_slot at {p} differs from the plain version")
-    del out, ref
-    kern = lambda: write_cache_slot(kc, new, pos_t)
-    plain = lambda: write_cache_slot_plain(kc, new, pos_t)
-    idx = torch.tensor([pos], device=dev)
-    lib = lambda: kc.index_copy_(2, idx, new)
-    ms, sig = device_ms(kern, 64, ours=True)
-    b_ms, b_by = bound(2 * L * STREAMS * d, 0.0)  # read new once, write the rows once
-    rows.append(dict(
-        name="write_cache_slot", route="cuda", source="whisper_burn_tpu_torch/csrc/cache_slot.cu", path="beam",
-        replaces="whisper_burn_tpu/ops/pallas_cache.py:33 (K9)",
-        shape_key=["write_cache_slot", [L, STREAMS, ctx, d, 1]], sig=sig, max_abs_err=0.0,
-        isolated_ms=ms, plain_ms=device_ms(plain, 16), bound_ms=b_ms, bound_by=b_by,
-        library_ms=device_ms(lib, 64), library_call="index_copy_ along T",
-        tol="exact", shape=f"L={L} B*W={STREAMS} ctx={ctx} W={d} int8",
-    ))
     del kc, vc, kd, vd
 
     rows.append(cross_int4_row(cfg, gen, BATCH, BEAM_WIDTH, "beam", "decode_cross_attention/grouped"))
-    return rows, reorder_row
+    return rows
 
 
 def merged_attention_bound(pos: float, d: int, b: int) -> tuple[float, str]:
@@ -748,10 +723,8 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
     at its decode step's one row and its prefill's four; B' (fast_greedy and
     entry), E' (fast_beam), C' over the int8 and bf16 cross caches,
     ungrouped and grouped (int8_greedy, int8_beam, fast_greedy, fast_beam,
-    entry), F over the bf16 self caches (fast_greedy, fast_beam,
-    entry), and D at the entry's B = 1."""
+    entry), and D at the entry's B = 1 (F: kernel_f_checks)."""
     from whisper_burn_tpu_torch.entry import MAX_TOKENS as ENTRY_TOKENS
-    from whisper_burn_tpu_torch.ops.cache import write_cache_slot, write_cache_slot_plain
     from whisper_burn_tpu_torch.ops.decode_attention import (
         decode_attention_layer, decode_attention_layer_plain, decode_attention_merged,
         decode_attention_merged_plain, decode_cross_attention, decode_cross_attention_plain,
@@ -848,32 +821,7 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
         bound_of_pos=lambda p: unscaled_layer_bound(p, d, h),
     ))
 
-    # kernel F: one slot of the bf16 self caches, 8 and 40 streams at ctx
-    # CTX, and the entry's one stream at its ctx
-    p_entry = round(mean_decode_pos(ENTRY_TOKENS - 1))
-    for path, streams, ctx, p_mean, cache in (
-        ("fast_greedy", BATCH, CTX, pos, kc[:, :BATCH].contiguous()),
-        ("fast_beam", STREAMS, CTX, pos, kc),
-        ("entry", 1, entry_ctx, p_entry, rand(L, 1, entry_ctx, d)),
-    ):
-        new = rand(L, streams, 1, d)
-        for p in (0, p_mean, ctx - 1):
-            out, ref = cache.clone(), cache.clone()
-            write_cache_slot(out, new, at(p))
-            write_cache_slot_plain(ref, new, at(p))
-            if not torch.equal(out, ref):
-                raise AssertionError(f"write_cache_slot bf16 {path} at {p} differs from the plain version")
-        del out, ref
-        idx = torch.tensor([p_mean], device=dev)
-        rows.append(isolated_row(
-            f"write_cache_slot/bf16/{streams}", path, "whisper_burn_tpu_torch/csrc/cache_slot.cu",
-            "whisper_burn_tpu/ops/pallas_cache.py:33 (K9)", ["write_cache_slot", [L, streams, ctx, d, 2]],
-            lambda p_t=at(p_mean): write_cache_slot(cache, new, p_t),
-            lambda p_t=at(p_mean): write_cache_slot_plain(cache, new, p_t),
-            lambda: cache.index_copy_(2, idx, new), 0.0, bound(2 * L * streams * d * 2, 0.0),
-            "index_copy_ along T", "exact", f"L={L} B={streams} ctx={ctx} W={d} bf16",
-        ))
-    del kc, vc, kd, vd, cache
+    del kc, vc, kd, vd
 
     # kernel C' over the int8 and bf16 cross caches, T = 1536 with 1500
     # valid: BATCH entries, ungrouped and with BEAM_WIDTH streams each, and
@@ -1007,43 +955,148 @@ def int4_self_row(cfg, gen, mode: str, merged: bool, b: int, path: str) -> dict:
     )
 
 
-def slot_uint8_row(cfg, gen, streams: int, path: str) -> dict:
-    """Kernel F on the int4 self caches' uint8 rows (640 bytes, D/2) of
-    ``streams`` streams at ctx CTX: exactly the plain version's cache at
-    slots 0, 115 and CTX - 1, and its times."""
-    from whisper_burn_tpu_torch.ops.cache import write_cache_slot, write_cache_slot_plain
+def f_tensors(cfg, compute, streams: int, t: int, gen) -> list[torch.Tensor]:
+    """Random self-cache tensors of ``compute``'s forms, ``[L, streams, t,
+    W]``: K, V and (a quantized self cache) the f32 scales."""
+    from whisper_burn_tpu_torch.models.decoder import SELF_FIELDS, init_self_cache
+
+    fields = init_self_cache(cfg, streams, compute, t, "cuda")
+    out = []
+    for x in (fields[name] for name in SELF_FIELDS if fields[name] is not None):
+        if x.dtype.is_floating_point:
+            x.copy_(torch.randn(x.shape, generator=gen, device="cuda"))
+        else:
+            lo, hi = (-128, 128) if x.dtype == torch.int8 else (0, 256)
+            x.copy_(torch.randint(lo, hi, x.shape, generator=gen, device="cuda", dtype=x.dtype))
+        out.append(x)
+    return out
+
+
+def self_form(compute) -> str:
+    if not compute.quantized_self_kv:
+        return str(compute.self_kv_storage_dtype).removeprefix("torch.").replace("bfloat16", "bf16")
+    return "int4self" if compute.self_kv_packed else "mixed" if compute.self_v_packed else "int8"
+
+
+def f_row(cfg, gen, compute, path: str, streams: int, ctx: int, beam: bool, steps: int) -> tuple[dict, dict | None]:
+    """Kernel F at one path's shape: the slot form (greedy paths: K, V and
+    the scale row of ``streams`` streams in one launch) or the beam form
+    (``streams`` = B x BEAM_WIDTH, each utterance's streams taking random
+    parents among them), exactly its plain version at slots 0, the mean of
+    ``steps`` decode steps and ctx - 1 (the beam form on the rows up to the
+    slot, its later rows and its source untouched), and its times at the
+    mean slot beside the plain version and the library calls (index_copy_
+    of each cache; for the beam form also index_select by parent, the old
+    reorder). A beam form also returns its times at slots 4, 115 and 226
+    beside the slot form followed by the index_selects. The beam form's
+    bound counts its rows up to the slot written for every stream and
+    read once for each distinct parent."""
+    from whisper_burn_tpu_torch.ops.cache import (
+        BEAM_FN, FN, write_cache_slots, write_cache_slots_beam, write_cache_slots_beam_plain, write_cache_slots_plain,
+    )
 
     dev = torch.device("cuda")
-    L, d = cfg.n_text_layer, cfg.n_text_state
-    pos = round(mean_decode_pos(MAX_TOKENS - 1))
-    cache = torch.randint(0, 256, (L, streams, CTX, d // 2), generator=gen, device=dev, dtype=torch.uint8)
-    new = torch.randint(0, 256, (L, streams, 1, d // 2), generator=gen, device=dev, dtype=torch.uint8)
-    for p in (0, pos, CTX - 1):
-        out, ref = cache.clone(), cache.clone()
-        write_cache_slot(out, new, at(p))
-        write_cache_slot_plain(ref, new, at(p))
-        if not torch.equal(out, ref):
-            raise AssertionError(f"write_cache_slot uint8 {streams} at {p} differs from the plain version")
-    del out, ref
+    L = cfg.n_text_layer
+    xs, news = f_tensors(cfg, compute, streams, ctx, gen), f_tensors(cfg, compute, streams, 1, gen)
+    rbs = [x.shape[-1] * x.element_size() for x in xs]
+    pos = round(mean_decode_pos(steps))
+    form = self_form(compute)
     idx = torch.tensor([pos], device=dev)
-    return isolated_row(
-        f"write_cache_slot/uint8/{streams}" + ("/pipeline" if path == "pipeline" else ""), path,
-        "whisper_burn_tpu_torch/csrc/cache_slot.cu", "whisper_burn_tpu/ops/pallas_cache.py:33 (K9)",
-        ["write_cache_slot", [L, streams, CTX, d // 2, 1]],
-        lambda p_t=at(pos): write_cache_slot(cache, new, p_t),
-        lambda p_t=at(pos): write_cache_slot_plain(cache, new, p_t),
-        lambda: cache.index_copy_(2, idx, new), 0.0, bound(2 * L * streams * (d // 2), 0.0),
-        "index_copy_ along T", "exact", f"L={L} B={streams} ctx={CTX} W={d // 2} uint8 (int4 pairs)",
+    shape = f"L={L} {'B*W' if beam else 'B'}={streams} ctx={ctx} {form}, rows of {' + '.join(map(str, rbs))} bytes"
+    suffix = "/entry" if path == "entry" else "/pipeline" if path == "pipeline" else ""
+    if not beam:
+        pairs = list(zip(xs, news))
+        for p in (0, pos, ctx - 1):
+            got, ref = [x.clone() for x in xs], [x.clone() for x in xs]
+            write_cache_slots(list(zip(got, news)), at(p))
+            write_cache_slots_plain(list(zip(ref, news)), at(p))
+            if not all(torch.equal(a, r) for a, r in zip(got, ref)):
+                raise AssertionError(f"write_cache_slots {path} at {p} differs from the plain version")
+        del got, ref
+        return isolated_row(
+            f"write_cache_slot/{form}/{streams}{suffix}", path, F_SRC, K9, [FN, [L, streams, ctx, *rbs]],
+            lambda p_t=at(pos): write_cache_slots(pairs, p_t),
+            lambda p_t=at(pos): write_cache_slots_plain(pairs, p_t),
+            lambda: [x.index_copy_(2, idx, n) for x, n in pairs], 0.0, bound(2 * L * streams * sum(rbs), 0.0),
+            f"index_copy_ along T of each of the {len(pairs)} caches", "exact", shape,
+        ), None
+    ys = f_tensors(cfg, compute, streams, ctx, gen)  # the other buffer, its rows stale
+    parent = torch.randint(0, BEAM_WIDTH, (streams // BEAM_WIDTH, BEAM_WIDTH), generator=gen, device=dev)
+    src = (torch.arange(streams // BEAM_WIDTH, device=dev)[:, None] * BEAM_WIDTH + parent).reshape(-1).to(torch.int32)
+    src_l = src.long()
+    for p in (0, pos, ctx - 1):
+        x0 = [x.clone() for x in xs]
+        got, ref = [y.clone() for y in ys], [y.clone() for y in ys]
+        write_cache_slots_beam(list(zip(got, xs, news)), src, at(p))
+        source_kept = all(torch.equal(x, c) for x, c in zip(xs, x0))
+        write_cache_slots_beam_plain(list(zip(ref, x0, news)), src, at(p))
+        if not (source_kept and all(torch.equal(a[:, :, :p + 1], r[:, :, :p + 1])
+                                    and torch.equal(a[:, :, p + 1:], y[:, :, p + 1:]) for a, r, y in zip(got, ref, ys))):
+            raise AssertionError(f"write_cache_slots_beam {path} at {p} differs from the plain version")
+        del x0, got, ref
+    triples = list(zip(ys, xs, news))
+    # the rows up to the slot, written for every stream and read once for
+    # each distinct parent (its streams read them through L2)
+    of = lambda p, parents=int(src.unique().numel()): bound(L * (p + 1) * sum(rbs) * (streams + parents), 0.0)
+    row = isolated_row(
+        f"write_cache_slot_beam/{form}/{streams}", path, F_SRC, K9 + " then jnp.take by parent (models/beam.py:222-232)",
+        [BEAM_FN, [L, streams, ctx, *rbs]],
+        lambda p_t=at(pos): write_cache_slots_beam(triples, src, p_t),
+        lambda p_t=at(pos): write_cache_slots_beam_plain(triples, src, p_t),
+        lambda: [x.index_copy_(2, idx, n).index_select(1, src_l) for x, n in zip(xs, news)], 0.0, of(pos),
+        f"index_copy_ along T, then index_select by parent, of each of the {len(xs)} caches (the old reorder)",
+        "exact on the rows up to pos", shape, isolated_bound_ms=of(pos)[0], bound_of_pos=of,
     )
+    positions = {}
+    for p in (4, round(mean_decode_pos(MAX_TOKENS - 1)), 3 + MAX_TOKENS - 1):
+        p_t = at(p)
+        positions[p] = {
+            "beam_form_ms": device_ms(lambda: write_cache_slots_beam(triples, src, p_t), 16),
+            "slot_form_then_index_selects_ms": device_ms(
+                lambda: (write_cache_slots(list(zip(xs, news)), p_t), [x.index_select(1, src_l) for x in xs]), 16),
+            "bound_ms": of(p)[0],
+        }
+    return row, {"phase": "kernel_f_beam_positions", "path": path, "shape": shape, "positions": positions}
+
+
+def kernel_f_checks(cfg, gen, computes: dict) -> list[dict]:
+    """Kernel F at every path's shape (``computes``: each path's compute):
+    the slot form on the greedy paths whose step leaves the slot to F
+    (fast_greedy and the entry in bf16, int4self_greedy, mixed_greedy, the
+    pipeline's int4 self caches at B = 4 and 8), the beam form on every
+    beam path (40 streams). Rows of one shape are measured once."""
+    from whisper_burn_tpu_torch.entry import MAX_TOKENS as ENTRY_TOKENS
+
+    entry_ctx = max(64, -(-(4 + ENTRY_TOKENS) // 64) * 64)
+    cases = [("fast_greedy", BATCH, CTX, False), ("entry", 1, entry_ctx, False), ("int4self_greedy", BATCH, CTX, False),
+             ("mixed_greedy", BATCH, CTX, False), ("pipeline", 4, CTX, False), ("pipeline", BATCH, CTX, False),
+             ("beam", STREAMS, CTX, True), ("int8_beam", STREAMS, CTX, True), ("fast_beam", STREAMS, CTX, True),
+             ("int4self_beam", STREAMS, CTX, True), ("mixed_beam", STREAMS, CTX, True)]
+    rows, seen = [], {}
+    for path, streams, ctx, beam in cases:
+        compute = computes[path]
+        key = (self_form(compute), streams, ctx, beam)
+        if key in seen:
+            row = dict(seen[key], path=path)
+            row["name"] = row["name"].split("/pipeline")[0] + ("/pipeline" if path == "pipeline" else "")
+        else:
+            steps = (ENTRY_TOKENS if path == "entry" else MAX_TOKENS) - 1
+            row, positions = f_row(cfg, gen, compute, path, streams, ctx, beam, steps)
+            seen[key] = row
+            if positions is not None:
+                log(positions)
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
 
 
 def int4_kernel_checks(cfg, gen) -> list[dict]:
     """The kernels of the int4 self-KV modes and of the head-blocked encoder
     attention at their paths' Large-V3 shapes: G over the int4 and the mixed
     self caches at 8 streams (int4self_greedy, mixed_greedy), H at 40
-    (int4self_beam, mixed_beam), at positions 4, 115 and 227 of ctx 256; F
-    on uint8 rows of 640 bytes at 8 and 40 streams; D' at B=8 x 1500
-    frames at Large-V3 and Medium widths (its own op's path)."""
+    (int4self_beam, mixed_beam), at positions 4, 115 and 227 of ctx 256;
+    D' at B=8 x 1500 frames at Large-V3 and Medium widths (its own op's
+    path)."""
     from whisper_burn_tpu_torch.ops.encoder_attention import (
         HEADS, encoder_attention_heads, encoder_attention_heads_kernel, encoder_attention_heads_plain,
         encoder_attention_plain,
@@ -1054,8 +1107,6 @@ def int4_kernel_checks(cfg, gen) -> list[dict]:
     d, h = cfg.n_text_state, cfg.n_text_head
     rows = [int4_self_row(cfg, gen, mode, merged, b, f"{mode}_{kind}")
             for mode in ("int4self", "mixed") for merged, b, kind in ((True, BATCH, "greedy"), (False, STREAMS, "beam"))]
-    rows += [slot_uint8_row(cfg, gen, streams, path)
-             for path, streams in (("int4self_greedy", BATCH), ("int4self_beam", STREAMS))]
 
     # kernel D' through its op: B=8 x 1500 frames, T padded to 1536, at
     # Large-V3 and Medium widths
@@ -1101,8 +1152,8 @@ def pipeline_kernel_checks(params, cfg, gen) -> list[dict]:
     prefill's 4B, and the language-detection pass's one [SOT] row per
     stream (its four layer shapes are the decode step's at M = B, so those
     rows share their launch counts); D over B x 1536 frames; C over the
-    B-entry int4 cross cache; G over the int4 self cache; F on its uint8
-    rows."""
+    B-entry int4 cross cache; G over the int4 self cache (F:
+    kernel_f_checks)."""
     rows, pcfg = [], cfg.replace(gelu="erf")
     for b in (4, BATCH):
         prefix = f"pipeline/B={b}/"
@@ -1115,7 +1166,6 @@ def pipeline_kernel_checks(params, cfg, gen) -> list[dict]:
             encoder_attention_row(cfg, gen, b, "pipeline", f"encoder_attention/{prefix[:-1]}"),
             cross_int4_row(cfg, gen, b, 1, "pipeline", f"decode_cross_attention/{prefix[:-1]}"),
             int4_self_row(cfg, gen, "int4self", True, b, "pipeline"),
-            slot_uint8_row(cfg, gen, b, "pipeline"),
         ]
     return rows
 
@@ -1163,6 +1213,27 @@ def eager_greedy(params, cfg, mel, lang, compute, max_tokens, detect=False):
     return w.GreedyResult(state.tokens, n_gen, lang)
 
 
+def eager_beam(params, cfg, mel, lang, compute, max_tokens):
+    """A beam request with the loop's body (``beam_step``) called step by
+    step from here, on a fresh state, its self-cache pair taken in turn, in
+    the stage ranges ``beam_decode`` marks: the eager reference that every
+    replayed request of a beam path is held to bit for bit."""
+    from torch.profiler import record_function
+
+    from whisper_burn_tpu_torch.models import beam
+    from whisper_burn_tpu_torch.models import whisper as w
+
+    state = beam.new_beam_state(cfg, compute, mel.shape[0], BEAM_WIDTH, w.self_cache_len(cfg, max_tokens), max_tokens,
+                                mel.device)
+    lang = beam.start_beam_request(params, cfg, mel, lang, compute, state, detect=False, task="transcribe")
+    with record_function("beam_decode.decode"):
+        for k in range(1, max_tokens):
+            if k % w.DONE_CHECK_EVERY == 0 and bool(state.done.all()):
+                break
+            beam.beam_step(params, cfg, state, compute, (k - 1) % 2, length_penalty=1.0, early_stopping=False)
+        return beam.BeamResult(*beam.select_best(state, 1.0), lang)
+
+
 def lang_tokens(cfg, batch: int) -> torch.Tensor:
     return torch.full((batch,), cfg.lang_token_start, dtype=torch.int32, device="cuda")
 
@@ -1181,10 +1252,10 @@ def audio_path(label, params, cfg, compute, mel_frontend, audios, beam=False, re
         return greedy_decode(params, cfg, mel, lang_tokens(cfg, BATCH), compute, max_tokens=max_tokens)
 
     def eager(r, max_tokens=MAX_TOKENS):
-        return eager_greedy(params, cfg, mel_frontend(audios[r % len(audios)]), lang_tokens(cfg, BATCH), compute,
-                            max_tokens)
+        return (eager_beam if beam else eager_greedy)(
+            params, cfg, mel_frontend(audios[r % len(audios)]), lang_tokens(cfg, BATCH), compute, max_tokens)
 
-    return MainPath(label, run, compute, beam=beam, requests=requests, eager=None if beam else eager)
+    return MainPath(label, run, compute, beam=beam, requests=requests, eager=eager)
 
 
 def self_kernel(compute, beam: bool) -> str:
@@ -1208,9 +1279,10 @@ def predicted_launches(cfg, compute, batch: int, steps: int, beam: bool, detect:
     also the encoder's two projections (A) and FFN (I) per layer and the
     cross fill's one linear (A) while their rows (B x 1536 and B x 1500) are
     below LARGE_M. One self- and one cross-attention launch per layer and
-    step (C over int4, C' over int8 or float caches); two slot writes (F)
-    per step where the row is not stored by kernel B; D once per encoder
-    layer."""
+    step (C over int4, C' over int8 or float caches); one launch of F a
+    step: its beam form on a beam path, else its slot form where the row
+    is not stored by kernel B; D once per encoder layer."""
+    from whisper_burn_tpu_torch.ops.cache import BEAM_FN as SLOT_BEAM
     from whisper_burn_tpu_torch.ops.cache import FN as SLOT
     from whisper_burn_tpu_torch.ops.decode_attention import CROSS, CROSS_U, SELF
     from whisper_burn_tpu_torch.ops.ffn_kernel import NAME as FFN
@@ -1227,8 +1299,10 @@ def predicted_launches(cfg, compute, batch: int, steps: int, beam: bool, detect:
     self_fn = self_kernel(compute, beam)
     want = {"q4_matmul": a, FFN: ffn, self_fn: L * steps, CROSS if compute.kv_packed else CROSS_U: L * steps,
             "encoder_attention": La}
-    if self_fn != SELF:
-        want[SLOT] = 2 * steps
+    if beam:
+        want[SLOT_BEAM] = steps
+    elif self_fn != SELF:
+        want[SLOT] = steps
     return want
 
 
@@ -1317,13 +1391,14 @@ def run_path(path: MainPath, cfg) -> tuple[dict, dict, list]:
     return dict(_build.LAUNCHES), shape_counts(), results
 
 
-def eager_check(path: MainPath, results: list) -> dict:
+def eager_check(path: MainPath, results: list) -> tuple[dict, object]:
     """The path's eager reference request (``path.eager``: the loop body
     called step by step) against its requests replayed through the graph,
-    bit for bit: at the path's own token count against its last request
-    (fully replayed; greedy and entry), else at TRACED_TOKENS against two
-    more requests, the first of which captures the step of a new runner
-    and the second replays it from k = 1."""
+    bit for bit (a beam's scores too): at the path's own token count
+    against its last request (fully replayed; greedy and entry), else at
+    TRACED_TOKENS against two more requests, the first of which captures
+    the step of a new runner (the beam's from each buffer of its pair) and
+    the second replays it from k = 1. Returns the line and the reference."""
     tokens = path.max_tokens if path.label in ("greedy", "entry") else TRACED_TOKENS
     r = path.requests - 1
     replayed = [results[-1]] if tokens == path.max_tokens else [path.run(r, max_tokens=tokens) for _ in range(2)]
@@ -1331,12 +1406,13 @@ def eager_check(path: MainPath, results: list) -> dict:
     ref = path.eager(r, max_tokens=tokens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    same = [bool(torch.equal(x.tokens, ref.tokens) and torch.equal(x.n_generated, ref.n_generated)) for x in replayed]
+    same = [bool(torch.equal(x.tokens, ref.tokens) and torch.equal(x.n_generated, ref.n_generated)
+                 and (not path.beam or torch.equal(x.scores, ref.scores))) for x in replayed]
     line = {"phase": "eager_reference", "path": path.label, "max_tokens": tokens, "eager_wall_ms": wall * 1e3,
             "replayed_requests": len(replayed), "tokens_equal": same, "n_generated": ref.n_generated.tolist()}
     if not all(same):
         raise AssertionError(f"{path.label}: replayed tokens differ from the eager body's: {line}")
-    return line
+    return line, ref
 
 
 def log_captures(label: str, seen: weakref.WeakSet) -> int:
@@ -1351,8 +1427,9 @@ def log_captures(label: str, seen: weakref.WeakSet) -> int:
             seen.add(runner)
             made += 1
             log({"phase": "graph_capture", "path": label, "batch": runner.batch, "ctx": runner.ctx,
-                 "max_tokens": runner.max_tokens, "capture_ms": runner.capture_s * 1e3,
-                 "recorded_launches": len(runner.tally.log)})
+                 "max_tokens": runner.max_tokens, "beam_width": getattr(runner, "beam_width", None),
+                 "graphs": len(runner.graphs), "capture_ms": runner.capture_s * 1e3,
+                 "recorded_launches": [len(tally.log) for _, _, tally in runner.graphs]})
     return made
 
 
@@ -1524,16 +1601,18 @@ def device_spans(ranges, name: str) -> list[tuple[float, float]]:
 
 
 def decode_split(dev, span, steps: int, gather_spans=(), logits_spans=()) -> dict:
-    """Each decode step's device time: the hand-written kernels, the work
-    inside ``gather_spans`` (the beam's reorder of its self caches), the
-    work inside ``logits_spans`` (final LayerNorm and the logits product,
-    kernel A's launch among them with int8 logits), other work, idle."""
+    """Each decode step's device time: the hand-written kernels (kernel F's
+    beam form among them), the other work inside ``gather_spans`` (the
+    beam's reorder: its tokens' gather by parent), the work inside
+    ``logits_spans`` (final LayerNorm and the logits product, kernel A's
+    launch among them with int8 logits), other work, idle."""
     lo, hi = span
     in_decode = [e for e in dev if lo <= e["ts"] < hi]
     inside = lambda spans: [e for e in in_decode if any(a <= e["ts"] < b for a, b in spans)]
     busy = sum(e["dur"] for e in in_decode)
     ours_busy = sum(e["dur"] for e in in_decode if OURS.search(e["name"]))
-    gathers, logits = inside(gather_spans), inside(logits_spans)
+    gathers = [e for e in inside(gather_spans) if not OURS.search(e["name"])]
+    logits = inside(logits_spans)
     gather = sum(e["dur"] for e in gathers)
     other = collections.Counter()
     for e in in_decode:
@@ -1555,6 +1634,27 @@ def decode_split(dev, span, steps: int, gather_spans=(), logits_spans=()) -> dic
     }
 
 
+def distinct_parents(path: MainPath, max_tokens: int) -> list[int]:
+    """The distinct parent streams of each decode step of the beam path's
+    eager request 0 at ``max_tokens`` tokens (the streams whose rows kernel
+    F's beam form reads), from an untraced run of it that records the
+    parents the step passes to ``reorder_self_cache``."""
+    from whisper_burn_tpu_torch.models import beam
+
+    parents, reorder = [], beam.reorder_self_cache
+
+    def recording(dst, cache, rows, src, pos):
+        parents.append(src.clone())
+        reorder(dst, cache, rows, src, pos)
+
+    beam.reorder_self_cache = recording
+    try:
+        path.eager(0, max_tokens=max_tokens)
+    finally:
+        beam.reorder_self_cache = reorder
+    return [int(src.unique().numel()) for src in parents]
+
+
 def traced_path(path: MainPath, cfg, sigs: dict, max_tokens: int) -> tuple[dict, dict, object]:
     """One more request of ``path`` at ``max_tokens`` tokens under
     torch.profiler (beam and the new paths at TRACED_TOKENS: the profiler's
@@ -1564,14 +1664,15 @@ def traced_path(path: MainPath, cfg, sigs: dict, max_tokens: int) -> tuple[dict,
     of the hand-written kernels' launches by (kernel, shape), the
     breakdown: the stages ``greedy_decode`` or ``beam_decode`` marks, on the
     host and on the device, and each decode step split into the kernels,
-    the beam's cache reorder, the logits, other device work and idle; and
-    the request's result."""
+    the beam's reorder of its tokens, the logits, other device work and
+    idle; and the request's result."""
+    from whisper_burn_tpu_torch.ops.cache import BEAM_FN as SLOT_BEAM
     from whisper_burn_tpu_torch.ops.cache import FN as SLOT
     from whisper_burn_tpu_torch.ops.decode_attention import LAYER, LAYER4, LAYER_U, MERGED, MERGED4, SELF
 
     def run():
         t0 = time.perf_counter()
-        res = (path.eager or path.run)(0, max_tokens=max_tokens)
+        res = path.eager(0, max_tokens=max_tokens)
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0
 
@@ -1583,7 +1684,7 @@ def traced_path(path: MainPath, cfg, sigs: dict, max_tokens: int) -> tuple[dict,
         kernel, shape = json.loads(key)
         if kernel in (SELF, MERGED, LAYER, LAYER_U, MERGED4, LAYER4):
             shape[1] = CTX
-        if kernel == SLOT:
+        if kernel in (SLOT, SLOT_BEAM):
             shape[2] = CTX
         return json.dumps([kernel, shape])
 
@@ -1610,41 +1711,45 @@ def traced_path(path: MainPath, cfg, sigs: dict, max_tokens: int) -> tuple[dict,
         "trace_records_lost": lost,
         "trace_records_lost_ms": lost_ms,
     }
+    if path.beam:  # the same request's parents, for the bound of kernel F's beam form
+        breakdown["distinct_parents"] = distinct_parents(path, max_tokens)
     # the kernels' time a step, the lost records' launches counted as if
     # all ran in the decode span: the most the records could understate it
     breakdown["decode_step_kernels_max_ms"] = breakdown["decode_step_kernels_ms"] + sum(lost_ms.values()) / steps
     return durations, breakdown, res
 
 
-def traced_replay(path: MainPath, cfg, max_tokens: int, eager) -> dict:
-    """One more request of a greedy path at ``max_tokens`` tokens, its
-    steps replayed through the runner's graph, under torch.profiler (after
-    an untraced one, which captures the step if the runner is new: no
-    capture under the profiler). The decode stage's device work is what
-    the runtime calls inside its host range launched (kernels of a graph
-    carry their graph launch's correlation id); returns the replayed step's
-    wall (first to last device event of the stage, per step), device busy,
-    idle share and device operations per step. Its tokens equal the eager
-    traced request's ``eager`` bit for bit."""
+def traced_replay(path: MainPath, cfg, max_tokens: int, eager, r: int = 0) -> dict:
+    """One more request ``r`` of a path at ``max_tokens`` tokens, its steps
+    replayed through the runner's graphs, under torch.profiler (after an
+    untraced one, which captures the step if the runner is new: no capture
+    under the profiler). The decode stage's device work is what the
+    runtime calls inside its host range launched (kernels of a graph carry
+    their graph launch's correlation id); returns the replayed step's wall
+    (first to last device event of the stage, per step), device busy, idle
+    share and device operations per step. Its tokens (a beam's scores too)
+    equal the eager request's ``eager`` bit for bit."""
     from whisper_burn_tpu_torch.ops import _build
 
-    path.run(0, max_tokens=max_tokens)
+    path.run(r, max_tokens=max_tokens)
     torch.cuda.synchronize()
     _build.reset_launches()
 
     def run():
         t0 = time.perf_counter()
-        res = path.run(0, max_tokens=max_tokens)
+        res = path.run(r, max_tokens=max_tokens)
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0
 
     runtime = []
     (res, wall), dev, ranges = traced(run, runtime)
-    if not (torch.equal(res.tokens, eager.tokens) and torch.equal(res.n_generated, eager.n_generated)):
+    if not (torch.equal(res.tokens, eager.tokens) and torch.equal(res.n_generated, eager.n_generated)
+            and (not path.beam or torch.equal(res.scores, eager.scores))):
         raise AssertionError(f"traced {path.label}: the replayed request's tokens differ from the eager one's")
-    steps = _build.LAUNCHES[self_kernel(path.compute, False)] // cfg.n_text_layer
+    steps = _build.LAUNCHES[self_kernel(path.compute, path.beam)] // cfg.n_text_layer
+    stage = "beam_decode.decode" if path.beam else "greedy_decode.decode"
     (lo, hi), = [(e["ts"], e["ts"] + e["dur"]) for e in ranges
-                 if e["cat"] == "user_annotation" and e["name"] == "greedy_decode.decode"]
+                 if e["cat"] == "user_annotation" and e["name"] == stage]
     calls = [e for e in runtime if lo <= e["ts"] <= hi]
     corr = {e["args"]["correlation"] for e in calls if "correlation" in e.get("args", {})}
     work = [e for e in dev if e.get("args", {}).get("correlation") in corr]
@@ -1690,6 +1795,7 @@ def small_end_to_end(compute) -> dict:
     from whisper_burn_tpu_torch.models.params import random_params
     from whisper_burn_tpu_torch.models.whisper import greedy_decode
     from whisper_burn_tpu_torch.ops import _build
+    from whisper_burn_tpu_torch.ops.cache import BEAM_FN as SLOT_BEAM
     from whisper_burn_tpu_torch.ops.cache import FN as SLOT
     from whisper_burn_tpu_torch.ops.decode_attention import CROSS, CROSS_U
     from whisper_burn_tpu_torch.ops.ffn_kernel import NAME as FFN
@@ -1702,7 +1808,7 @@ def small_end_to_end(compute) -> dict:
     g = 3  # beams
     # every kernel the mode's paths launch
     kernels = {"q4_matmul", FFN, "encoder_attention", self_kernel(compute, False), self_kernel(compute, True),
-               CROSS if compute.kv_packed else CROSS_U, SLOT}
+               CROSS if compute.kv_packed else CROSS_U, SLOT, SLOT_BEAM}
     resync = (compute.quantized_kv and not compute.kv_packed) or compute.self_v_packed
     snaps = {}  # the CPU run's cache states, by (cache, step)
     mismatch = collections.defaultdict(float)  # the largest share of int8 codes that differ, by cache tensor
@@ -1818,6 +1924,7 @@ def main() -> int:
     from whisper_burn_tpu_torch.models.params import device_fabricated_params
     from whisper_burn_tpu_torch.models.whisper import cached_runners, clear_runners
     from whisper_burn_tpu_torch.ops import _build
+    from whisper_burn_tpu_torch.ops.cache import BEAM_FN as SLOT_BEAM
     from whisper_burn_tpu_torch.ops.compute import Compute
     from whisper_burn_tpu_torch.transcribe import prepare_params
 
@@ -1867,7 +1974,7 @@ def main() -> int:
         audio_path("mixed_greedy", params, cfg, mixed, mel_frontend, audios),
         audio_path("mixed_beam", params, cfg, mixed, mel_frontend, audios, beam=True),
     ]
-    launches, counts, captured = {}, {}, weakref.WeakSet()
+    launches, counts, captured, refs = {}, {}, weakref.WeakSet(), {}
     for path in paths + ["entry"]:
         t0 = time.perf_counter()
         if path == "entry":  # the flagship step as a user calls it
@@ -1884,12 +1991,13 @@ def main() -> int:
         made = log_captures(path.label, captured)
         if path.eager is not None:
             t0 = time.perf_counter()
-            log(eager_check(path, results))
+            line, refs[path.label] = eager_check(path, results)
+            log(line)
             phases[f"{path.label}_eager_check_s"] = time.perf_counter() - t0
             made += log_captures(path.label, captured)
         # one runner serves every request of a shape: greedy and the entry
-        # make one, the other greedy paths one more for their 32-token check
-        want = 0 if path.beam else 1 if path.label in ("greedy", "entry") else 2
+        # make one, the other paths one more for their 32-token check
+        want = 1 if path.label in ("greedy", "entry") else 2
         if made != want:
             raise AssertionError(f"{path.label}: {made} runners captured, expected {want}")
         del results
@@ -1912,11 +2020,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     rows = kernel_checks(params, cfg, gen)
-    beam_rows, reorder = beam_kernel_checks(params, cfg, gen)
-    rows += beam_rows + mode_kernel_checks(fast_params, cfg, gen) + int4_kernel_checks(cfg, gen)
+    rows += beam_kernel_checks(params, cfg, gen) + mode_kernel_checks(fast_params, cfg, gen) + int4_kernel_checks(cfg, gen)
     rows += pipeline_kernel_checks(params, cfg, gen)
+    rows += kernel_f_checks(cfg, gen, {**{p.label: p.compute for p in paths}, "entry": fast, "pipeline": int4self})
     phases["kernels_s"] = time.perf_counter() - t0
-    log({"phase": "kernels", "seconds": phases["kernels_s"], "beam_reorder_isolated": reorder})
+    log({"phase": "kernels", "seconds": phases["kernels_s"]})
     sigs, rows_by_key = {}, {}
     for row in rows:
         key = json.dumps(row["shape_key"])
@@ -1937,11 +2045,17 @@ def main() -> int:
         t0 = time.perf_counter()
         *traced[label], res = traced_path(by_label[label], cfg, sigs, tokens)
         phases[f"traced_{label}_s"] = time.perf_counter() - t0
-        if not by_label[label].beam:
-            t0 = time.perf_counter()
-            replays[label] = traced_replay(by_label[label], cfg, tokens, res)
-            phases[f"traced_replay_{label}_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        replays[label] = traced_replay(by_label[label], cfg, tokens, res)
+        phases[f"traced_replay_{label}_s"] = time.perf_counter() - t0
         del res
+    # the other beam paths' replayed steps, held to their eager references
+    for label in ("int8_beam", "int4self_beam", "mixed_beam"):
+        t0 = time.perf_counter()
+        path = by_label[label]
+        replays[label] = traced_replay(path, cfg, TRACED_TOKENS, refs[label], r=path.requests - 1)
+        phases[f"traced_replay_{label}_s"] = time.perf_counter() - t0
+    del refs
     for row in rows:
         bound_of_pos = row.pop("bound_of_pos", None)
         key = json.dumps(row.pop("shape_key"))
@@ -1949,7 +2063,12 @@ def main() -> int:
             row["ms"], row["ms_source"] = row["isolated_ms"], "isolated (no traced request on its path)"
             continue
         durations, bd = traced[row["path"]]
-        if bound_of_pos is not None:  # the bound at the traced run's positions
+        parents = bd.get("distinct_parents")
+        if bound_of_pos is not None and parents and key.startswith(f'["{SLOT_BEAM}"'):
+            # kernel F's beam form at each traced step's slot 3 + k and parents
+            per_step = [bound_of_pos(3 + k, n)[0] for k, n in enumerate(parents, 1)]
+            row["bound_ms"], row["bound_by"] = sum(per_step) / len(per_step), "bytes"
+        elif bound_of_pos is not None:  # the bound at the traced run's positions
             row["bound_ms"], row["bound_by"] = bound_of_pos(mean_decode_pos(bd["decode_steps"]))
         durs = durations[key]
         row["ms"], row["ms_source"] = sum(durs) / len(durs) / 1e3, "traced request"  # mean per launch
@@ -1961,8 +2080,8 @@ def main() -> int:
             if k in rows_by_key and is_decode_row(rows_by_key[k])
         ) / steps
         log({"phase": f"traced_{label}", "seconds": phases[f"traced_{label}_s"], **bd})
-        if label in replays:
-            log({"phase": f"traced_replay_{label}", "seconds": phases[f"traced_replay_{label}_s"], **replays[label]})
+    for label, replay in replays.items():
+        log({"phase": f"traced_replay_{label}", "seconds": phases[f"traced_replay_{label}_s"], **replay})
     # the encoder's device ms of each traced request: serving (greedy,
     # beam, int4self_greedy; W8A8) and fast() (fast_greedy, fast_beam)
     log({"phase": "encoder_device_ms", **{label: bd["stages"]["device_ms"]["encode"] for label, (_, bd) in traced.items()}})

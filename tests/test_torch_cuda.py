@@ -14,7 +14,14 @@ import torch
 
 from whisper_burn_tpu_torch.models.decoder import self_kv_groups
 from whisper_burn_tpu_torch.ops import _build
-from whisper_burn_tpu_torch.ops.cache import write_cache_slot, write_cache_slot_plain
+from whisper_burn_tpu_torch.ops.cache import (
+    write_cache_slot,
+    write_cache_slot_plain,
+    write_cache_slots,
+    write_cache_slots_beam,
+    write_cache_slots_beam_plain,
+    write_cache_slots_plain,
+)
 from whisper_burn_tpu_torch.ops.decode_attention import (
     decode_attention_layer,
     decode_attention_layer_int4,
@@ -286,6 +293,76 @@ def test_cache_slot_kernel(gen, dtype, width):
     write_cache_slot(cache, new, _at(7))
     write_cache_slot_plain(ref, new, _at(7))
     assert torch.equal(cache, ref)
+
+
+# Kernel F's two forms at Large-V3's layout (32 layers, D 1280, ctx 256),
+# each self-cache form: (K dtype, V dtype, K width, V width, scale lanes)
+F_FORMS = {
+    "int8": (torch.int8, torch.int8, 1280, 1280, 2),
+    "int4self": (torch.uint8, torch.uint8, 640, 640, 20),
+    "mixed": (torch.int8, torch.uint8, 1280, 640, 11),
+    "bf16": (torch.bfloat16, torch.bfloat16, 1280, 1280, 0),
+    "f32": (torch.float32, torch.float32, 1280, 1280, 0),
+}
+
+
+def _f_rows(gen, form, streams, t):
+    """Random ``[32, streams, t, W]`` K, V and (quantized forms) scale rows."""
+    kd, vd, kw, vw, lanes = F_FORMS[form]
+
+    def rand(dtype, width):
+        shape = (32, streams, t, width)
+        if dtype.is_floating_point:
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        lo, hi = (-128, 128) if dtype == torch.int8 else (0, 256)
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=dtype)
+
+    return [rand(kd, kw), rand(vd, vw)] + ([rand(torch.float32, lanes)] if lanes else [])
+
+
+@pytest.mark.parametrize("pos", [0, 1, 115, 255])
+@pytest.mark.parametrize("streams", [8, 40])
+@pytest.mark.parametrize("form", list(F_FORMS))
+def test_cache_slot_forms_large_v3(gen, form, streams, pos):
+    """Both forms of kernel F in one launch a call, exactly their plain
+    versions, twice bitwise alike. The slot form leaves every other row of
+    the caches as it was; the beam form (the streams in utterances of 5
+    beams, or 4 at 8 streams, each taking a random parent among its
+    utterance's) writes the other buffer's rows up to pos, leaves its later
+    rows and the step's buffer as they were."""
+    ctx = 256
+    caches, news = _f_rows(gen, form, streams, ctx), _f_rows(gen, form, streams, 1)
+    at = _at(pos)
+    outs = []
+    for _ in range(2):
+        got = [c.clone() for c in caches]
+        _build.reset_launches()
+        write_cache_slots(list(zip(got, news)), at)
+        assert dict(_build.LAUNCHES) == {"write_cache_slot": 1}
+        outs.append(got)
+    ref = [c.clone() for c in caches]
+    write_cache_slots_plain(list(zip(ref, news)), at)
+    for a, b, r in zip(*outs, ref):
+        assert torch.equal(a, r) and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+    width = 5 if streams % 5 == 0 else 4  # beams of an utterance
+    parent = torch.randint(0, width, (streams // width, width), generator=gen, device="cuda")
+    src = (torch.arange(streams // width, device="cuda")[:, None] * width + parent).reshape(-1).to(torch.int32)
+    stale = _f_rows(gen, form, streams, ctx)
+    xs = [c.clone() for c in caches]
+    outs = []
+    for _ in range(2):
+        ys = [y.clone() for y in stale]
+        _build.reset_launches()
+        write_cache_slots_beam(list(zip(ys, xs, news)), src, at)
+        assert dict(_build.LAUNCHES) == {"write_cache_slot_beam": 1}
+        outs.append(ys)
+    ref = [y.clone() for y in stale]
+    write_cache_slots_beam_plain(list(zip(ref, [c.clone() for c in caches], news)), src, at)
+    for a, b, r, y0, x, c in zip(*outs, ref, stale, xs, caches):
+        assert torch.equal(a[:, :, : pos + 1], r[:, :, : pos + 1])
+        assert torch.equal(a[:, :, pos + 1 :], y0[:, :, pos + 1 :])
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)) and torch.equal(x, c)
 
 
 # Kernel D: T not a multiple of the 128-query tile (200), a valid that
@@ -648,7 +725,7 @@ def test_greedy_graph_replay_equals_eager_body(lv3_two_layers, mode):
         _build.reset_launches()
         res = w.greedy_decode(params, cfg, mel, lang, compute, max_tokens=GRAPH_TOKENS)
         runner = w.greedy_runner(params, cfg, compute, GRAPH_B, GRAPH_TOKENS, mel.device)
-        assert runner.graph is not None and len(w.cached_runners()) == 1
+        assert runner.graphs and len(w.cached_runners()) == 1
         assert torch.equal(res.tokens, tokens)
         assert torch.equal(runner.logits, logits)
         assert dict(_build.LAUNCHES) == eager_launches
@@ -699,3 +776,57 @@ def test_graph_replay_counts_the_eager_step_launches(lv3_two_layers):
         _build.add_launches(tally)
     assert dict(_build.LAUNCH_SHAPES) == {key: 3 * n for key, n in eager.items()}
     assert int(state.k) == 5  # one eager step and three replays from k = 1
+
+
+# the beam loop as CUDA graphs of its step (models/beam.py), at the same
+# layout: 4 utterances x 5 beams, 40 tokens (two done checks)
+GRAPH_W = 5
+
+
+def _eager_beam(params, cfg, mel, compute, max_tokens):
+    """The loop body called step by step from here, on a fresh state, its
+    buffers taken in turn: the result of the request."""
+    from whisper_burn_tpu_torch.models import beam
+    from whisper_burn_tpu_torch.models import whisper as w
+
+    b = mel.shape[0]
+    state = beam.new_beam_state(cfg, compute, b, GRAPH_W, w.self_cache_len(cfg, max_tokens), max_tokens, mel.device)
+    lang = torch.full((b,), cfg.lang_token_start, dtype=torch.int32, device=mel.device)
+    lang = beam.start_beam_request(params, cfg, mel, lang, compute, state, detect=False, task="transcribe")
+    for k in range(1, max_tokens):
+        if k % w.DONE_CHECK_EVERY == 0 and bool(state.done.all()):
+            break
+        beam.beam_step(params, cfg, state, compute, (k - 1) % 2, length_penalty=1.0, early_stopping=False)
+    return beam.BeamResult(*beam.select_best(state, 1.0), lang)
+
+
+@pytest.mark.parametrize("mode", GRAPH_MODES)
+def test_beam_graph_replay_equals_eager_body(lv3_two_layers, mode):
+    """Two requests through one beam runner (the first runs its first
+    step eagerly, then captures the step from each buffer of the
+    self-cache pair; the second replays from k = 1) give the eager body's
+    tokens, lengths and scores bit for bit, and the launches of the eager
+    loop: one beam-form F a step, no slot form."""
+    from whisper_burn_tpu_torch.models import beam
+    from whisper_burn_tpu_torch.models import whisper as w
+    from whisper_burn_tpu_torch.transcribe import prepare_params
+
+    cfg, raw, mels = lv3_two_layers
+    compute = _graph_compute(mode)
+    params = prepare_params(raw, compute)
+    w.clear_runners()
+    lang = torch.full((GRAPH_B,), cfg.lang_token_start, dtype=torch.int32, device="cuda")
+    for mel in mels:
+        _build.reset_launches()
+        ref = _eager_beam(params, cfg, mel, compute, GRAPH_TOKENS)
+        eager_launches = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        res = beam.beam_decode(params, cfg, mel, lang, compute, beam_width=GRAPH_W, max_tokens=GRAPH_TOKENS)
+        (runner,) = w.cached_runners()
+        assert isinstance(runner, beam.BeamRunner) and len(runner.graphs) == 2
+        for a, b in zip(res, ref):
+            assert torch.equal(a, b)
+        assert dict(_build.LAUNCHES) == eager_launches
+        assert eager_launches["write_cache_slot_beam"] == int(runner.state.k) - 1
+        assert "write_cache_slot" not in eager_launches
+    w.clear_runners()

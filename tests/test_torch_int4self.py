@@ -422,12 +422,14 @@ def test_beam_decode_matches_jax(mode):
 
 @pytest.mark.parametrize("mode,lanes", [("int4self", 20), ("mixed", 11)])
 def test_beam_reorder_carries_packed_caches(mode, lanes):
-    """The beam's reorder gathers a uint8 self cache (int8 keys in the mixed
-    mode) and its Large-V3 scale lanes (20 int4self, 11 mixed) whole: each
-    stream takes its parent's rows, dtypes and lanes unchanged."""
+    """The beam's reorder (kernel F's beam form, plain version) gathers a
+    uint8 self cache (int8 keys in the mixed mode) and its Large-V3 scale
+    lanes (20 int4self, 11 mixed) whole into the other buffer of the pair:
+    each stream takes its parent's rows below pos and its parent's new row
+    at pos, dtypes and lanes unchanged."""
     _, compute = MODES[mode]
     cfg = WhisperConfig.large_v3().replace(n_text_layer=2)
-    cache = init_cache(cfg, 4, compute, 8, "cpu")
+    cache, other = (init_cache(cfg, 4, compute, 8, "cpu") for _ in range(2))
     assert cache.self_kv_scale.shape == (2, 4, 8, lanes)
     g = torch.Generator().manual_seed(0)
     for name in ("self_k", "self_v"):
@@ -435,9 +437,11 @@ def test_beam_reorder_carries_packed_caches(mode, lanes):
         t.copy_(torch.randint(0, 256, t.shape, generator=g).to(t.dtype))
     cache.self_kv_scale.copy_(torch.rand(cache.self_kv_scale.shape, generator=g))
     before = {n: getattr(cache, n).clone() for n in ("self_k", "self_v", "self_kv_scale")}
-    src = torch.tensor([1, 1, 3, 2])
-    reorder_self_cache(cache, src)
-    for name, old in before.items():
-        new = getattr(cache, name)
+    rows = tuple(torch.randint(0, 256, (2, 4, 1, t.shape[-1]), generator=g).to(t.dtype) for t in before.values())
+    src, pos = torch.tensor([1, 1, 3, 2]), 5
+    reorder_self_cache(other, cache, rows, src.to(torch.int32), torch.tensor(pos, dtype=torch.int32))
+    for (name, old), row in zip(before.items(), rows):
+        new = getattr(other, name)
         assert new.dtype == old.dtype and new.shape == old.shape
-        assert torch.equal(new, old[:, src])
+        assert torch.equal(new[:, :, :pos], old[:, src, :pos])
+        assert torch.equal(new[:, :, pos], row[:, src, 0])

@@ -45,7 +45,7 @@ def test_package_imports_no_jax():
 
 
 SCRIPT_NAMES = ("request_walls", "cross_attention_times", "self_attention_times", "q4_matmul_times",
-                "encoder_attention_times", "ffn_times", "ffn_phases", "ffn_variants")
+                "encoder_attention_times", "ffn_times", "ffn_phases", "ffn_variants", "cache_slot_times")
 SCRIPTS = [ROOT / "chip_smoke.py", *(ROOT / "scripts" / f"torch_{n}.py" for n in SCRIPT_NAMES)]
 
 

@@ -160,6 +160,32 @@ def tokenizer_file(tmp_path_factory):
     return path
 
 
+def test_transcribe_batch_beam_matches_jax(tokenizer_file):
+    """``beam_width=5`` in ``Compute.parity()``, both sides with the same
+    tokenizer: three utterances bucketed to four, one language fixed, one
+    detected, one another: the same tokens, language tokens and text as
+    the JAX pipeline's beam search (the port's beam loop through its
+    runner on the CPU)."""
+    jc, tc = MODES["parity"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtr, "enable_compilation_cache", lambda path=None: None)
+        jp = jtr.WhisperPipeline((JCFG, j_random_params(JCFG, seed=0)), JTokenizer.from_file(tokenizer_file),
+                                 compute=jc, max_tokens=MAX_TOKENS, beam_width=5)
+        languages = ["en", "auto", "de"]
+        ref = jp.transcribe_batch(_utterances(), languages)
+    tp = WhisperPipeline((CFG, random_params(CFG, seed=0, device="cpu")), WhisperTokenizer.from_file(tokenizer_file),
+                         compute=tc, max_tokens=MAX_TOKENS, beam_width=5, device="cpu")
+    _build.reset_launches()
+    out = tp.transcribe_batch(_utterances(), languages)
+    assert sum(_build.LAUNCHES.values()) == 0  # CPU tensors: plain versions only
+    assert len(out) == len(ref) == 3
+    for r, o in zip(ref, out):
+        np.testing.assert_array_equal(o.tokens, np.asarray(r.tokens))
+        assert o.lang_token == r.lang_token
+        assert o.text == r.text
+    assert out[0].lang_token == lang_token_id("en") and out[2].lang_token == lang_token_id("de")
+
+
 def test_tokenizer_matches_jax(tokenizer_file):
     ours, ref = WhisperTokenizer.from_file(tokenizer_file), JTokenizer.from_file(tokenizer_file)
     ids = ref.encode("hello world this is a tiny test") + [EOT, 50259, 50360]

@@ -47,10 +47,13 @@ branches, by ``batch_groups`` and the self cache's mode:
   token's raw K/V.
 
 Where the row is not stored in the kernel, the new rows of every layer are
-written at ``pos`` after the layer loop by kernel F: quantized per token
-first for a quantized cache (int8, or int4 groups packed by
-:func:`_quantize_tokens4`; the scales by an index copy), cast to the
-cache's dtype otherwise.
+written at ``pos`` after the layer loop by kernel F's slot form, K, V and
+the scale row in one launch: quantized per token first for a quantized
+cache (int8, or int4 groups packed by :func:`_quantize_tokens4`), cast to
+the cache's dtype otherwise. With ``defer_slot`` the step takes the
+deferred branch and returns those rows unwritten: beam search writes
+them with kernel F's beam form, fused with its gather by parent beam
+(``models/beam.py``).
 
 The caches are updated in place. The decode step's position is a 0-d
 int32 tensor on the device, read there by the kernels and by index ops,
@@ -70,7 +73,7 @@ from whisper_burn_tpu_torch.models.attention import attention, attention_kt, cau
 from whisper_burn_tpu_torch.models.config import WhisperConfig
 from whisper_burn_tpu_torch.models.layers import layer_norm
 from whisper_burn_tpu_torch.ops.compute import Compute
-from whisper_burn_tpu_torch.ops.cache import write_cache_slot
+from whisper_burn_tpu_torch.ops.cache import write_cache_slots
 from whisper_burn_tpu_torch.ops.decode_attention import (
     decode_attention_layer,
     decode_attention_layer_int4,
@@ -125,10 +128,25 @@ def cross_cache_len(cfg: WhisperConfig) -> int:
     return -(-t // align) * align
 
 
-def init_cache(cfg: WhisperConfig, batch: int, compute: Compute, ctx: int, device) -> KVCache:
-    l, d, t = cfg.n_text_layer, cfg.n_text_state, cross_cache_len(cfg)
+SELF_FIELDS = ("self_k", "self_v", "self_kv_scale")
+
+
+def init_self_cache(cfg: WhisperConfig, streams: int, compute: Compute, ctx: int, device) -> dict:
+    """The self fields of a zeroed :class:`KVCache` of ``streams`` streams,
+    by name (``self_kv_scale`` None for an unquantized self cache)."""
+    l, d = cfg.n_text_layer, cfg.n_text_state
     kw = self_kv_groups(d) if compute.self_kv_packed else 1  # scale lanes of the keys
     vw = self_kv_groups(d) if compute.self_v_packed else 1
+    zeros = lambda *shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
+    return dict(
+        self_k=zeros(l, streams, ctx, d // 2 if compute.self_kv_packed else d, dtype=compute.self_kv_storage_dtype),
+        self_v=zeros(l, streams, ctx, d // 2 if compute.self_v_packed else d, dtype=compute.self_v_storage_dtype),
+        self_kv_scale=zeros(l, streams, ctx, kw + vw, dtype=torch.float32) if compute.quantized_self_kv else None,
+    )
+
+
+def init_cache(cfg: WhisperConfig, batch: int, compute: Compute, ctx: int, device) -> KVCache:
+    l, d, t = cfg.n_text_layer, cfg.n_text_state, cross_cache_len(cfg)
     zeros = lambda *shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
     kv_dt = compute.cross_kv_dtype
     if compute.kv_packed:
@@ -137,9 +155,7 @@ def init_cache(cfg: WhisperConfig, batch: int, compute: Compute, ctx: int, devic
         cross_k, cross_v = zeros(l, batch, d, t, dtype=kv_dt), zeros(l, batch, t, d, dtype=kv_dt)
     scale = lambda: torch.ones((l, d), dtype=torch.float32, device=device) if compute.quantized_kv else None
     return KVCache(
-        self_k=zeros(l, batch, ctx, d // 2 if compute.self_kv_packed else d, dtype=compute.self_kv_storage_dtype),
-        self_v=zeros(l, batch, ctx, d // 2 if compute.self_v_packed else d, dtype=compute.self_v_storage_dtype),
-        self_kv_scale=zeros(l, batch, ctx, kw + vw, dtype=torch.float32) if compute.quantized_self_kv else None,
+        **init_self_cache(cfg, batch, compute, ctx, device),
         cross_k=cross_k,
         cross_v=cross_v,
         cross_k_scale=scale(),
@@ -356,21 +372,25 @@ def prefill(
 
 def decode_step(
     params: dict, cfg: WhisperConfig, token: torch.Tensor, pos: torch.Tensor, cache: KVCache,
-    compute: Compute, batch_groups: int = 1,
-) -> torch.Tensor:
+    compute: Compute, batch_groups: int = 1, defer_slot: bool = False,
+):
     """One step for ``token [B]`` at cache position ``pos``, a 0-d int32
     tensor on the token's device (``0 <= pos < ctx``, which the caller
     checks: nothing here reads it on the host). Returns logits ``[B, Vp]``
     f32; the cache gains row ``pos`` in place. ``batch_groups=G > 1``
     (beam search) shares each cross-cache entry among G consecutive
-    streams: the self cache holds B streams, the cross cache B / G."""
+    streams: the self cache holds B streams, the cross cache B / G. With
+    ``defer_slot`` the step takes the deferred branch, leaves the cache
+    as it was and returns ``(logits, rows)``: the rows of ``pos`` across
+    all layers in the self cache's storage, ``(k, v, scales)`` as
+    ``[L, B, 1, W]`` (``scales`` None for an unquantized self cache)."""
     b = token.shape[0]
     if batch_groups < 1 or cache.self_k.shape[1] != b or cache.cross_k.shape[1] * batch_groups != b:
         raise ValueError(
             f"decode_step: {b} streams, self cache of {cache.self_k.shape[1]}, cross cache of "
             f"{cache.cross_k.shape[1]} x batch_groups {batch_groups}"
         )
-    deferred = batch_groups > 1
+    deferred = batch_groups > 1 or defer_slot
     quantized_self = cache.self_kv_scale is not None
     k_packed, v_packed = cache.self_k.dtype == torch.uint8, cache.self_v.dtype == torch.uint8
     store_in_kernel = quantized_self and not v_packed and not deferred  # kernel B
@@ -412,12 +432,16 @@ def decode_step(
 
         h = layer_norm(x, *_ln(blocks, "mlp_ln", layer))
         x = x + apply_ffn(blocks, h, cfg.gelu, compute, layer=layer, bias_after_round=b <= K4_MAX_ROWS)
+    rows = None
     if new_k:  # one slot across all layers: [L, B, 1, D(/2)] rows, [L, B, 1, kw + vw] scales
         ks, vs = torch.stack(new_k), torch.stack(new_v)
+        scales = None
         if quantized_self:
             (ks, ksc), (vs, vsc) = _quantize_self(ks, k_packed), _quantize_self(vs, v_packed)
-            cache.self_kv_scale.index_copy_(2, pos.reshape(1).long(), torch.cat([ksc, vsc], dim=-1))
-        write_cache_slot(cache.self_k, ks.to(cache.self_k.dtype), pos)
-        write_cache_slot(cache.self_v, vs.to(cache.self_v.dtype), pos)
+            scales = torch.cat([ksc, vsc], dim=-1)
+        rows = (ks.to(cache.self_k.dtype), vs.to(cache.self_v.dtype), scales)
+        if not defer_slot:
+            write_cache_slots([(getattr(cache, n), r) for n, r in zip(SELF_FIELDS, rows) if r is not None], pos)
     with record_function("decode_step.logits"):
-        return _logits(dec, x[:, 0], cfg, compute)
+        logits = _logits(dec, x[:, 0], cfg, compute)
+    return (logits, rows) if defer_slot else logits

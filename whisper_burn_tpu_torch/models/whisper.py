@@ -20,8 +20,9 @@ nothing on the host and is the same launches at every position. A
 the card it runs the request's first step eagerly (the kernels' build,
 load and one-time launch settings happen there), captures the step once
 as a CUDA graph and replays it once per token, for this request and every
-later one of the same shape. On the CPU the same body runs eagerly, step
-by step. Whether every stream is done is read on the host once every
+later one of the same shape (:class:`GraphRunner`, which beam search's
+runner shares). On the CPU the same body runs eagerly, step by step.
+Whether every stream is done is read on the host once every
 ``DONE_CHECK_EVERY`` steps; finished streams emit EOT either way, so the
 tokens are the same as stopping at once.
 
@@ -216,81 +217,111 @@ def capture_graph(fn, stream: torch.cuda.Stream):
     return graph, out, _build.LaunchTally(recorded)
 
 
-class GreedyRunner:
+class GraphRunner:
+    """A decode loop's step over state that the runner owns: on a CUDA
+    device the first step runs eagerly on the runner's stream, then each
+    of the step's ``variants`` (forms whose launches differ, such as the
+    buffer a step reads) is captured as a CUDA graph, and every later step,
+    of this request and of every later one, replays the graph of its
+    variant (a capture or a replay that fails raises). Elsewhere each step
+    runs eagerly. ``graphs`` holds ``(graph, output, launch tally)`` by
+    variant and ``capture_s`` the captures' wall."""
+
+    variants = 1
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.graphs = []
+        self.capture_s = None
+
+    def _body(self, variant: int):
+        raise NotImplementedError
+
+    def _step(self, variant: int = 0):
+        """Run the step's ``variant``; returns its output (on the card a
+        replay returns the graph's output tensor, rewritten by the next
+        replay)."""
+        if self.stream is None:
+            return self._body(variant)
+        if not self.graphs:
+            main = torch.cuda.current_stream(self.stream.device)
+            self.stream.wait_stream(main)
+            with torch.cuda.stream(self.stream):
+                out = self._body(variant)
+            if out is not None:
+                out.record_stream(main)
+            t0 = time.perf_counter()
+            self.graphs = [capture_graph(lambda v=v: self._body(v), self.stream) for v in range(self.variants)]
+            self.capture_s = time.perf_counter() - t0
+            main.wait_stream(self.stream)
+            return out
+        graph, out, tally = self.graphs[variant]
+        graph.replay()
+        _build.add_launches(tally)
+        return out
+
+
+class GreedyRunner(GraphRunner):
     """The greedy loop of one shape: ``params``, ``cfg``, ``compute``,
     ``batch`` streams, a self cache of ``ctx`` and ``max_tokens`` samples.
 
     Owns the loop state and the KV cache, which each request fills in
-    place (:func:`start_request`); :meth:`step` then takes one sample. On
-    a CUDA device the first step runs eagerly on the runner's stream, the
-    step is captured as a CUDA graph after it, and every later step, of
-    this request and of every later one, replays the graph (a capture or
-    a replay that fails raises). ``capture_s`` is the capture's wall.
-    Elsewhere each step runs eagerly. The runner holds ``params``: the
-    graph reads their memory."""
+    place (:func:`start_request`); :meth:`step` then takes one sample
+    through :class:`GraphRunner`. The runner holds ``params``: the graph
+    reads their memory."""
 
     def __init__(self, params: dict, cfg: WhisperConfig, compute: Compute, batch: int, ctx: int,
                  max_tokens: int, device: torch.device):
+        super().__init__(device)
         self.params, self.cfg, self.compute = params, cfg, compute
         self.batch, self.ctx, self.max_tokens = batch, ctx, max_tokens
         self.state = new_state(init_cache(cfg, batch, compute, ctx, device), max_tokens)
-        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-        self.graph = self.tally = self.graph_logits = None
         self.logits = None  # the last step's logits
-        self.capture_s = None
 
-    def _body(self) -> torch.Tensor:
+    def _body(self, variant: int) -> torch.Tensor:
         return greedy_step(self.params, self.cfg, self.state, self.compute)
 
     def step(self) -> torch.Tensor:
-        """Take one sample; returns the step's logits (on the card the
-        graph's output tensor, rewritten by the next replay)."""
-        if self.stream is None:
-            self.logits = self._body()
-        elif self.graph is None:
-            main = torch.cuda.current_stream(self.stream.device)
-            self.stream.wait_stream(main)
-            with torch.cuda.stream(self.stream):
-                self.logits = self._body()
-            self.logits.record_stream(main)
-            t0 = time.perf_counter()
-            self.graph, self.graph_logits, self.tally = capture_graph(self._body, self.stream)
-            self.capture_s = time.perf_counter() - t0
-            main.wait_stream(self.stream)
-        else:
-            self.graph.replay()
-            _build.add_launches(self.tally)
-            self.logits = self.graph_logits
+        """Take one sample; returns the step's logits."""
+        self.logits = self._step()
         return self.logits
 
 
 _RUNNERS: collections.OrderedDict = collections.OrderedDict()
 
 
-def greedy_runner(params: dict, cfg: WhisperConfig, compute: Compute, batch: int, max_tokens: int,
-                  device: torch.device) -> GreedyRunner:
-    """The cached runner of this shape, made on first use. Runners are
-    keyed by what fixes the graph's addresses and shapes: the params (the
-    runner holds them, so their ``id`` is not reused while it lives),
-    ``cfg``, ``compute``, the batch, ``max_tokens`` (and so ``ctx``) and
-    the device; at most ``RUNNERS_KEPT`` are kept."""
-    device = torch.device(device)
-    key = (id(params), cfg, compute, batch, max_tokens, device)
+def cached_runner(key: tuple, make) -> GraphRunner:
+    """The cached runner of ``key``, made by ``make()`` on first use; at
+    most ``RUNNERS_KEPT`` runners are kept, greedy and beam together, the
+    least recently used dropped first."""
     runner = _RUNNERS.pop(key, None)
     if runner is None:
-        runner = GreedyRunner(params, cfg, compute, batch, self_cache_len(cfg, max_tokens), max_tokens, device)
+        runner = make()
     _RUNNERS[key] = runner
     while len(_RUNNERS) > RUNNERS_KEPT:
         _RUNNERS.popitem(last=False)
     return runner
 
 
-def cached_runners() -> list[GreedyRunner]:
+def greedy_runner(params: dict, cfg: WhisperConfig, compute: Compute, batch: int, max_tokens: int,
+                  device: torch.device) -> GreedyRunner:
+    """The cached runner of this shape. Runners are keyed by what fixes
+    the graph's addresses and shapes: the params (the runner holds them,
+    so their ``id`` is not reused while it lives), ``cfg``, ``compute``,
+    the batch, ``max_tokens`` (and so ``ctx``) and the device."""
+    device = torch.device(device)
+    return cached_runner(
+        ("greedy", id(params), cfg, compute, batch, max_tokens, device),
+        lambda: GreedyRunner(params, cfg, compute, batch, self_cache_len(cfg, max_tokens), max_tokens, device),
+    )
+
+
+def cached_runners() -> list[GraphRunner]:
     return list(_RUNNERS.values())
 
 
 def clear_runners() -> None:
-    """Drop every cached runner, its caches and graph."""
+    """Drop every cached runner, its caches and graphs."""
     _RUNNERS.clear()
 
 
