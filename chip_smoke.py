@@ -30,7 +30,24 @@ Phases, each timed and each fatal on failure:
    its own op (no model path reaches it) at B=8 x 1500 frames, Large-V3 and Medium
    widths; and ``medium_ffn``: kernel I through its op at Whisper Medium's
    width (1024 <-> 4096, 24 stacked layers, K4's bias order), 8 rows, two
-   requests. The first request of a path is its warm-up. Every request
+   requests. Then two more models through the same entries:
+   3a. Whisper Medium (D 1024, 16 heads, 24 + 24 layers, 80 mel bins),
+   fabricated on the device from the seed and prepared for the serving
+   compute: ``medium_greedy`` and ``medium_beam`` (B = 8 x 30 s through an
+   80-bin mel, 224 tokens, 5 beams), two requests each;
+   3b. the GGUF loader: a Large-V3-Turbo checkpoint (32 encoder and 4
+   decoder layers) written into a temporary directory under ``build/``
+   with the port's ``GgufWriter``, laid out as the JAX package's
+   converter lays one out (its Q4_0 blocks raw from a seeded generator),
+   loaded by ``load_whisper`` cold (parse, repack, cache save) and warm (a
+   hit on the repacked cache), then parsed alone: the config it infers
+   must be ``WhisperConfig.large_v3_turbo()``, the warm and the parsed
+   params the cold ones array for array, one repacked layer's codes times
+   scales its dequantized blocks exactly (``{"phase": "loader", ...}``
+   gives the sizes and walls); then ``turbo_greedy`` and ``turbo_beam`` on
+   the loaded params moved to the card and prepared for the serving
+   compute, two requests each. The directory is removed on the way out.
+   The first request of a path is its warm-up. Every request
    runs its decode loop through a cached runner's CUDA graphs of the step
    (``models/whisper.py``, ``models/beam.py``): the runner's first request
    takes one eager step, captures the step (a beam runner once from each
@@ -76,7 +93,12 @@ Phases, each timed and each fatal on failure:
    226 beside the slot form followed by index_select (lines ``{"phase":
    "kernel_f_beam_positions", ...}``); and the pipeline's own shapes at B
    = 4 and 8: A at M = B and 4B, I at B, 4B and the detection pass's B, D,
-   C and G), with the tolerance stated; device time per call,
+   C and G); and every kernel at Whisper Medium's shapes (rows named
+   ``.../medium``: A at 8, 32 and 40 rows and the logits, I at 8, 32 and
+   40, B, C, grouped C and D at B = 8, E and F's beam form at 40 streams;
+   marked ``off_path``, launches 0, the kernels no Medium path launches in
+   the serving compute: B', E', C' int8 and bf16, G, H and F's slot
+   form), with the tolerance stated; device time per call,
    from torch.profiler traces, of the kernel, the plain version and one
    PyTorch library call computing the same function (a yardstick only: the
    port never calls it), and the least time the card could take (bytes
@@ -90,12 +112,14 @@ Phases, each timed and each fatal on failure:
    beam's reorder of its tokens (the rest of its ``beam_decode.reorder``
    ranges), the logits (``decode_step.logits``), other device work and
    idle (and one line of the encoder's device ms in each traced request);
-   and for each of them and every other beam path a replayed request
-   under torch.profiler (``{"phase": "traced_replay_<path>", ...}``: the
-   replayed step's wall, device busy, idle share and device operations
-   per step, its tokens equal to the eager one's); a kernel row of a path
+   and for each of them, every other beam path and Medium's and Turbo's
+   paths a replayed request under torch.profiler (``{"phase":
+   "traced_replay_<path>", ...}``: the replayed step's wall, device busy,
+   idle share and device operations per step, the device ms of the eager
+   stages before the loop, its tokens equal to the eager one's); a kernel row of a path
    without a traced request takes its isolated time; and the device
-   memory with every runner alive;
+   memory with the runners alive (the cache keeps the RUNNERS_KEPT used
+   last, by the traced and replayed requests);
 5. end to end at a small config in f32, for the int4 serving modes (int8,
    int4 and mixed self caches), ``Compute.parity()`` and
    ``Compute.fastest()``: the same greedy and beam tokens, and the same
@@ -116,6 +140,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 import weakref
@@ -490,18 +515,26 @@ def medium_ffn_path(cfg) -> tuple[dict, dict]:
 
 
 def kernel_checks(params, cfg, gen):
-    from whisper_burn_tpu_torch.ops.decode_attention import decode_self_attention, decode_self_attention_plain
-
-    dev = torch.device("cuda")
-    L = cfg.n_text_layer
     rows = q4_rows(decode_linears(params, cfg, BATCH) + prefill_linears(params, cfg, 4 * BATCH), gen, "greedy")
     blocks = params["decoder"]["blocks"]
     rows += ffn_rows([("decode", BATCH, blocks, cfg.gelu, True, K4),
                       ("prefill", 4 * BATCH, blocks, cfg.gelu, False, K7)], gen, "greedy")
     rows += ffn_rows([("medium_decode", BATCH, medium_ffn_blocks(gen), cfg.gelu, True, K4)], gen, "medium_ffn")
+    rows.append(self_attention_row(cfg, gen, "greedy", "decode_self_attention"))
+    rows.append(cross_int4_row(cfg, gen, BATCH, 1, "greedy", "decode_cross_attention"))
+    rows.append(encoder_attention_row(cfg, gen, BATCH, "greedy", "encoder_attention"))
+    return rows
 
-    # kernel B at the main path's cache shape, at the mean decode position
-    # when all MAX_TOKENS - 1 steps run (positions 4 .. 226)
+
+def self_attention_row(cfg, gen, path: str, name: str) -> dict:
+    """Kernel B over the int8 self cache of BATCH streams at ctx 256 (its
+    path's cache), at the mean decode position when all MAX_TOKENS - 1
+    steps run (positions 4 .. 226): against its plain version, the store
+    exact, and its times."""
+    from whisper_burn_tpu_torch.ops.decode_attention import decode_self_attention, decode_self_attention_plain
+
+    dev = torch.device("cuda")
+    L = cfg.n_text_layer
     d, h, ctx = cfg.n_text_state, cfg.n_text_head, 256
     pos = round(mean_decode_pos(MAX_TOKENS - 1))
     kc = torch.randint(-127, 128, (L, BATCH, ctx, d), generator=gen, device=dev, dtype=torch.int8)
@@ -519,7 +552,7 @@ def kernel_checks(params, cfg, gen):
             out = decode_self_attention(args[0], ck, cv, cs, *args[1:])
             ref = decode_self_attention_plain(args[0], pk, pv, ps, *args[1:])
             err = max_err(out, ref)
-            check(f"decode_self_attention {dtype}", err, ref, 1e-5)  # f32 math both ways
+            check(f"{name} {dtype}", err, ref, 1e-5)  # f32 math both ways
             if not (torch.equal(ck, pk) and torch.equal(cv, pv) and torch.equal(cs, ps)):
                 raise AssertionError("decode_self_attention: the in-place store differs from the plain version")
             ck[layer, :, pos], cv[layer, :, pos], cs[layer, :, pos] = kc[layer, :, pos], vc[layer, :, pos], sc[layer, :, pos]
@@ -539,8 +572,8 @@ def kernel_checks(params, cfg, gen):
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kd[(l := layer())], vd[l])
     b_ms, b_by = self_attention_bound(pos, d)
     ms, sig = device_ms(kern, 64, ours=True)
-    rows.append(dict(
-        name="decode_self_attention", route="cuda", source=DA, path="greedy",
+    row = dict(
+        name=name, route="cuda", source=DA, path=path,
         replaces="whisper_burn_tpu/ops/pallas_attention.py:66 (K2)",
         shape_key=["decode_self_attention", [BATCH, ctx, d]], sig=sig, max_abs_err=self_err,
         isolated_ms=ms, plain_ms=device_ms(plain, 16), bound_ms=b_ms, bound_by=b_by,
@@ -548,11 +581,9 @@ def kernel_checks(params, cfg, gen):
         library_call="scaled_dot_product_attention on the dequantized bf16 cache (no store)",
         tol="1e-5 of max|out|; cache store exact", shape=f"B={BATCH} ctx={ctx} pos={pos} D={d}",
         isolated_bound_ms=b_ms, bound_of_pos=lambda p: self_attention_bound(p, d),
-    ))
+    )
     del kc, vc, kd, vd
-    rows.append(cross_int4_row(cfg, gen, BATCH, 1, "greedy", "decode_cross_attention"))
-    rows.append(encoder_attention_row(cfg, gen, BATCH, "greedy", "encoder_attention"))
-    return rows
+    return row
 
 
 def cross_int4_row(cfg, gen, b: int, g: int, path: str, name: str) -> dict:
@@ -635,18 +666,24 @@ def encoder_attention_row(cfg, gen, b: int, path: str, name: str) -> dict:
 def beam_kernel_checks(params, cfg, gen):
     """The kernels at the beam path's shapes: kernel A at M = STREAMS, E
     and C with BEAM_WIDTH streams per cross-cache entry (F: kernel_f_checks)."""
+    rows = q4_rows(decode_linears(params, cfg, STREAMS, "beam_"), gen, "beam")
+    rows += ffn_rows([("beam_decode", STREAMS, params["decoder"]["blocks"], cfg.gelu, True, K4)], gen, "beam")
+    rows.append(layer_attention_row(cfg, gen, "beam", "decode_attention_layer"))
+    rows.append(cross_int4_row(cfg, gen, BATCH, BEAM_WIDTH, "beam", "decode_cross_attention/grouped"))
+    return rows
+
+
+def layer_attention_row(cfg, gen, path: str, name: str) -> dict:
+    """Kernel E over the int8 self cache of the STREAMS beam streams
+    (ctx 256), at the first, mean and last positions of 224 tokens' decode
+    steps, against its plain version, and its times at the mean."""
     from whisper_burn_tpu_torch.ops.decode_attention import decode_attention_layer, decode_attention_layer_plain
 
     dev = torch.device("cuda")
     L = cfg.n_text_layer
-    rows = q4_rows(decode_linears(params, cfg, STREAMS, "beam_"), gen, "beam")
-    rows += ffn_rows([("beam_decode", STREAMS, params["decoder"]["blocks"], cfg.gelu, True, K4)], gen, "beam")
     d, h, ctx = cfg.n_text_state, cfg.n_text_head, 256
     it = iter(range(1 << 30))
     layer = lambda: next(it) % L  # cycle layers: caches come from HBM, not L2
-
-    # kernel E over the int8 self cache of the 40 streams, at the first,
-    # mean and last positions of 224 tokens' decode steps (ctx 256)
     kc = torch.randint(-127, 128, (L, STREAMS, ctx, d), generator=gen, device=dev, dtype=torch.int8)
     vc = torch.randint(-127, 128, (L, STREAMS, ctx, d), generator=gen, device=dev, dtype=torch.int8)
     sc = torch.rand((L, STREAMS, ctx, 2), generator=gen, device=dev) * 0.02 + 1e-3
@@ -659,7 +696,7 @@ def beam_kernel_checks(params, cfg, gen):
             ref = decode_attention_layer_plain(q.to(dtype), kc, vc, sc, L - 1, at(valid), h)
             for part, a, r in zip(("acc", "m", "l"), out, ref):
                 err = max_err(a, r)
-                check(f"decode_attention_layer {dtype} valid={valid} {part}", err, r, 1e-5)  # f32 math both ways
+                check(f"{name} {dtype} valid={valid} {part}", err, r, 1e-5)  # f32 math both ways
                 if dtype == torch.bfloat16:
                     layer_err = max(layer_err, err)
     pos_t = at(pos)
@@ -672,8 +709,8 @@ def beam_kernel_checks(params, cfg, gen):
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kd[(l := layer())], vd[l])
     ms, sig = device_ms(kern, 64, ours=True)
     b_ms, b_by = layer_attention_bound(pos, d, h)
-    rows.append(dict(
-        name="decode_attention_layer", route="cuda", source=DA, path="beam",
+    row = dict(
+        name=name, route="cuda", source=DA, path=path,
         replaces="whisper_burn_tpu/ops/pallas_attention.py:66 (K8)",
         shape_key=["decode_attention_layer", [STREAMS, ctx, d]], sig=sig, max_abs_err=layer_err,
         isolated_ms=ms, isolated_bound_ms=b_ms, plain_ms=device_ms(plain, 16), bound_ms=b_ms, bound_by=b_by,
@@ -681,12 +718,9 @@ def beam_kernel_checks(params, cfg, gen):
         library_call="scaled_dot_product_attention on the dequantized bf16 layer (normalized)",
         tol="1e-5 of max|acc|, max|m|, max|l|", shape=f"B*W={STREAMS} ctx={ctx} valid={pos} D={d}",
         bound_of_pos=lambda p: layer_attention_bound(p, d, h),
-    ))
-
+    )
     del kc, vc, kd, vd
-
-    rows.append(cross_int4_row(cfg, gen, BATCH, BEAM_WIDTH, "beam", "decode_cross_attention/grouped"))
-    return rows
+    return row
 
 
 def merged_attention_bound(pos: float, d: int, b: int) -> tuple[float, str]:
@@ -725,14 +759,7 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
     ungrouped and grouped (int8_greedy, int8_beam, fast_greedy, fast_beam,
     entry), and D at the entry's B = 1 (F: kernel_f_checks)."""
     from whisper_burn_tpu_torch.entry import MAX_TOKENS as ENTRY_TOKENS
-    from whisper_burn_tpu_torch.ops.decode_attention import (
-        decode_attention_layer, decode_attention_layer_plain, decode_attention_merged,
-        decode_attention_merged_plain, decode_cross_attention, decode_cross_attention_plain,
-        decode_cross_attention_ties,
-    )
 
-    dev = torch.device("cuda")
-    L, d, h = cfg.n_text_layer, cfg.n_text_state, cfg.n_text_head
     t_enc = -(-cfg.n_audio_ctx // 128) * 128  # the encoder's padded rows, 1536
     enc, dec = fast_params["encoder"]["blocks"], fast_params["decoder"]["blocks"]
     k5 = "whisper_burn_tpu/ops/pallas_q4.py:44 (K5)"
@@ -743,19 +770,42 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
     ] + decode_linears(fast_params, cfg, 1, "entry_") + prefill_linears(fast_params, cfg, 4, "entry_"), gen, "entry")
     rows += ffn_rows([("entry_decode", 1, dec, cfg.gelu, True, K4), ("entry_prefill", 4, dec, cfg.gelu, False, K7),
                       ("entry_encoder", t_enc, enc, cfg.gelu, False, K7)], gen, "entry")
-    it = iter(range(1 << 30))
-    layer = lambda: next(it) % L  # cycle layers: caches come from HBM, not L2
-    pos = round(mean_decode_pos(MAX_TOKENS - 1))
-    bf = torch.bfloat16
-    rand = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
-    heads = lambda x, n: x.reshape(x.shape[0], n, h, 64).transpose(1, 2)
     # the entry's self cache: 4 + 16 tokens rounded up to 64
     entry_ctx = max(64, -(-(4 + ENTRY_TOKENS) // 64) * 64)
+    rows += merged_rows(cfg, gen, (("fast_greedy", BATCH, CTX, MAX_TOKENS - 1), ("entry", 1, entry_ctx, ENTRY_TOKENS - 1)))
+    rows.append(unscaled_layer_row(cfg, gen, "fast_beam"))
+    rows += cross_unpacked_rows(cfg, gen, (("int8", ((BATCH, 1, "int8_greedy"), (BATCH, BEAM_WIDTH, "int8_beam"))),
+                                           ("bf16", ((BATCH, 1, "fast_greedy"), (BATCH, BEAM_WIDTH, "fast_beam"),
+                                                     (1, 1, "entry")))))
+    # kernel D at the entry's one utterance
+    rows.append(encoder_attention_row(cfg, gen, 1, "entry", "encoder_attention/entry"))
+    return rows
 
-    # kernel B' over the bf16 self cache, nothing stored: BATCH streams
-    # (fast_greedy) and the entry's one, at the first, mean and last
-    # positions of their decode steps
-    for path, b, ctx, steps in (("fast_greedy", BATCH, CTX, MAX_TOKENS - 1), ("entry", 1, entry_ctx, ENTRY_TOKENS - 1)):
+
+def decoder_row_tools(cfg, gen):
+    """What the decoder's attention rows share: the card, the stack's L, D
+    and heads, ``layer()`` cycling the stack (caches come from HBM, not
+    L2), ``rand(*shape, scale=)`` drawing bf16 on the card from ``gen``, and
+    ``heads(x, n)`` viewing ``[B, n, D]`` as ``[B, H, n, 64]``."""
+    dev = torch.device("cuda")
+    L, d, h = cfg.n_text_layer, cfg.n_text_state, cfg.n_text_head
+    it = iter(range(1 << 30))
+    layer = lambda: next(it) % L
+    rand = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+    heads = lambda x, n: x.reshape(x.shape[0], n, h, 64).transpose(1, 2)
+    return dev, L, d, h, layer, rand, heads
+
+
+def merged_rows(cfg, gen, cases) -> list[dict]:
+    """Kernel B' over the bf16 self cache, nothing stored, at each (path,
+    streams, ctx, decode steps) of ``cases``: against its plain version at
+    the first, mean and last positions of the steps, its times at the mean."""
+    from whisper_burn_tpu_torch.ops.decode_attention import decode_attention_merged, decode_attention_merged_plain
+
+    dev, L, d, h, layer, rand, heads = decoder_row_tools(cfg, gen)
+    bf = torch.bfloat16
+    rows = []
+    for path, b, ctx, steps in cases:
         p_mean = round(mean_decode_pos(steps))
         kc, vc = rand(L, b, ctx, d), rand(L, b, ctx, d)
         q, kn, vn = rand(b, 1, d), rand(b, 1, d), rand(b, 1, d)
@@ -791,8 +841,18 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
             bound_of_pos=lambda p, b=b: merged_attention_bound(p, d, b),
         ))
         del kc, vc, kd, vd
+    return rows
 
-    # kernel E': the STREAMS beam streams over the bf16 self cache
+
+def unscaled_layer_row(cfg, gen, path: str) -> dict:
+    """Kernel E': the STREAMS beam streams over the bf16 self cache (ctx
+    CTX), against its plain version at valid 4, the mean and the last
+    position, its times at the mean."""
+    from whisper_burn_tpu_torch.ops.decode_attention import decode_attention_layer, decode_attention_layer_plain
+
+    dev, L, d, h, layer, rand, heads = decoder_row_tools(cfg, gen)
+    bf = torch.bfloat16
+    pos = round(mean_decode_pos(MAX_TOKENS - 1))
     kc, vc = rand(L, STREAMS, CTX, d), rand(L, STREAMS, CTX, d)
     q = rand(STREAMS, 1, d)
     err = 0.0
@@ -808,8 +868,8 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
     kd = [heads(kc[l, :, :pos], pos) for l in range(L)]
     vd = [heads(vc[l, :, :pos], pos) for l in range(L)]
     qh = heads(q, 1)
-    rows.append(isolated_row(
-        "decode_attention_layer_unscaled", "fast_beam", DA,
+    row = isolated_row(
+        "decode_attention_layer_unscaled", path, DA,
         "whisper_burn_tpu/ops/pallas_attention.py:66 (K8, kv_scale4=None)",
         ["decode_attention_layer_unscaled", [STREAMS, CTX, d]],
         lambda p_t=at(pos): decode_attention_layer(q, kc, vc, None, layer(), p_t, h),
@@ -819,16 +879,24 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
         "scaled_dot_product_attention on the bf16 layer (normalized)", "1e-5 of max|acc|, max|m|, max|l|",
         f"B*W={STREAMS} ctx={CTX} valid={pos} D={d} bf16", isolated_bound_ms=unscaled_layer_bound(pos, d, h)[0],
         bound_of_pos=lambda p: unscaled_layer_bound(p, d, h),
-    ))
-
+    )
     del kc, vc, kd, vd
+    return row
 
-    # kernel C' over the int8 and bf16 cross caches, T = 1536 with 1500
-    # valid: BATCH entries, ungrouped and with BEAM_WIDTH streams each, and
-    # the entry's one bf16 entry
+
+def cross_unpacked_rows(cfg, gen, kinds) -> list[dict]:
+    """Kernel C' over the int8 and bf16 cross caches, T = 1536 with 1500
+    valid, at each (kind, [(entries, streams per entry, path)]) of
+    ``kinds``: against its plain version, and its times."""
+    from whisper_burn_tpu_torch.ops.decode_attention import (
+        decode_cross_attention, decode_cross_attention_plain, decode_cross_attention_ties,
+    )
+
+    dev, L, d, h, layer, rand, heads = decoder_row_tools(cfg, gen)
+    bf = torch.bfloat16
+    rows = []
     t, valid = 1536, cfg.n_audio_ctx
-    for kind, cases in (("int8", ((BATCH, 1, "int8_greedy"), (BATCH, BEAM_WIDTH, "int8_beam"))),
-                        ("bf16", ((BATCH, 1, "fast_greedy"), (BATCH, BEAM_WIDTH, "fast_beam"), (1, 1, "entry")))):
+    for kind, cases in kinds:
         if kind == "int8":
             kT = torch.randint(-127, 128, (L, BATCH, d, t), generator=gen, device=dev, dtype=torch.int8)
             v = torch.randint(-127, 128, (L, BATCH, t, d), generator=gen, device=dev, dtype=torch.int8)
@@ -868,8 +936,6 @@ def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
             ))
             del kTb, vb
         del kT, v, kd, vd
-    # kernel D at the entry's one utterance
-    rows.append(encoder_attention_row(cfg, gen, 1, "entry", "encoder_attention/entry"))
     return rows
 
 
@@ -978,7 +1044,8 @@ def self_form(compute) -> str:
     return "int4self" if compute.self_kv_packed else "mixed" if compute.self_v_packed else "int8"
 
 
-def f_row(cfg, gen, compute, path: str, streams: int, ctx: int, beam: bool, steps: int) -> tuple[dict, dict | None]:
+def f_row(cfg, gen, compute, path: str, streams: int, ctx: int, beam: bool, steps: int,
+          suffix: str | None = None) -> tuple[dict, dict | None]:
     """Kernel F at one path's shape: the slot form (greedy paths: K, V and
     the scale row of ``streams`` streams in one launch) or the beam form
     (``streams`` = B x BEAM_WIDTH, each utterance's streams taking random
@@ -1003,7 +1070,8 @@ def f_row(cfg, gen, compute, path: str, streams: int, ctx: int, beam: bool, step
     form = self_form(compute)
     idx = torch.tensor([pos], device=dev)
     shape = f"L={L} {'B*W' if beam else 'B'}={streams} ctx={ctx} {form}, rows of {' + '.join(map(str, rbs))} bytes"
-    suffix = "/entry" if path == "entry" else "/pipeline" if path == "pipeline" else ""
+    if suffix is None:
+        suffix = "/entry" if path == "entry" else "/pipeline" if path == "pipeline" else ""
     if not beam:
         pairs = list(zip(xs, news))
         for p in (0, pos, ctx - 1):
@@ -1039,7 +1107,7 @@ def f_row(cfg, gen, compute, path: str, streams: int, ctx: int, beam: bool, step
     # each distinct parent (its streams read them through L2)
     of = lambda p, parents=int(src.unique().numel()): bound(L * (p + 1) * sum(rbs) * (streams + parents), 0.0)
     row = isolated_row(
-        f"write_cache_slot_beam/{form}/{streams}", path, F_SRC, K9 + " then jnp.take by parent (models/beam.py:222-232)",
+        f"write_cache_slot_beam/{form}/{streams}{suffix}", path, F_SRC, K9 + " then jnp.take by parent (models/beam.py:222-232)",
         [BEAM_FN, [L, streams, ctx, *rbs]],
         lambda p_t=at(pos): write_cache_slots_beam(triples, src, p_t),
         lambda p_t=at(pos): write_cache_slots_beam_plain(triples, src, p_t),
@@ -1088,6 +1156,50 @@ def kernel_f_checks(cfg, gen, computes: dict) -> list[dict]:
         rows.append(row)
     torch.cuda.empty_cache()
     return rows
+
+
+def medium_kernel_checks(params, cfg, gen, serving) -> list[dict]:
+    """Every hand-written kernel at Whisper Medium's shapes (D 1024, 16
+    heads, 24 decoder layers), each row's name ending ``/medium``. On the
+    ``medium_greedy`` path: kernel A at M = 8 (qkv, the projections, the
+    int8 logits) and the prefill's 32, I at 8 (K4's order) and 32 (K7's),
+    B, C and D at B = 8; on ``medium_beam``: A and I at 40 rows, E, grouped
+    C and F's beam form at 40 streams. Rows marked ``off_path`` (launches 0)
+    are kernels that no Medium path launches in the serving compute, held
+    all the same at Medium's shapes, where the other cache modes would run
+    them: B' at 8 streams, E' at 40, C' over int8 and bf16 caches
+    ungrouped and grouped, G at 8 and H at 40 over the int4 and mixed self
+    caches, and F's slot form at 8 streams in the int8 and int4 forms
+    (kernel B stores the serving greedy step's row itself)."""
+    blocks = params["decoder"]["blocks"]
+    rows = q4_rows(decode_linears(params, cfg, BATCH) + prefill_linears(params, cfg, 4 * BATCH), gen, "medium_greedy")
+    rows += ffn_rows([("decode", BATCH, blocks, cfg.gelu, True, K4), ("prefill", 4 * BATCH, blocks, cfg.gelu, False, K7)],
+                     gen, "medium_greedy")
+    rows += [self_attention_row(cfg, gen, "medium_greedy", "decode_self_attention"),
+             cross_int4_row(cfg, gen, BATCH, 1, "medium_greedy", "decode_cross_attention"),
+             encoder_attention_row(cfg, gen, BATCH, "medium_greedy", "encoder_attention")]
+    rows += q4_rows(decode_linears(params, cfg, STREAMS, "beam_"), gen, "medium_beam")
+    rows += ffn_rows([("beam_decode", STREAMS, blocks, cfg.gelu, True, K4)], gen, "medium_beam")
+    rows += [layer_attention_row(cfg, gen, "medium_beam", "decode_attention_layer"),
+             cross_int4_row(cfg, gen, BATCH, BEAM_WIDTH, "medium_beam", "decode_cross_attention/grouped")]
+    row, positions = f_row(cfg, gen, serving, "medium_beam", STREAMS, CTX, True, MAX_TOKENS - 1)
+    log({**positions, "model": "medium"})
+    rows.append(row)
+
+    off = merged_rows(cfg, gen, (("medium_greedy", BATCH, CTX, MAX_TOKENS - 1),))
+    off.append(unscaled_layer_row(cfg, gen, "medium_beam"))
+    off += cross_unpacked_rows(cfg, gen, tuple((kind, ((BATCH, 1, "medium_greedy"), (BATCH, BEAM_WIDTH, "medium_beam")))
+                                               for kind in ("int8", "bf16")))
+    off += [int4_self_row(cfg, gen, mode, merged, b, path) for mode in ("int4self", "mixed")
+            for merged, b, path in ((True, BATCH, "medium_greedy"), (False, STREAMS, "medium_beam"))]
+    off += [f_row(cfg, gen, compute, "medium_greedy", BATCH, CTX, False, MAX_TOKENS - 1)[0]
+            for compute in (serving, serving.replace(self_kv_bits=4))]
+    for r in off:
+        r["off_path"] = True
+    for r in rows + off:
+        r["name"] += "/medium"
+    torch.cuda.empty_cache()
+    return rows + off
 
 
 def int4_kernel_checks(cfg, gen) -> list[dict]:
@@ -1171,6 +1283,156 @@ def pipeline_kernel_checks(params, cfg, gen) -> list[dict]:
 
 
 # --------------------------------------------------------------------------
+# phase 3b: the GGUF loader and its repacked cache, at Large-V3-Turbo's size
+
+
+def write_turbo_gguf(path: Path, cfg, seed: int) -> np.ndarray:
+    """A Whisper checkpoint of ``cfg``'s shapes written with the port's
+    GgufWriter as the JAX package's converter lays one out: metadata
+    ``general.architecture``, the two layer counts and ``whisper.n_lang``;
+    tensors by the GGUF naming convention, in sorted order; Q4_0 for the
+    2-D weights with min(shape) >= 256 that are not biases, LayerNorms,
+    embeddings or convs, F32 for the rest. The Q4_0 blocks are written raw
+    from a seeded numpy generator (random nibble bytes, f16 scales
+    U(0.5, 1.5) x 0.05 / 7, as models/params.py fabricates them), the F32
+    tensors drawn as there. Returns the raw blocks of
+    ``decoder.blocks.0.mlp.0.weight``."""
+    from whisper_burn_tpu_torch.gguf import GgmlDtype, GgufWriter
+    from whisper_burn_tpu_torch.models.params import sinusoidal_positions
+
+    rng = np.random.default_rng(seed)
+    d, f = cfg.n_audio_state, cfg.ffn_dim
+    tensors = {}  # name -> (shape, Q4_0 blocks or None, F32 array or None)
+
+    def q4(name, n, k):
+        blocks = np.empty((n * k // 32, 18), np.uint8)
+        blocks[:, :2] = (rng.uniform(0.5, 1.5, len(blocks)) * (0.05 / 7)).astype("<f2").view(np.uint8).reshape(-1, 2)
+        blocks[:, 2:] = np.frombuffer(rng.bytes(len(blocks) * 16), np.uint8).reshape(-1, 16)
+        tensors[name] = ((n, k), blocks)
+
+    def f32(name, a):
+        tensors[name] = (a.shape, np.ascontiguousarray(a, "<f4"))
+
+    def normal(*shape, std):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    def block(prefix, cross):
+        for ln in ("attn_ln", "mlp_ln") + (("cross_attn_ln",) if cross else ()):
+            f32(f"{prefix}.{ln}.weight", 1.0 + normal(d, std=0.02))
+            f32(f"{prefix}.{ln}.bias", normal(d, std=0.02))
+        for attn in ("attn",) + (("cross_attn",) if cross else ()):
+            for proj in ("query", "key", "value", "out"):
+                q4(f"{prefix}.{attn}.{proj}.weight", d, d)
+                if proj != "key":  # Whisper's key projections have no bias
+                    f32(f"{prefix}.{attn}.{proj}.bias", normal(d, std=0.01))
+        q4(f"{prefix}.mlp.0.weight", f, d)
+        f32(f"{prefix}.mlp.0.bias", normal(f, std=0.01))
+        q4(f"{prefix}.mlp.2.weight", d, f)
+        f32(f"{prefix}.mlp.2.bias", normal(d, std=0.01))
+
+    f32("encoder.conv1.weight", normal(d, cfg.n_mels, 3, std=0.05))
+    f32("encoder.conv1.bias", np.zeros(d, np.float32))
+    f32("encoder.conv2.weight", normal(d, d, 3, std=0.02))
+    f32("encoder.conv2.bias", np.zeros(d, np.float32))
+    f32("encoder.positional_embedding", sinusoidal_positions(cfg.n_audio_ctx, d))
+    for i in range(cfg.n_audio_layer):
+        block(f"encoder.blocks.{i}", False)
+    f32("encoder.ln_post.weight", 1.0 + normal(d, std=0.02))
+    f32("encoder.ln_post.bias", normal(d, std=0.02))
+    f32("decoder.token_embedding.weight", normal(cfg.n_vocab, d, std=0.02))
+    f32("decoder.positional_embedding", normal(cfg.n_text_ctx, d, std=0.01))
+    for i in range(cfg.n_text_layer):
+        block(f"decoder.blocks.{i}", True)
+    f32("decoder.ln.weight", 1.0 + normal(d, std=0.02))
+    f32("decoder.ln.bias", normal(d, std=0.02))
+
+    w = GgufWriter()
+    w.add_string("general.architecture", "whisper")
+    w.add_string("general.name", "whisper-large-v3-turbo (seeded)")
+    w.add_u32("whisper.encoder.layer_count", cfg.n_audio_layer)
+    w.add_u32("whisper.decoder.layer_count", cfg.n_text_layer)
+    w.add_u32("whisper.n_lang", cfg.n_lang)
+    for name in sorted(tensors):
+        shape, data = tensors[name]
+        w.add_raw_tensor(name, shape, GgmlDtype.Q4_0 if data.dtype == np.uint8 else GgmlDtype.F32, data)
+    w.write(path)
+    return tensors["decoder.blocks.0.mlp.0.weight"][1]
+
+
+def flat_arrays(tree, prefix=()) -> dict:
+    out = {}
+    for key, value in tree.items():
+        out.update(flat_arrays(value, prefix + (key,)) if isinstance(value, dict) else {prefix + (key,): value})
+    return out
+
+
+def loader_phase(tmp: Path, cfg):
+    """The port's GGUF loader on a checkpoint of ``cfg`` written into
+    ``tmp``: ``load_whisper(path, cache_dir=tmp)`` cold (parse, repack,
+    cache save), then warm (a hit on the repacked cache), then the parse
+    and repack alone (``load_whisper_from_gguf``) and the cache save alone
+    (``save_repacked`` into a second directory), each timed on its own.
+    Holds the config inferred from the checkpoint to ``cfg``
+    field for field, the warm and the parsed params to the cold ones array
+    for array, and one repacked layer's codes times scales to the
+    dequantized raw blocks exactly. Logs the sizes and walls; returns the
+    warm model."""
+    from whisper_burn_tpu_torch.gguf import GgufReader
+    from whisper_burn_tpu_torch.gguf.cache import CACHE_VERSION, load_whisper, save_repacked
+    from whisper_burn_tpu_torch.gguf.loader import infer_config, load_whisper_from_gguf
+    from whisper_burn_tpu_torch.gguf.quant import dequantize_q4_0
+
+    gguf = tmp / "whisper-large-v3-turbo.gguf"
+    t0 = time.perf_counter()
+    raw_fc1 = write_turbo_gguf(gguf, cfg, SEED + 30)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold = load_whisper(gguf, cache_dir=tmp)
+    cold_s = time.perf_counter() - t0
+    npz, meta = tmp / (gguf.name + ".repacked.npz"), tmp / (gguf.name + ".repacked.json")
+    record, stat = json.loads(meta.read_text()), gguf.stat()
+    if (record["cache_version"], record["source_size"], record["source_mtime"]) != (CACHE_VERSION, stat.st_size,
+                                                                                   stat.st_mtime):
+        raise AssertionError(f"loader: the cache's record {record} does not match its checkpoint")
+    t0 = time.perf_counter()
+    warm = load_whisper(gguf, cache_dir=tmp)
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parsed = load_whisper_from_gguf(gguf)
+    parse_s = time.perf_counter() - t0
+    (tmp / "resave").mkdir()
+    t0 = time.perf_counter()
+    resaved = save_repacked(parsed, gguf, tmp / "resave")
+    save_s = time.perf_counter() - t0
+    if resaved.stat().st_size != npz.stat().st_size:
+        raise AssertionError(f"loader: the cache saved again holds {resaved.stat().st_size} bytes, not "
+                             f"{npz.stat().st_size}")
+    resaved.unlink()
+
+    inferred = infer_config(GgufReader.open(gguf))
+    if not (inferred == cold.config == warm.config == parsed.config == cfg):
+        raise AssertionError(f"loader: inferred {inferred}, cold {cold.config}, warm {warm.config}, want {cfg}")
+    ref = flat_arrays(cold.params)
+    for label, model in (("warm", warm), ("parsed", parsed)):
+        got = flat_arrays(model.params)
+        if got.keys() != ref.keys():
+            raise AssertionError(f"loader: the {label} params' keys differ from the cold load's")
+        for key, a in got.items():
+            if a.dtype != ref[key].dtype or not np.array_equal(a, ref[key]):
+                raise AssertionError(f"loader: the {label} params' {'/'.join(key)} differ from the cold load's")
+    fc1 = cold.params["decoder"]["blocks"]["fc1"]
+    recon = fc1["qw"][0].astype(np.float32) * np.repeat(fc1["scales"][0], 32, axis=0)  # [K, N]
+    if not np.array_equal(recon.T.reshape(-1), dequantize_q4_0(raw_fc1, raw_fc1.size // 18 * 32)):
+        raise AssertionError("loader: decoder layer 0's fc1, repacked, is not its dequantized Q4_0 blocks")
+    q4 = sum(a.size for key, a in ref.items() if key[-1] == "qw")
+    log({"phase": "loader", "model": "large_v3_turbo", "gguf_bytes": stat.st_size, "npz_bytes": npz.stat().st_size,
+         "q4_weights": q4, "tensors": len(GgufReader.open(gguf).tensors), "write_s": write_s,
+         "cold_load_s": cold_s, "parse_and_repack_s": parse_s, "cache_save_s": save_s,
+         "warm_load_s": warm_s, "config": dataclasses.asdict(cold.config)})
+    return warm
+
+
+# --------------------------------------------------------------------------
 # phase 3: the main paths
 
 
@@ -1188,6 +1450,7 @@ class MainPath:
     beam: bool = False
     requests: int = NEW_PATH_REQUESTS
     eager: object = None  # eager(r, max_tokens): request r through the loop body, step by step
+    cfg: object = None  # the model's config, where it is not the main paths' Large-V3
 
 
 def eager_greedy(params, cfg, mel, lang, compute, max_tokens, detect=False):
@@ -1255,7 +1518,7 @@ def audio_path(label, params, cfg, compute, mel_frontend, audios, beam=False, re
         return (eager_beam if beam else eager_greedy)(
             params, cfg, mel_frontend(audios[r % len(audios)]), lang_tokens(cfg, BATCH), compute, max_tokens)
 
-    return MainPath(label, run, compute, beam=beam, requests=requests, eager=eager)
+    return MainPath(label, run, compute, beam=beam, requests=requests, eager=eager, cfg=cfg)
 
 
 def self_kernel(compute, beam: bool) -> str:
@@ -1727,8 +1990,10 @@ def traced_replay(path: MainPath, cfg, max_tokens: int, eager, r: int = 0) -> di
     runtime calls inside its host range launched (kernels of a graph carry
     their graph launch's correlation id); returns the replayed step's wall
     (first to last device event of the stage, per step), device busy, idle
-    share and device operations per step. Its tokens (a beam's scores too)
-    equal the eager request's ``eager`` bit for bit."""
+    share and device operations per step, and the device ms of the stages
+    before the loop (encode, cross_fill, prefill), which run eagerly. Its
+    tokens (a beam's scores too) equal the eager request's ``eager`` bit
+    for bit."""
     from whisper_burn_tpu_torch.ops import _build
 
     path.run(r, max_tokens=max_tokens)
@@ -1757,6 +2022,9 @@ def traced_replay(path: MainPath, cfg, max_tokens: int, eager, r: int = 0) -> di
         raise AssertionError(f"traced {path.label}: no device work in the replayed decode stage")
     start, end = min(e["ts"] for e in work), max(e["ts"] + e["dur"] for e in work)
     busy = sum(e["dur"] for e in work)
+    entry = stage.split(".")[0]
+    stages = {e["name"].split(".", 1)[1]: e["dur"] / 1e3 for e in ranges  # the eager stages' device ms
+              if e["cat"] == "gpu_user_annotation" and e["name"] in {f"{entry}.{s}" for s in STAGES - {"decode"}}}
     return {
         "path": path.label, "wall_ms": wall * 1e3, "max_tokens": max_tokens, "decode_steps": steps,
         "graph_launches": sum(e["name"] == "cudaGraphLaunch" for e in calls),
@@ -1766,6 +2034,7 @@ def traced_replay(path: MainPath, cfg, max_tokens: int, eager, r: int = 0) -> di
         "decode_device_idle_share": 1 - busy / (end - start),
         "decode_device_ops_per_step": len(work) / steps,
         "request_device_busy_ms": sum(e["dur"] for e in dev) / 1e3,
+        "stage_device_ms": stages,
     }
 
 
@@ -1921,11 +2190,12 @@ def main() -> int:
     from whisper_burn_tpu_torch.entry import MAX_TOKENS as ENTRY_TOKENS
     from whisper_burn_tpu_torch.entry import entry
     from whisper_burn_tpu_torch.models.config import WhisperConfig
-    from whisper_burn_tpu_torch.models.params import device_fabricated_params
+    from whisper_burn_tpu_torch.models.params import device_fabricated_params, params_to_torch
     from whisper_burn_tpu_torch.models.whisper import cached_runners, clear_runners
     from whisper_burn_tpu_torch.ops import _build
     from whisper_burn_tpu_torch.ops.cache import BEAM_FN as SLOT_BEAM
     from whisper_burn_tpu_torch.ops.compute import Compute
+    from whisper_burn_tpu_torch.ops.ffn_kernel import _UNITS
     from whisper_burn_tpu_torch.transcribe import prepare_params
 
     t_all = time.perf_counter()
@@ -1975,16 +2245,11 @@ def main() -> int:
         audio_path("mixed_beam", params, cfg, mixed, mel_frontend, audios, beam=True),
     ]
     launches, counts, captured, refs = {}, {}, weakref.WeakSet(), {}
-    for path in paths + ["entry"]:
-        t0 = time.perf_counter()
-        if path == "entry":  # the flagship step as a user calls it
-            fn, args = entry()
-            torch.cuda.synchronize()
-            phases["entry_setup_s"] = time.perf_counter() - t0
-            path = MainPath("entry", lambda r: fn(*args), fast, batch=1, max_tokens=ENTRY_TOKENS, requests=REQUESTS,
-                            eager=lambda r, max_tokens: eager_greedy(args[0], cfg, args[1], args[2], fast, max_tokens))
+
+    def serve(path: MainPath, t0: float) -> None:
+        """The path's requests, held to their launches, then its eager reference."""
         torch.cuda.reset_peak_memory_stats()
-        launches[path.label], counts[path.label], results = run_path(path, cfg)
+        launches[path.label], counts[path.label], results = run_path(path, path.cfg or cfg)
         phases[f"{path.label}_path_s"] = time.perf_counter() - t0
         log({"phase": f"{path.label}_path", "seconds": phases[f"{path.label}_path_s"],
              "launches": launches[path.label], "peak_device_bytes": torch.cuda.max_memory_allocated()})
@@ -2000,7 +2265,15 @@ def main() -> int:
         want = 1 if path.label in ("greedy", "entry") else 2
         if made != want:
             raise AssertionError(f"{path.label}: {made} runners captured, expected {want}")
-        del results
+
+    for path in paths:
+        serve(path, time.perf_counter())
+    t0 = time.perf_counter()
+    fn, args = entry()  # the flagship step as a user calls it
+    torch.cuda.synchronize()
+    phases["entry_setup_s"] = time.perf_counter() - t0
+    serve(MainPath("entry", lambda r: fn(*args), fast, batch=1, max_tokens=ENTRY_TOKENS, requests=REQUESTS,
+                   eager=lambda r, max_tokens: eager_greedy(args[0], cfg, args[1], args[2], fast, max_tokens)), t0)
     del fn, args
     # the pipeline in the int4 self mode, and kernel D' through its op
     for label, run in (("pipeline", lambda: pipeline_path(raw, cfg, int4self)),
@@ -2016,6 +2289,40 @@ def main() -> int:
     del raw
     torch.cuda.empty_cache()
 
+    # phase 3a: Whisper Medium, fabricated on the card for the serving compute
+    t0 = time.perf_counter()
+    mcfg = WhisperConfig.medium()
+    mparams = prepare_params(device_fabricated_params(mcfg, seed=SEED, device="cuda"), serving)
+    mel80 = MelFrontend(n_mels=mcfg.n_mels, norm="slaney")
+    mel80(torch.zeros((1, 16_000), device="cuda"))
+    torch.cuda.synchronize()
+    phases["medium_params_s"] = time.perf_counter() - t0
+    presets = [audio_path("medium_greedy", mparams, mcfg, serving, mel80, audios),
+               audio_path("medium_beam", mparams, mcfg, serving, mel80, audios, beam=True)]
+    for path in presets:
+        serve(path, time.perf_counter())
+    # phase 3b: a Large-V3-Turbo checkpoint written, loaded cold and warm
+    # through the repacked cache, then served from what it loaded
+    t0 = time.perf_counter()
+    tcfg = WhisperConfig.large_v3_turbo()
+    TRACE_DIR.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=TRACE_DIR.parent) as tmp:  # removed on the way out, failed or not
+        loaded = loader_phase(Path(tmp), tcfg)
+    tparams = prepare_params(params_to_torch(loaded.params, "cuda"), serving)
+    del loaded
+    torch.cuda.synchronize()
+    phases["loader_s"] = time.perf_counter() - t0
+    presets += [audio_path("turbo_greedy", tparams, tcfg, serving, mel_frontend, audios),
+                audio_path("turbo_beam", tparams, tcfg, serving, mel_frontend, audios, beam=True)]
+    for path in presets[2:]:
+        serve(path, time.perf_counter())
+    del tparams  # its paths hold it
+    # kernel I's second, unit-blocked copy of each decoder stack's FFN
+    # weights (made at a runner's eager first step, kept while they live)
+    copies = [u for _, _, u in _UNITS.values()]
+    log({"phase": "kernel_i_unit_copies", "copies": [
+        {"layers": u.shape[0], "k": u.shape[2] * 32, "n": u.shape[1] * 16, "bytes": u.nbytes} for u in copies]})
+
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -2023,13 +2330,14 @@ def main() -> int:
     rows += beam_kernel_checks(params, cfg, gen) + mode_kernel_checks(fast_params, cfg, gen) + int4_kernel_checks(cfg, gen)
     rows += pipeline_kernel_checks(params, cfg, gen)
     rows += kernel_f_checks(cfg, gen, {**{p.label: p.compute for p in paths}, "entry": fast, "pipeline": int4self})
+    rows += medium_kernel_checks(mparams, mcfg, gen, serving)
     phases["kernels_s"] = time.perf_counter() - t0
     log({"phase": "kernels", "seconds": phases["kernels_s"]})
     sigs, rows_by_key = {}, {}
     for row in rows:
         key = json.dumps(row["shape_key"])
         row["launches"] = counts[row["path"]].get(key, 0)
-        if row["launches"] <= 0:
+        if row["launches"] <= 0 and not row.get("off_path"):
             raise AssertionError(f"{row['name']} ({key}) was not launched on the {row['path']} path, "
                                  f"which launched {sorted(counts[row['path']])}")
         (sig,) = row.pop("sig")
@@ -2049,11 +2357,13 @@ def main() -> int:
         replays[label] = traced_replay(by_label[label], cfg, tokens, res)
         phases[f"traced_replay_{label}_s"] = time.perf_counter() - t0
         del res
-    # the other beam paths' replayed steps, held to their eager references
-    for label in ("int8_beam", "int4self_beam", "mixed_beam"):
+    # the other beam paths' and Medium's and Turbo's replayed steps, held
+    # to their eager references
+    by_label.update((p.label, p) for p in presets)
+    for label in ("int8_beam", "int4self_beam", "mixed_beam", *(p.label for p in presets)):
         t0 = time.perf_counter()
         path = by_label[label]
-        replays[label] = traced_replay(path, cfg, TRACED_TOKENS, refs[label], r=path.requests - 1)
+        replays[label] = traced_replay(path, path.cfg or cfg, TRACED_TOKENS, refs[label], r=path.requests - 1)
         phases[f"traced_replay_{label}_s"] = time.perf_counter() - t0
     del refs
     for row in rows:
@@ -2086,11 +2396,16 @@ def main() -> int:
     # beam, int4self_greedy; W8A8) and fast() (fast_greedy, fast_beam)
     log({"phase": "encoder_device_ms", **{label: bd["stages"]["device_ms"]["encode"] for label, (_, bd) in traced.items()}})
     # the device memory with every cached runner alive (each holds its
-    # caches and its graph's pool), then the runners go with the params
+    # caches, its graph's pool and its params): the RUNNERS_KEPT runners
+    # used last, by the traced and replayed requests, then the runners go
+    # with the params
     log({"phase": "device_memory", "runners": len(cached_runners()), "allocated_bytes": torch.cuda.memory_allocated(),
-         "max_memory_allocated": torch.cuda.max_memory_allocated()})
+         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+         "cached": [{"d": r.cfg.n_text_state, "decoder_layers": r.cfg.n_text_layer, "batch": r.batch, "ctx": r.ctx,
+                     "max_tokens": r.max_tokens, "beam_width": getattr(r, "beam_width", None)}
+                    for r in cached_runners()]})
     clear_runners()
-    del params, fast_params
+    del params, fast_params, mparams
     torch.cuda.empty_cache()
 
     for label, compute in (

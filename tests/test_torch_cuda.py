@@ -6,7 +6,9 @@ decided inside the fixture, not at import). On a machine with the card:
     python -m pytest tests/test_torch_cuda.py -q
 
 The kernels are built from ``whisper_burn_tpu_torch/csrc`` at first use.
-chip_smoke.py runs the same checks at the main path's Large-V3 shapes.
+chip_smoke.py runs the same checks at the main paths' Large-V3 and Medium
+shapes. The kernels' tests at a model's layout run at Large-V3's (D 1280,
+20 heads) and Whisper Medium's (D 1024, 16 heads).
 """
 
 import pytest
@@ -74,10 +76,16 @@ def _rel_err(out, ref):
 # search's 8 x 5) with N = 1284 not a multiple of the column tile, the
 # cross fill's 1500 and the encoder's 1536 rows (ragged against the
 # 128-row tile), and K = 288, not a multiple of any K tile; 20 and 63 rows
-# take two and four 16-row tiles in the bf16 weight-read form.
+# take two and four 16-row tiles in the bf16 weight-read form. Whisper
+# Medium's (D 1024, K split over its cluster as 1024 and 4096 divide): the
+# decode qkv and projection at 8 and 40 rows, the prefill's 32, the int8
+# logits over the 52224 padded vocab columns, the encoder's 1536 rows and
+# the cross fill's 1500.
 Q4_SHAPES = [(1, 256, 768), (1, 5120, 1280), (8, 1280, 3840), (20, 512, 1284), (37, 1280, 1284),
              (40, 1280, 1280), (40, 1280, 1284), (63, 1280, 768), (300, 512, 256), (300, 288, 256),
-             (1500, 1280, 2560), (1536, 5120, 1280)]
+             (1500, 1280, 2560), (1536, 5120, 1280),
+             (8, 1024, 3072), (40, 1024, 1024), (32, 1024, 3072), (8, 1024, 52224), (40, 1024, 52224),
+             (1536, 4096, 1024), (1500, 1024, 2048)]
 EPILOGUES = [(False, None), (True, None), (True, "tanh"), (True, "erf")]
 
 
@@ -127,10 +135,10 @@ def test_q4_matmul_regimes(gen):
 # the beam's 40 (the decode regime: weights held in shared memory, one grid
 # barrier), the entry's 1, the prefill's 4, the encoder's 1536 (the encoder
 # regime's wgmma tiles); Whisper Medium's (1024 <-> 4096) at 8, 40 and 1536
-# rows; and Whisper tiny's D = 384 at 100 rows (one ragged row tile, half
-# a column tile).
+# rows and its prefill's 32; and Whisper tiny's D = 384 at 100 rows (one
+# ragged row tile, half a column tile).
 FFN_SHAPES = [(8, 1280, 5120), (40, 1280, 5120), (1, 1280, 5120), (4, 1280, 5120), (1536, 1280, 5120),
-              (8, 1024, 4096), (40, 1024, 4096), (1536, 1024, 4096), (100, 384, 1536)]
+              (8, 1024, 4096), (40, 1024, 4096), (32, 1024, 4096), (1536, 1024, 4096), (100, 384, 1536)]
 
 
 def _ffn_inputs(gen, m, d, f, dtype):
@@ -157,13 +165,14 @@ def test_fused_ffn_kernel(gen, m, d, f, kind, bias_after_round, dtype, tol):
     assert _rel_err(out, ref) <= tol
 
 
+@pytest.mark.parametrize("d,f", [(1280, 5120), (1024, 4096)], ids=["large_v3", "medium"])
 @pytest.mark.parametrize("m", [8, 40, 1536])
-def test_fused_ffn_bitwise_repeatable(gen, m):
+def test_fused_ffn_bitwise_repeatable(gen, m, d, f):
     """No float atomics, every sum in a fixed order: three calls give the
     same bits, and so do two replays of a CUDA graph that captured the
     launch (the cooperative launch is captured, and its barrier count is
     left ready for the next launch)."""
-    x, fc1, fc2 = _ffn_inputs(gen, m, 1280, 5120, torch.bfloat16)
+    x, fc1, fc2 = _ffn_inputs(gen, m, d, f, torch.bfloat16)
     first, second, third = (fused_ffn(x, fc1, fc2, "tanh", layer=0, bias_after_round=True) for _ in range(3))
     assert torch.equal(first, second) and torch.equal(second, third)
     stream = torch.cuda.Stream()
@@ -295,23 +304,27 @@ def test_cache_slot_kernel(gen, dtype, width):
     assert torch.equal(cache, ref)
 
 
-# Kernel F's two forms at Large-V3's layout (32 layers, D 1280, ctx 256),
-# each self-cache form: (K dtype, V dtype, K width, V width, scale lanes)
+# Kernel F's two forms at Large-V3's layout (32 layers, D 1280, ctx 256)
+# and Medium's (24 layers, D 1024: rows of 512 + 512 + 64 bytes in the int4
+# self form, where Large-V3's are 640 + 640 + 80), each self-cache form:
+# (K dtype, V dtype, K width, V width, scale lanes) at width d
 F_FORMS = {
-    "int8": (torch.int8, torch.int8, 1280, 1280, 2),
-    "int4self": (torch.uint8, torch.uint8, 640, 640, 20),
-    "mixed": (torch.int8, torch.uint8, 1280, 640, 11),
-    "bf16": (torch.bfloat16, torch.bfloat16, 1280, 1280, 0),
-    "f32": (torch.float32, torch.float32, 1280, 1280, 0),
+    "int8": lambda d: (torch.int8, torch.int8, d, d, 2),
+    "int4self": lambda d: (torch.uint8, torch.uint8, d // 2, d // 2, 2 * self_kv_groups(d)),
+    "mixed": lambda d: (torch.int8, torch.uint8, d, d // 2, 1 + self_kv_groups(d)),
+    "bf16": lambda d: (torch.bfloat16, torch.bfloat16, d, d, 0),
+    "f32": lambda d: (torch.float32, torch.float32, d, d, 0),
 }
+F_LAYOUTS = {"large_v3": (32, 1280), "medium": (24, 1024)}  # layers, D
 
 
-def _f_rows(gen, form, streams, t):
-    """Random ``[32, streams, t, W]`` K, V and (quantized forms) scale rows."""
-    kd, vd, kw, vw, lanes = F_FORMS[form]
+def _f_rows(gen, form, streams, t, layout="large_v3"):
+    """Random ``[L, streams, t, W]`` K, V and (quantized forms) scale rows."""
+    l_dim, d = F_LAYOUTS[layout]
+    kd, vd, kw, vw, lanes = F_FORMS[form](d)
 
     def rand(dtype, width):
-        shape = (32, streams, t, width)
+        shape = (l_dim, streams, t, width)
         if dtype.is_floating_point:
             return torch.randn(shape, generator=gen, device="cuda").to(dtype)
         lo, hi = (-128, 128) if dtype == torch.int8 else (0, 256)
@@ -320,10 +333,11 @@ def _f_rows(gen, form, streams, t):
     return [rand(kd, kw), rand(vd, vw)] + ([rand(torch.float32, lanes)] if lanes else [])
 
 
+@pytest.mark.parametrize("layout", list(F_LAYOUTS))
 @pytest.mark.parametrize("pos", [0, 1, 115, 255])
 @pytest.mark.parametrize("streams", [8, 40])
 @pytest.mark.parametrize("form", list(F_FORMS))
-def test_cache_slot_forms_large_v3(gen, form, streams, pos):
+def test_cache_slot_forms_large_v3(gen, form, streams, pos, layout):
     """Both forms of kernel F in one launch a call, exactly their plain
     versions, twice bitwise alike. The slot form leaves every other row of
     the caches as it was; the beam form (the streams in utterances of 5
@@ -331,7 +345,7 @@ def test_cache_slot_forms_large_v3(gen, form, streams, pos):
     utterance's) writes the other buffer's rows up to pos, leaves its later
     rows and the step's buffer as they were."""
     ctx = 256
-    caches, news = _f_rows(gen, form, streams, ctx), _f_rows(gen, form, streams, 1)
+    caches, news = _f_rows(gen, form, streams, ctx, layout), _f_rows(gen, form, streams, 1, layout)
     at = _at(pos)
     outs = []
     for _ in range(2):
@@ -348,7 +362,7 @@ def test_cache_slot_forms_large_v3(gen, form, streams, pos):
     width = 5 if streams % 5 == 0 else 4  # beams of an utterance
     parent = torch.randint(0, width, (streams // width, width), generator=gen, device="cuda")
     src = (torch.arange(streams // width, device="cuda")[:, None] * width + parent).reshape(-1).to(torch.int32)
-    stale = _f_rows(gen, form, streams, ctx)
+    stale = _f_rows(gen, form, streams, ctx, layout)
     xs = [c.clone() for c in caches]
     outs = []
     for _ in range(2):
@@ -367,9 +381,11 @@ def test_cache_slot_forms_large_v3(gen, form, streams, pos):
 
 # Kernel D: T not a multiple of the 128-query tile (200), a valid that
 # leaves one key in the last 64-key tile (129), the encoder's 1536 rows
-# with 1500 valid at Large-V3's 20 heads and Medium's 16, and B = 1
+# with 1500 valid at Large-V3's 20 heads and Medium's 16 (at its serving
+# batch of 8 too), and B = 1
 ENCODER_SHAPES = [(2, 128, 100, 256, 4), (2, 200, 200, 256, 4), (2, 256, 129, 256, 4),
-                  (2, 1536, 1500, 1280, 20), (1, 1536, 1500, 1024, 16), (1, 300, 300, 1280, 20)]
+                  (2, 1536, 1500, 1280, 20), (1, 1536, 1500, 1024, 16), (8, 1536, 1500, 1024, 16),
+                  (1, 300, 300, 1280, 20)]
 
 
 @pytest.mark.parametrize("b,t,valid,d,h", ENCODER_SHAPES)
@@ -479,14 +495,16 @@ def test_encoder_attention_heads_wide_heads_raise(gen):
 
 # Kernels B, B', E, E', G and H (one loop, csrc/decode_attention.cu
 # attend_cached) at Large-V3's layout: D 1280, 20 heads (G and H: head
-# pairs h, h + 10, one scale lane for two heads), ctx 256, 3 streams. The
+# pairs h, h + 10, one scale lane for two heads), ctx 256, 3 streams; and
+# at Medium's: D 1024, 16 heads (pairs h, h + 8; 16 int4 scale lanes). The
 # positions leave the 8 warps' runs of keys and their 16-key steps uneven
 # (0, 1, 7, 8, 9), take the mean decode position (115) and reach the
 # cache's end (226, 255). Each output is held to 1e-5 of its scale (f32
 # math both ways, sums in another order), and two launches are bitwise
 # equal (a fixed order of merging, no atomics).
-LV3_STREAMS, LV3_CTX, LV3_D, LV3_H = 3, 256, 1280, 20
+LV3_STREAMS, LV3_CTX = 3, 256
 LV3_POS = [0, 1, 7, 8, 9, 115, 226, 255]
+LAYOUTS = pytest.mark.parametrize("d,h", [(1280, 20), (1024, 16)], ids=["large_v3", "medium"])
 
 
 def _close_parts(out, ref):
@@ -502,10 +520,11 @@ def _bitwise_twice(call, first):
 
 @pytest.mark.parametrize("pos", LV3_POS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_self_attention_kernel_large_v3(gen, pos, dtype):
+@LAYOUTS
+def test_self_attention_kernel_large_v3(gen, pos, dtype, d, h):
     """Kernel B: the output, the stored row and scales exactly as the plain
     version's, and no other row of the caches touched."""
-    l_dim, b, ctx, d, h = 2, LV3_STREAMS, LV3_CTX, LV3_D, LV3_H
+    l_dim, b, ctx = 2, LV3_STREAMS, LV3_CTX
     kc = torch.randint(-127, 128, (l_dim, b, ctx, d), generator=gen, device="cuda", dtype=torch.int8)
     vc = torch.randint(-127, 128, (l_dim, b, ctx, d), generator=gen, device="cuda", dtype=torch.int8)
     sc = torch.rand((l_dim, b, ctx, 2), generator=gen, device="cuda") * 0.02 + 1e-3
@@ -530,9 +549,10 @@ def test_self_attention_kernel_large_v3(gen, pos, dtype):
 
 @pytest.mark.parametrize("pos", LV3_POS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_merged_attention_kernel_large_v3(gen, pos, dtype):
+@LAYOUTS
+def test_merged_attention_kernel_large_v3(gen, pos, dtype, d, h):
     """Kernel B' over a float cache of the query's dtype, nothing stored."""
-    l_dim, b, ctx, d, h = 2, LV3_STREAMS, LV3_CTX, LV3_D, LV3_H
+    l_dim, b, ctx = 2, LV3_STREAMS, LV3_CTX
     kc, vc = (torch.randn((l_dim, b, ctx, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
     q, kn, vn = (torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
     k0, v0 = kc.clone(), vc.clone()
@@ -548,10 +568,11 @@ def test_merged_attention_kernel_large_v3(gen, pos, dtype):
 @pytest.mark.parametrize("valid", LV3_POS)
 @pytest.mark.parametrize("scaled", [True, False], ids=["E", "E'"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_layer_kernel_large_v3(gen, valid, scaled, dtype):
+@LAYOUTS
+def test_attention_layer_kernel_large_v3(gen, valid, scaled, dtype, d, h):
     """Kernel E (int8 cache, per-token scales) and E' (float cache): acc, m
     and l of the plain version."""
-    l_dim, b, ctx, d, h = 2, LV3_STREAMS, LV3_CTX, LV3_D, LV3_H
+    l_dim, b, ctx = 2, LV3_STREAMS, LV3_CTX
     if scaled:
         kc = torch.randint(-127, 128, (l_dim, b, ctx, d), generator=gen, device="cuda", dtype=torch.int8)
         vc = torch.randint(-127, 128, (l_dim, b, ctx, d), generator=gen, device="cuda", dtype=torch.int8)
@@ -571,9 +592,10 @@ def test_attention_layer_kernel_large_v3(gen, valid, scaled, dtype):
 @pytest.mark.parametrize("fmt", ["groups", "mixed", "scalar", "unscaled"])
 @pytest.mark.parametrize("pos", LV3_POS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_merged_attention_int4_kernel_large_v3(gen, fmt, pos, dtype):
+@LAYOUTS
+def test_merged_attention_int4_kernel_large_v3(gen, fmt, pos, dtype, d, h):
     """Kernel G in its four cache forms, one block a head pair."""
-    l_dim, b, ctx, d, h = 2, LV3_STREAMS, LV3_CTX, LV3_D, LV3_H
+    l_dim, b, ctx = 2, LV3_STREAMS, LV3_CTX
     k, v, sc = _int4_cache(gen, fmt, l_dim, b, ctx, d)
     q, kn, vn = (torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
     k0, v0 = k.clone(), v.clone()
@@ -589,9 +611,10 @@ def test_merged_attention_int4_kernel_large_v3(gen, fmt, pos, dtype):
 @pytest.mark.parametrize("fmt", ["groups", "mixed", "scalar", "unscaled"])
 @pytest.mark.parametrize("valid", LV3_POS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_layer_int4_kernel_large_v3(gen, fmt, valid, dtype):
+@LAYOUTS
+def test_attention_layer_int4_kernel_large_v3(gen, fmt, valid, dtype, d, h):
     """Kernel H in its four cache forms: acc, m and l of the plain version."""
-    l_dim, b, ctx, d, h = 2, LV3_STREAMS, LV3_CTX, LV3_D, LV3_H
+    l_dim, b, ctx = 2, LV3_STREAMS, LV3_CTX
     k, v, sc = _int4_cache(gen, fmt, l_dim, b, ctx, d)
     q = torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype)
     call = lambda: decode_attention_layer_int4(q, k, v, sc, 1, _at(valid), h)
@@ -602,8 +625,9 @@ def test_attention_layer_int4_kernel_large_v3(gen, fmt, valid, dtype):
     _bitwise_twice(call, out)
 
 
-# Kernels C and C' at Large-V3's layout: D 1280, 20 heads, T 1536, 1, 4
-# and 8 cache entries, one or five streams each. The valid lengths hit the
+# Kernels C and C' at Large-V3's layout: D 1280, 20 heads (10 head pairs),
+# and at Medium's: D 1024, 16 heads (8 pairs); T 1536, 1, 4 and 8 cache
+# entries, one or five streams each. The valid lengths hit the
 # edges of the 16-key units and of the blocks' runs, and the int4 cache's
 # half boundary (T/2 = 768: 767 leaves the high halves empty, 769 adds one
 # key there); 1536 leaves no key masked.
@@ -616,10 +640,11 @@ XV3_FORMS = [("int4", torch.float32), ("int4", torch.bfloat16), ("int8", torch.f
 @pytest.mark.parametrize("entries", [1, 4, 8])
 @pytest.mark.parametrize("groups", [1, 5])
 @pytest.mark.parametrize("cache,dtype", XV3_FORMS, ids=[f"{c}-{str(d)[6:]}" for c, d in XV3_FORMS])
-def test_cross_attention_kernel_large_v3(gen, cache, dtype, groups, entries, valid):
+@LAYOUTS
+def test_cross_attention_kernel_large_v3(gen, cache, dtype, groups, entries, valid, d, h):
     """One launch a call, finite, the plain version's output (_cross_close),
     and two launches bitwise equal (fixed orders of merging, no atomics)."""
-    l_dim, t, d, h = 2, 1536, 1280, 20
+    l_dim, t = 2, 1536
     ints = lambda lo, hi, shape, dt: torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=dt)
     if cache == "int4":
         kT, v = ints(0, 256, (l_dim, entries, d // 2, t), torch.uint8), ints(0, 256, (l_dim, entries, t // 2, d), torch.uint8)
@@ -830,3 +855,114 @@ def test_beam_graph_replay_equals_eager_body(lv3_two_layers, mode):
         assert eager_launches["write_cache_slot_beam"] == int(runner.state.k) - 1
         assert "write_cache_slot" not in eager_launches
     w.clear_runners()
+
+
+# --------------------------------------------------------------------------
+# Whisper Medium and Large-V3-Turbo through the runners, cut to 2 decoder
+# layers (Turbo keeps unequal stacks: 4 encoder layers over 2 decoder ones)
+
+PRESETS = {"medium": ("medium", dict(n_audio_layer=2, n_text_layer=2)),
+           "turbo": ("large_v3_turbo", dict(n_audio_layer=4, n_text_layer=2))}
+
+
+@pytest.fixture(scope="module", params=list(PRESETS))
+def preset_two_layers(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from whisper_burn_tpu_torch.models.config import WhisperConfig
+    from whisper_burn_tpu_torch.models.params import device_fabricated_params
+    from whisper_burn_tpu_torch.transcribe import prepare_params
+
+    name, cut = PRESETS[request.param]
+    cfg = getattr(WhisperConfig, name)().replace(**cut)
+    params = prepare_params(device_fabricated_params(cfg, seed=1, device="cuda"), _graph_compute("serving"))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    mels = [torch.randn((GRAPH_B, cfg.n_mels, 3000), generator=g, device="cuda") for _ in range(2)]
+    return cfg, params, mels
+
+
+@pytest.mark.parametrize("decode", ["greedy", "beam"])
+def test_preset_graph_replay_equals_eager_body(preset_two_layers, decode):
+    """The serving compute at Medium's width and 80 mel bins, and at
+    Turbo's unequal stacks: two requests through one runner give the eager
+    body's tokens (a beam's lengths and scores too) bit for bit, with the
+    eager loop's launches."""
+    from whisper_burn_tpu_torch.models import beam
+    from whisper_burn_tpu_torch.models import whisper as w
+
+    cfg, params, mels = preset_two_layers
+    compute = _graph_compute("serving")
+    w.clear_runners()
+    lang = torch.full((GRAPH_B,), cfg.lang_token_start, dtype=torch.int32, device="cuda")
+    for mel in mels:
+        _build.reset_launches()
+        if decode == "greedy":
+            ref, _ = _eager_greedy(params, cfg, mel, compute, GRAPH_TOKENS)
+        else:
+            ref = _eager_beam(params, cfg, mel, compute, GRAPH_TOKENS)
+        eager_launches = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        if decode == "greedy":
+            res = w.greedy_decode(params, cfg, mel, lang, compute, max_tokens=GRAPH_TOKENS)
+            assert torch.equal(res.tokens, ref)
+        else:
+            res = beam.beam_decode(params, cfg, mel, lang, compute, beam_width=GRAPH_W, max_tokens=GRAPH_TOKENS)
+            for a, b in zip(res, ref):
+                assert torch.equal(a, b)
+        assert dict(_build.LAUNCHES) == eager_launches
+        assert eager_launches["encoder_attention"] == cfg.n_audio_layer
+        assert eager_launches["decode_cross_attention"] % cfg.n_text_layer == 0
+    w.clear_runners()
+
+
+def test_gguf_load_moved_to_the_card(gen, tmp_path):
+    """A checkpoint written by the port's GgufWriter (Q4_0 matrices, F32
+    rest) and loaded through the repacked cache: its params on the card
+    equal the CPU load's, leaf for leaf and dtype for dtype."""
+    import numpy as np
+
+    from whisper_burn_tpu_torch.gguf import GgufWriter
+    from whisper_burn_tpu_torch.gguf.cache import load_whisper
+    from whisper_burn_tpu_torch.models.params import params_to_torch
+
+    rng = np.random.default_rng(0)
+    d, w = 256, GgufWriter()
+    w.add_string("general.architecture", "whisper")
+    w.add_u32("whisper.n_lang", 99)
+    rand = lambda *shape: rng.standard_normal(shape).astype(np.float32) * 0.05
+    w.add_tensor("encoder.conv1.weight", rand(d, 80, 3))
+    w.add_tensor("encoder.conv2.weight", rand(d, d, 3))
+    for name in ("encoder.conv1.bias", "encoder.conv2.bias", "encoder.ln_post.weight", "encoder.ln_post.bias",
+                 "decoder.ln.weight", "decoder.ln.bias"):
+        w.add_tensor(name, rand(d))
+    w.add_tensor("encoder.positional_embedding", rand(64, d))
+    w.add_tensor("decoder.positional_embedding", rand(32, d))
+    w.add_tensor("decoder.token_embedding.weight", rand(51865, d))
+    for side, cross in (("encoder", False), ("decoder", True)):
+        p = f"{side}.blocks.0"
+        for ln in ("attn_ln", "mlp_ln") + (("cross_attn_ln",) if cross else ()):
+            w.add_tensor(f"{p}.{ln}.weight", rand(d))
+            w.add_tensor(f"{p}.{ln}.bias", rand(d))
+        for attn in ("attn",) + (("cross_attn",) if cross else ()):
+            for proj in ("query", "key", "value", "out"):
+                w.add_tensor(f"{p}.{attn}.{proj}.weight", rand(d, d), quantize=True)
+                if proj != "key":
+                    w.add_tensor(f"{p}.{attn}.{proj}.bias", rand(d))
+        w.add_tensor(f"{p}.mlp.0.weight", rand(4 * d, d), quantize=True)
+        w.add_tensor(f"{p}.mlp.0.bias", rand(4 * d))
+        w.add_tensor(f"{p}.mlp.2.weight", rand(d, 4 * d), quantize=True)
+        w.add_tensor(f"{p}.mlp.2.bias", rand(d))
+    w.write(tmp_path / "m.gguf")
+    model = load_whisper(tmp_path / "m.gguf", cache_dir=tmp_path)
+    assert (model.config.n_mels, model.config.n_audio_head, model.config.n_lang) == (80, 4, 99)
+    on_card, on_cpu = params_to_torch(model.params, "cuda"), params_to_torch(model.params, "cpu")
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            yield from leaves(v, f"{prefix}/{k}") if isinstance(v, dict) else [(f"{prefix}/{k}", v)]
+
+    card, cpu = dict(leaves(on_card)), dict(leaves(on_cpu))
+    assert card.keys() == cpu.keys() and "/decoder/blocks/fc1/qw" in card
+    for key, x in card.items():
+        assert x.is_cuda and x.dtype == cpu[key].dtype and torch.equal(x.cpu(), cpu[key]), key

@@ -48,9 +48,10 @@ from whisper_burn_tpu.ops.pallas_ffn import fused_ffn_pallas, fused_ffn_pallas_s
 from whisper_burn_tpu.ops.pallas_q4 import q4_matmul_pallas, q4_matmul_pallas_stacked
 from whisper_burn_tpu.transcribe import prepare_params as j_prepare
 
+from whisper_burn_tpu_torch.gguf.repack import repack_f32
 from whisper_burn_tpu_torch.models.config import WhisperConfig
 from whisper_burn_tpu_torch.models.decoder import decode_step, init_cache, prefill
-from whisper_burn_tpu_torch.models.params import random_params, repack_f32
+from whisper_burn_tpu_torch.models.params import random_params
 from whisper_burn_tpu_torch.ops import _build
 from whisper_burn_tpu_torch.ops.compute import Compute
 from whisper_burn_tpu_torch.ops.ffn_kernel import fused_ffn, fused_ffn_plain, unit_layout
@@ -73,7 +74,8 @@ def _no_launches():
 
 
 def _linear(rng, l_dim, k, n):
-    qws, scs = zip(*(repack_f32(rng.standard_normal((n, k)).astype(np.float32) * 0.05) for _ in range(l_dim)))
+    qts = [repack_f32(rng.standard_normal((n, k)).astype(np.float32) * 0.05) for _ in range(l_dim)]
+    qws, scs = [qt.qw for qt in qts], [qt.scales for qt in qts]
     b = (rng.standard_normal((l_dim, n)) * 0.01).astype(np.float32)
     return {"qw": np.stack(qws), "scales": np.stack(scs), "b": b}
 

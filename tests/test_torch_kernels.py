@@ -21,7 +21,7 @@ from whisper_burn_tpu.ops.pallas_ffn import fused_ffn_pallas, fused_ffn_pallas_s
 from whisper_burn_tpu.ops.pallas_q4 import q4_matmul_pallas, q4_matmul_pallas_stacked
 from whisper_burn_tpu.ops.q4_matmul import q4_matmul as j_q4_matmul
 
-from whisper_burn_tpu_torch.models.params import repack_f32
+from whisper_burn_tpu_torch.gguf.repack import repack_f32
 from whisper_burn_tpu_torch.ops import _build
 from whisper_burn_tpu_torch.ops.compute import Compute
 from whisper_burn_tpu_torch.ops.cache import write_cache_slot
@@ -50,7 +50,8 @@ def _close(a, b, rtol=RTOL, atol=ATOL):
 
 
 def _linear(rng, l_dim, k, n):
-    qws, scs = zip(*(repack_f32(rng.standard_normal((n, k)).astype(np.float32) * 0.05) for _ in range(l_dim)))
+    qts = [repack_f32(rng.standard_normal((n, k)).astype(np.float32) * 0.05) for _ in range(l_dim)]
+    qws, scs = [qt.qw for qt in qts], [qt.scales for qt in qts]
     b = (rng.standard_normal((l_dim, n)) * 0.01).astype(np.float32)
     return np.stack(qws), np.stack(scs), b
 

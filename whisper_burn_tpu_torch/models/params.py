@@ -27,34 +27,13 @@ from typing import Any
 import numpy as np
 import torch
 
+from whisper_burn_tpu_torch.gguf.repack import repack_f32
 from whisper_burn_tpu_torch.models.config import WhisperConfig
 from whisper_burn_tpu_torch.ops.compute import resolve_device
 
 Params = dict[str, Any]
 
 Q4_BLOCK = 32
-
-
-def repack_f32(weight: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Q4_0-quantize an f32 ``[N, K]`` weight into ``(qw int8 [K, N],
-    scales f32 [K/32, N])``: codes ``round(v / d)`` in [-8, 7] with
-    ``d = absmax / 7`` per 32-block along K, the scale rounded through f16.
-    Own copy of the JAX package's quantize + repack (gguf/quant.py,
-    gguf/repack.py), giving the same codes and scales."""
-    n_out, k_in = weight.shape
-    if k_in % Q4_BLOCK:
-        raise ValueError(f"K={k_in} not divisible by {Q4_BLOCK}")
-    blocks = np.ascontiguousarray(weight, np.float32).reshape(-1, Q4_BLOCK).astype(np.float64)
-    amax = np.max(np.abs(blocks), axis=1)
-    d = np.where(amax > 0, amax / 7.0, 0.0)
-    safe_d = np.where(d > 0, d, 1.0)
-    q = np.where((d > 0)[:, None], np.round(blocks / safe_d[:, None]), 0.0).astype(np.int64)
-    q = (((q + 8) & 0x0F) - 8).astype(np.int8)  # 4-bit wraparound like the converter
-    qw = np.ascontiguousarray(q.reshape(n_out, k_in).T)
-    scales = np.ascontiguousarray(
-        d.astype(np.float16).astype(np.float32).reshape(n_out, k_in // Q4_BLOCK).T
-    )
-    return qw, scales
 
 
 def stack_layers(layers: list[Params]) -> Params:
@@ -70,8 +49,8 @@ def _rand_linear(
 ) -> Params:
     w = rng.standard_normal((n, k)).astype(np.float32) * scale  # [N, K] ckpt layout
     if quantized:
-        qw, sc = repack_f32(w)
-        p: Params = {"qw": qw, "scales": sc}
+        qt = repack_f32(w)
+        p: Params = {"qw": qt.qw, "scales": qt.scales}
     else:
         p = {"w": np.ascontiguousarray(w.T)}
     if bias:

@@ -12,8 +12,10 @@ What the JAX module has and this one does not:
 * ``enable_compilation_cache``, JAX's persistent cache of compiled XLA
   programs, has no counterpart: PyTorch runs eagerly, and the CUDA kernels
   are built once per source into ``build/kernels`` (``ops/_build.py``);
-* a ``LoadedModel`` (the GGUF loader) as the model waits for ROADMAP
-  Queue 1, item 12: the model is a ``(WhisperConfig, params)`` tuple;
+* ``bucket_batches=False`` (decoding a batch at its own size) has no
+  caller yet: every batch is bucketed, the JAX default. Each unbucketed
+  size would capture runners of its own, so it waits for a caller that
+  needs it (ROADMAP Queue 1, item 5, serving);
 * a device ``mesh`` (tensor and data parallelism) waits for item 15.
 """
 
@@ -30,6 +32,7 @@ import torch
 from whisper_burn_tpu_torch.audio.io import AudioBuffer
 from whisper_burn_tpu_torch.audio.mel import WHISPER_HOP, MelFrontend, pad_or_trim
 from whisper_burn_tpu_torch.audio.resample import resample_to_16k
+from whisper_burn_tpu_torch.gguf.loader import LoadedModel
 from whisper_burn_tpu_torch.languages import lang_token_id
 from whisper_burn_tpu_torch.models.beam import beam_decode
 from whisper_burn_tpu_torch.models.config import MAX_TOKENS, WhisperConfig
@@ -164,9 +167,10 @@ class WhisperPipeline:
     audio through them: :meth:`transcribe`, :meth:`transcribe_batch`,
     :meth:`transcribe_long`.
 
-    ``model`` is ``(cfg, params)``; the parameters go through
-    :func:`prepare_params` for ``compute`` (``Compute.parity()`` unless
-    given) on ``device``, which is ``cuda`` unless the caller passes
+    ``model`` is a :class:`LoadedModel` (``gguf.cache.load_whisper``) or
+    ``(cfg, params)``, the leaves numpy arrays or tensors; the parameters
+    go through :func:`prepare_params` for ``compute`` (``Compute.parity()``
+    unless given) on ``device``, which is ``cuda`` unless the caller passes
     another (``resolve_device``: no CUDA device raises). ``frontend``
     "openai" takes the Slaney-normed mel and exact GELU, "reference" the
     unnormalized mel and tanh GELU. ``beam_width > 1`` decodes by beam
@@ -179,7 +183,7 @@ class WhisperPipeline:
 
     def __init__(
         self,
-        model: tuple[WhisperConfig, dict],
+        model: LoadedModel | tuple[WhisperConfig, dict],
         tokenizer: WhisperTokenizer | None = None,
         compute: Compute | None = None,
         frontend: str = "openai",
@@ -192,7 +196,7 @@ class WhisperPipeline:
     ):
         if mesh is not None:
             raise NotImplementedError("a device mesh is not ported yet: ROADMAP Queue 1, item 15")
-        cfg, params = model
+        cfg, params = (model.config, model.params) if isinstance(model, LoadedModel) else model
         if frontend == "openai":
             cfg = cfg.replace(gelu="erf")
             mel_norm = "slaney"
