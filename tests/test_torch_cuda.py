@@ -966,3 +966,96 @@ def test_gguf_load_moved_to_the_card(gen, tmp_path):
     assert card.keys() == cpu.keys() and "/decoder/blocks/fc1/qw" in card
     for key, x in card.items():
         assert x.is_cuda and x.dtype == cpu[key].dtype and torch.equal(x.cpu(), cpu[key]), key
+
+
+# --------------------------------------------------------------------------
+# serving: the batching transcriber and several threads on one runner, at
+# Large-V3's layout cut to 2 layers, the serving compute, 40 tokens
+
+
+@pytest.fixture(scope="module")
+def lv3_pipeline(lv3_two_layers):
+    import numpy as np
+
+    from whisper_burn_tpu_torch.transcribe import WhisperPipeline
+
+    cfg, raw, _ = lv3_two_layers
+    pipe = WhisperPipeline((cfg, raw), None, compute=_graph_compute("serving"), max_tokens=GRAPH_TOKENS,
+                           device="cuda")
+    rng = np.random.default_rng(7)
+    audios = [(0.1 * rng.standard_normal(int(s * 16000))).astype(np.float32) for s in (30, 12, 5, 21, 1, 30, 9, 17)]
+    return pipe, audios
+
+
+def test_batching_transcriber_equals_transcribe_batch(lv3_pipeline):
+    """Four requests in order from one thread (the transcriber's worker
+    captures the runner's graph), then three (padded with a 1 s silence in
+    "en"): per request, the tokens and language token of
+    ``transcribe_batch`` on the same fixed batch, bit for bit."""
+    import numpy as np
+
+    from whisper_burn_tpu_torch.models import whisper as w
+    from whisper_burn_tpu_torch.serving import BatchingTranscriber
+
+    pipe, audios = lv3_pipeline
+    w.clear_runners()
+    langs = ["en", "auto", "de", "auto"]
+    server = BatchingTranscriber(pipe, batch_size=4, max_wait_ms=2000)
+    try:
+        first = [r.wait(timeout=600) for r in [server.submit(a, l) for a, l in zip(audios[:4], langs)]]
+        second = [r.wait(timeout=600) for r in [server.submit(a, l) for a, l in zip(audios[4:7], langs)]]
+    finally:
+        final = server.shutdown()
+    assert (final["completed"], final["batches"]) == (7, 2)
+    silence = np.zeros(16000, np.float32)
+    for got, batch, blangs in ((first, audios[:4], langs), (second, audios[4:7] + [silence], langs[:3] + ["en"])):
+        want = pipe.transcribe_batch(batch, blangs)
+        for o, r in zip(got, want):
+            np.testing.assert_array_equal(o.tokens, r.tokens)
+            assert o.lang_token == r.lang_token
+    assert len(w.cached_runners()) == 1
+    w.clear_runners()
+
+
+@pytest.mark.parametrize("cold", [False, True], ids=["captured", "cold"])
+def test_threads_on_one_runner_equal_sequential(lv3_pipeline, cold):
+    """Four threads, each transcribing its own batch of two utterances
+    twice through one runner: each batch's sequential tokens. The runner
+    is the one the sequential run captured, or (``cold``) a new one, which
+    one thread captures while the others copy their audio to the card and
+    compute its mel."""
+    import threading
+
+    import numpy as np
+
+    from whisper_burn_tpu_torch.models import whisper as w
+
+    pipe, audios = lv3_pipeline
+    w.clear_runners()
+    batches = [(audios[2 * t: 2 * t + 2], ["en", "auto"]) for t in range(4)]
+    want = [pipe.transcribe_batch(a, l) for a, l in batches]
+    if cold:
+        w.clear_runners()
+    got, errors = {}, []
+
+    def client(t):
+        try:
+            got[t] = [pipe.transcribe_batch(*batches[t]) for _ in range(2)]
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    if errors:
+        raise errors[0]
+    assert not any(th.is_alive() for th in threads) and len(got) == 4
+    for t in range(4):
+        for results in got[t]:
+            for o, r in zip(results, want[t]):
+                np.testing.assert_array_equal(o.tokens, r.tokens)
+                assert o.lang_token == r.lang_token
+    assert len(w.cached_runners()) == 1
+    w.clear_runners()

@@ -1,0 +1,99 @@
+"""Manifest evaluation runner with per-utterance checkpoint/resume.
+
+Port of ``whisper_burn_tpu/eval/runner.py``. Manifest = JSONL, one
+``{"id": ..., "audio": "/path.wav", "text": "ref"}`` per line. Results
+stream to ``<manifest>.results.jsonl`` as they complete, and a re-run
+resumes from the finished ids.
+
+The JAX runner feeds each batch through its C++ host library
+(``native_host.load_batch``) when that library loads, with the per-file
+path as its fallback and oracle; this runner takes the per-file path
+(``audio.io.load_wav``) only. The native feeder is still to port
+(ROADMAP).
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Iterator
+
+from whisper_burn_tpu_torch.audio.io import load_wav
+from whisper_burn_tpu_torch.eval.wer import wer
+
+
+@dataclass
+class EvalSummary:
+    n_utterances: int
+    wer: float
+    audio_seconds: float
+    inference_seconds: float
+
+    @property
+    def rtf(self) -> float:
+        """Real-time factor: audio seconds processed per wall second."""
+        return self.audio_seconds / max(self.inference_seconds, 1e-9)
+
+
+def read_manifest(path: str | Path) -> Iterator[dict]:
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                yield json.loads(line)
+
+
+def evaluate_manifest(
+    pipeline,
+    manifest_path: str | Path,
+    *,
+    results_path: str | Path | None = None,
+    batch_size: int = 8,
+    language: str | None = "en",
+    resume: bool = True,
+) -> EvalSummary:
+    """Transcribe a manifest in fixed-size batches and report corpus WER.
+
+    ``pipeline``: a :class:`whisper_burn_tpu_torch.transcribe.WhisperPipeline`.
+    """
+    manifest = list(read_manifest(manifest_path))
+    if results_path is None:
+        results_path = str(manifest_path) + ".results.jsonl"
+    results_path = Path(results_path)
+
+    done: dict[str, dict] = {}
+    if resume and results_path.exists():
+        for row in read_manifest(results_path):
+            done[str(row["id"])] = row
+
+    todo = [row for row in manifest if str(row["id"]) not in done]
+
+    with results_path.open("a") as out:
+        for start in range(0, len(todo), batch_size):
+            chunk = todo[start : start + batch_size]
+            audios = [load_wav(row["audio"]) for row in chunk]
+            results = pipeline.transcribe_batch(audios, [language] * len(chunk))
+            for row, audio, res in zip(chunk, audios, results):
+                rec = {
+                    "id": str(row["id"]),
+                    "text": res.text,
+                    "ref": row.get("text", ""),
+                    "audio_s": audio.duration_s,
+                    # TranscribeResult.inference_ms is already amortized
+                    # over the real batch size (transcribe.py)
+                    "inference_ms": res.inference_ms,
+                }
+                done[rec["id"]] = rec
+                out.write(json.dumps(rec) + "\n")
+            out.flush()  # checkpoint: a killed run resumes from here
+
+    rows = [done[str(row["id"])] for row in manifest if str(row["id"]) in done]
+    refs = [r["ref"] for r in rows]
+    hyps = [r["text"] for r in rows]
+    return EvalSummary(
+        n_utterances=len(rows),
+        wer=wer(refs, hyps, language=language) if rows else 0.0,
+        audio_seconds=sum(r["audio_s"] for r in rows),
+        inference_seconds=sum(r["inference_ms"] for r in rows) / 1000.0,
+    )

@@ -350,12 +350,13 @@ def beam_decode(
     check_positions(self_cache_len(cfg, max_tokens), max_tokens)
     runner = beam_runner(params, cfg, compute, mel.shape[0], beam_width, max_tokens, length_penalty, early_stopping,
                          mel.device)
-    state = runner.state
-    lang_tokens = start_beam_request(params, cfg, mel, lang_tokens, compute, state, detect=detect, task=task)
-    with record_function("beam_decode.decode"):
-        for k in range(1, max_tokens):
-            if k % DONE_CHECK_EVERY == 0 and bool(state.done.all()):
-                break
-            runner.step(k)
-        tokens, n_gen, scores = select_best(state, length_penalty)
+    with runner.lock:  # the runner's state serves one request at a time
+        state = runner.state
+        lang_tokens = start_beam_request(params, cfg, mel, lang_tokens, compute, state, detect=detect, task=task)
+        with record_function("beam_decode.decode"):
+            for k in range(1, max_tokens):
+                if k % DONE_CHECK_EVERY == 0 and bool(state.done.all()):
+                    break
+                runner.step(k)
+            tokens, n_gen, scores = select_best(state, length_penalty)
     return BeamResult(tokens, n_gen, scores, lang_tokens)

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 import time
 from typing import NamedTuple
 
@@ -201,10 +202,12 @@ def capture_graph(fn, stream: torch.cuda.Stream):
     pool that each replay rewrites) and the hand-written kernels' launches
     it recorded (``_build.LaunchTally``, counted at each replay). Raises if
     ``fn`` does what a capture cannot hold, such as reading a device value
-    on the host."""
+    on the host. The capture binds this thread only ("thread_local"), so
+    other threads' device work (a request's copy to the card and its mel,
+    results read back) goes on while it lasts and does not void it."""
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.stream(stream), _build.recording_launches() as recorded:
-        graph.capture_begin()
+        graph.capture_begin(capture_error_mode="thread_local")
         try:
             out = fn()
         except BaseException:
@@ -233,6 +236,9 @@ class GraphRunner:
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         self.graphs = []
         self.capture_s = None
+        # one request at a time: held from the request's start until its
+        # results are copied out of the runner's buffers
+        self.lock = threading.Lock()
 
     def _body(self, variant: int):
         raise NotImplementedError
@@ -288,19 +294,22 @@ class GreedyRunner(GraphRunner):
 
 
 _RUNNERS: collections.OrderedDict = collections.OrderedDict()
+_RUNNERS_LOCK = threading.Lock()
 
 
 def cached_runner(key: tuple, make) -> GraphRunner:
     """The cached runner of ``key``, made by ``make()`` on first use; at
     most ``RUNNERS_KEPT`` runners are kept, greedy and beam together, the
-    least recently used dropped first."""
-    runner = _RUNNERS.pop(key, None)
-    if runner is None:
-        runner = make()
-    _RUNNERS[key] = runner
-    while len(_RUNNERS) > RUNNERS_KEPT:
-        _RUNNERS.popitem(last=False)
-    return runner
+    least recently used dropped first. Safe from several threads: a runner
+    dropped while a thread still holds it finishes that thread's request."""
+    with _RUNNERS_LOCK:
+        runner = _RUNNERS.pop(key, None)
+        if runner is None:
+            runner = make()
+        _RUNNERS[key] = runner
+        while len(_RUNNERS) > RUNNERS_KEPT:
+            _RUNNERS.popitem(last=False)
+        return runner
 
 
 def greedy_runner(params: dict, cfg: WhisperConfig, compute: Compute, batch: int, max_tokens: int,
@@ -317,12 +326,14 @@ def greedy_runner(params: dict, cfg: WhisperConfig, compute: Compute, batch: int
 
 
 def cached_runners() -> list[GraphRunner]:
-    return list(_RUNNERS.values())
+    with _RUNNERS_LOCK:
+        return list(_RUNNERS.values())
 
 
 def clear_runners() -> None:
     """Drop every cached runner, its caches and graphs."""
-    _RUNNERS.clear()
+    with _RUNNERS_LOCK:
+        _RUNNERS.clear()
 
 
 def check_positions(ctx: int, max_tokens: int) -> None:
@@ -352,13 +363,14 @@ def greedy_decode(
     """
     check_positions(self_cache_len(cfg, max_tokens), max_tokens)
     runner = greedy_runner(params, cfg, compute, mel.shape[0], max_tokens, mel.device)
-    state = runner.state
-    lang_tokens = start_request(params, cfg, mel, lang_tokens, compute, state, detect=detect, task=task)
-    with record_function("greedy_decode.decode"):
-        for k in range(1, max_tokens):
-            if k % DONE_CHECK_EVERY == 0 and bool(state.done.all()):
-                break
-            runner.step()
-        tokens = state.tokens.clone()  # the runner's buffer serves the next request
-        n_gen = (tokens != EOT).sum(dim=-1).to(torch.int32)
+    with runner.lock:  # the runner's state serves one request at a time
+        state = runner.state
+        lang_tokens = start_request(params, cfg, mel, lang_tokens, compute, state, detect=detect, task=task)
+        with record_function("greedy_decode.decode"):
+            for k in range(1, max_tokens):
+                if k % DONE_CHECK_EVERY == 0 and bool(state.done.all()):
+                    break
+                runner.step()
+            tokens = state.tokens.clone()  # the runner's buffer serves the next request
+            n_gen = (tokens != EOT).sum(dim=-1).to(torch.int32)
     return GreedyResult(tokens, n_gen, lang_tokens)

@@ -26,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -43,38 +44,43 @@ LAUNCHES: collections.Counter = collections.Counter()
 # the same launches keyed by (kernel, shape), so a run can attribute them
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
 LAUNCH_LOG: list | None = None
-_RECORDING: list | None = None  # a capture's launches, in order
+# a capture's launches, in order, per thread: a capture records only the
+# launches of the thread that captures, the other threads' are counted
+_RECORDING = threading.local()
+_COUNT_LOCK = threading.Lock()  # several threads may launch at once
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    LAUNCHES.clear()
-    LAUNCH_SHAPES.clear()
+    with _COUNT_LOCK:
+        LAUNCHES.clear()
+        LAUNCH_SHAPES.clear()
 
 
 def count_launch(name: str, shape: tuple) -> None:
-    if _RECORDING is not None:
-        _RECORDING.append((name, shape))
+    recording = getattr(_RECORDING, "launches", None)
+    if recording is not None:
+        recording.append((name, shape))
         return
-    LAUNCHES[name] += 1
-    LAUNCH_SHAPES[(name, shape)] += 1
-    if LAUNCH_LOG is not None:
-        LAUNCH_LOG.append((name, shape))
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        LAUNCH_SHAPES[(name, shape)] += 1
+        if LAUNCH_LOG is not None:
+            LAUNCH_LOG.append((name, shape))
 
 
 @contextlib.contextmanager
 def recording_launches():
-    """While a CUDA graph captures: yields the list that the wrappers'
-    launches are recorded into, ``(name, shape)`` in order, in place of
-    counting them (a capture runs nothing)."""
-    global _RECORDING
-    if _RECORDING is not None:
+    """While a CUDA graph captures on this thread: yields the list that
+    this thread's launches are recorded into, ``(name, shape)`` in order,
+    in place of counting them (a capture runs nothing)."""
+    if getattr(_RECORDING, "launches", None) is not None:
         raise RuntimeError("launches are already being recorded")
-    _RECORDING = []
+    _RECORDING.launches = []
     try:
-        yield _RECORDING
+        yield _RECORDING.launches
     finally:
-        _RECORDING = None
+        _RECORDING.launches = None
 
 
 class LaunchTally:
@@ -89,10 +95,11 @@ class LaunchTally:
 
 def add_launches(tally: LaunchTally) -> None:
     """Count one replay of a captured graph: every launch it recorded."""
-    LAUNCHES.update(tally.names)
-    LAUNCH_SHAPES.update(tally.shapes)
-    if LAUNCH_LOG is not None:
-        LAUNCH_LOG.extend(tally.log)
+    with _COUNT_LOCK:
+        LAUNCHES.update(tally.names)
+        LAUNCH_SHAPES.update(tally.shapes)
+        if LAUNCH_LOG is not None:
+            LAUNCH_LOG.extend(tally.log)
 
 
 def _nvcc() -> str:

@@ -12,10 +12,10 @@ What the JAX module has and this one does not:
 * ``enable_compilation_cache``, JAX's persistent cache of compiled XLA
   programs, has no counterpart: PyTorch runs eagerly, and the CUDA kernels
   are built once per source into ``build/kernels`` (``ops/_build.py``);
-* ``bucket_batches=False`` (decoding a batch at its own size) has no
-  caller yet: every batch is bucketed, the JAX default. Each unbucketed
-  size would capture runners of its own, so it waits for a caller that
-  needs it (ROADMAP Queue 1, item 5, serving);
+* ``bucket_batches=False`` (decoding a batch at its own size) is not
+  ported: every batch is bucketed, the JAX default, and serving pads its
+  batches to one size itself (``serving.BatchingTranscriber``). Each
+  unbucketed size would capture runners of its own;
 * a device ``mesh`` (tensor and data parallelism) waits for item 15.
 """
 

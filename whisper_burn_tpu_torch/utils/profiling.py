@@ -6,18 +6,20 @@ Copy of ``whisper_burn_tpu/utils/profiling.py`` for PyTorch:
   standard ``logging`` module; with ``sync=True`` on a CUDA device a stage
   ends with ``torch.cuda.synchronize()``, so its time covers the device
   work it queued;
-* :class:`ThroughputMeter` — audio-seconds/s and token/s counters.
-
-The JAX module's ``trace`` (an XPlane trace around a block) waits for
-ROADMAP Queue 1, item 13; ``torch.profiler`` is its counterpart.
+* :class:`ThroughputMeter` — audio-seconds/s and token/s counters;
+* :func:`trace` — ``torch.profiler`` around a block, written as a Chrome
+  trace (viewable in Perfetto or ``chrome://tracing``), the counterpart of
+  the JAX module's XPlane trace.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import torch
 
@@ -86,3 +88,25 @@ class ThroughputMeter:
     @property
     def tokens_per_s(self) -> float:
         return self.tokens / max(self.wall_seconds, 1e-9)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | Path):
+    """Profile everything inside the block with ``torch.profiler`` (host
+    ranges, and the device's kernels, copies and fills by name where a
+    CUDA device is present) and write it on exit as a Chrome trace,
+    ``<log_dir>/trace-<pid>-<n>.json``. Yields the path it will write."""
+    from torch.profiler import ProfilerActivity, profile
+
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    n = sum(1 for _ in log_dir.glob(f"trace-{os.getpid()}-*.json"))
+    path = log_dir / f"trace-{os.getpid()}-{n}.json"
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield path
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()  # the block's device work ends inside the trace
+    prof.export_chrome_trace(str(path))
