@@ -146,7 +146,20 @@ Phases, each timed and each fatal on failure:
    int4 and mixed self caches), ``Compute.parity()`` and
    ``Compute.fastest()``: the same greedy and beam tokens, and the same
    teacher-forced logits (ungrouped and grouped), through the kernels as
-   through the plain versions.
+   through the plain versions;
+6. accuracy (``eval/quant_accuracy.py``): Large-V3 at full width and
+   depth, seeds 0-3, the iid and the structured Q4 fixture drawn on the
+   card (``device_random_params``); for each, ``Compute.parity()`` (TF32
+   off) gives the greedy trajectory of B = 4 streams, 64 tokens, and its
+   teacher-forced logits; q4_bf16, q4_int8kv, q4_int4kv, q4_int4kv_q8log
+   and q4_w8a8 on both fixtures and q4_int4selfkv on the iid one are
+   teacher-forced along it (a CUDA graph of one step, replayed). The
+   four-seed mean agreement must meet ``FLOORS`` (drift over the
+   reference's spread at most ``NORM_DRIFT_MAX``), ``OPT_FLOORS`` and
+   ``STRUCT_FLOORS``; q4_int4kv_q8log's replayed logits must equal the
+   eager step's bit for bit; the launches must equal the shapes'
+   prediction (``{"phase": "accuracy", ...}``: each row's mean, min,
+   drifts and floor), then the device memory.
 
 It prints ``{"kernels": [...]}`` and the card line before its last line,
 and last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the
@@ -1397,8 +1410,11 @@ def loader_phase(tmp: Path, cfg):
     Holds the config inferred from the checkpoint to ``cfg``
     field for field, the warm and the parsed params to the cold ones array
     for array, and one repacked layer's codes times scales to the
-    dequantized raw blocks exactly. Logs the sizes and walls; returns the
-    warm model."""
+    dequantized raw blocks exactly. The C++ host library that repacks is
+    built (or found built) before the cold load, its seconds logged on
+    their own, so that no compiler time enters a load's. Logs the sizes
+    and walls; returns the warm model."""
+    from whisper_burn_tpu_torch import native_host
     from whisper_burn_tpu_torch.gguf import GgufReader
     from whisper_burn_tpu_torch.gguf.cache import CACHE_VERSION, load_whisper, save_repacked
     from whisper_burn_tpu_torch.gguf.loader import infer_config, load_whisper_from_gguf
@@ -1408,6 +1424,10 @@ def loader_phase(tmp: Path, cfg):
     t0 = time.perf_counter()
     raw_fc1 = write_turbo_gguf(gguf, cfg, SEED + 30)
     write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if native_host.enabled():
+        native_host.library()
+    native_build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     cold = load_whisper(gguf, cache_dir=tmp)
     cold_s = time.perf_counter() - t0
@@ -1449,7 +1469,7 @@ def loader_phase(tmp: Path, cfg):
     q4 = sum(a.size for key, a in ref.items() if key[-1] == "qw")
     log({"phase": "loader", "model": "large_v3_turbo", "gguf_bytes": stat.st_size, "npz_bytes": npz.stat().st_size,
          "q4_weights": q4, "tensors": len(GgufReader.open(gguf).tensors), "write_s": write_s,
-         "cold_load_s": cold_s, "parse_and_repack_s": parse_s, "cache_save_s": save_s,
+         "native_build_s": native_build_s, "cold_load_s": cold_s, "parse_and_repack_s": parse_s, "cache_save_s": save_s,
          "warm_load_s": warm_s, "config": dataclasses.asdict(cold.config)})
     return warm
 
@@ -1737,6 +1757,101 @@ def serving_phase(tmp: Path, params, cfg, captured: weakref.WeakSet) -> None:
     t0 = time.perf_counter()
     cli = serving_cli(tmp, gguf, cfg, rng)
     log({"phase": "serving_cli", "seconds": time.perf_counter() - t0, **cli})
+
+
+# --------------------------------------------------------------------------
+# phase 6: the accuracy tooling at Large-V3 width and depth
+
+ACC_SEEDS = (0, 1, 2, 3)  # the accuracy phase's seeds, fixed before its first run
+ACC_BATCH, ACC_STEPS = 4, 64
+ACC_SHARED = ("q4_bf16", "q4_int8kv", "q4_int4kv", "q4_int4kv_q8log", "q4_w8a8")  # on both fixtures
+ACC_IID_ONLY = ("q4_int4selfkv",)
+ACC_EXACT = "q4_int4kv_q8log"  # its replayed forced logits are held to the eager step's
+
+
+def accuracy_phase(cfg) -> dict:
+    """The accuracy tooling (``eval/quant_accuracy.py``) at Large-V3 width
+    and depth on the card: for each seed of ACC_SEEDS, the iid and the
+    structured Q4 fixtures drawn on the device (``device_random_params``),
+    the reference ``Compute.parity()`` (TF32 off) through the greedy
+    runner, 64 steps of B = 4, then its teacher-forced logits, and each
+    serving variant teacher-forced along that trajectory (replayed CUDA
+    graphs of one step). The four-seed means must meet FLOORS (with
+    NORM_DRIFT_MAX), OPT_FLOORS and STRUCT_FLOORS; one variant's replayed
+    logits must equal the eager step's bit for bit; the launches must
+    equal the shapes' prediction (kernels A, I, B, B', C, C', G, D, F)."""
+    from whisper_burn_tpu_torch.eval import quant_accuracy as qa
+    from whisper_burn_tpu_torch.models.config import EOT
+    from whisper_burn_tpu_torch.models.params import device_random_params
+    from whisper_burn_tpu_torch.models.whisper import DONE_CHECK_EVERY, clear_runners
+    from whisper_burn_tpu_torch.ops import _build
+    from whisper_burn_tpu_torch.ops.compute import Compute
+    from whisper_burn_tpu_torch.transcribe import prepare_params
+
+    parity = Compute.parity()
+    rows = collections.defaultdict(list)
+    want = collections.Counter()
+    exact = None
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for seed in ACC_SEEDS:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(1000 + seed)
+        mel = torch.randn((ACC_BATCH, cfg.n_mels, 2 * cfg.n_audio_ctx), generator=g, device="cuda")
+        langs = torch.randint(cfg.lang_token_start, cfg.lang_token_end, (ACC_BATCH,), generator=g, device="cuda",
+                              dtype=torch.int32)
+        for structured in (False, True):
+            q4 = device_random_params(cfg, seed, quantized=True, structured=structured, device="cuda")
+            ref_tokens, ref_lg, valid = qa.reference_run(prepare_params(q4, parity), cfg, mel, langs, parity,
+                                                         ACC_STEPS)
+            want.update(predicted_launches(cfg, parity, ACC_BATCH, expected_steps(
+                ref_tokens, ACC_STEPS, DONE_CHECK_EVERY, EOT), beam=False))  # the greedy reference
+            want.update(predicted_launches(cfg, parity, ACC_BATCH, ACC_STEPS - 1, beam=False))  # its forced run
+            for name in ACC_SHARED + (() if structured else ACC_IID_ONLY):
+                comp = qa.VARIANTS[name]
+                params = prepare_params(q4, comp)
+                row = qa.compare_variant(ref_lg, valid, params, cfg, mel, langs, ref_tokens, comp, ACC_STEPS)
+                rows[name + ("_struct" if structured else "")].append(dict(seed=seed, **row))
+                want.update(predicted_launches(cfg, comp, ACC_BATCH, ACC_STEPS - 1, beam=False))
+                if exact is None and name == ACC_EXACT:
+                    t0 = time.perf_counter()
+                    replayed = qa.forced_logits(params, cfg, mel, langs, ref_tokens, comp, ACC_STEPS)
+                    eager = qa.forced_logits(params, cfg, mel, langs, ref_tokens, comp, ACC_STEPS, graph=False)
+                    for _ in range(2):
+                        want.update(predicted_launches(cfg, comp, ACC_BATCH, ACC_STEPS - 1, beam=False))
+                    exact = {"variant": name, "seed": seed, "equal": bool(torch.equal(replayed, eager)),
+                             "max_abs_diff": float((replayed - eager).abs().nan_to_num().max()),
+                             "seconds": time.perf_counter() - t0}
+                    if not exact["equal"]:
+                        raise AssertionError(f"accuracy: replayed forced logits differ from the eager step's: {exact}")
+                    del replayed, eager
+                del params
+            del q4, ref_lg
+            clear_runners()  # the reference's greedy runner holds its params
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = dict(want)
+    summary, missed = {}, []
+    floors = {**qa.FLOORS, **qa.OPT_FLOORS, **qa.STRUCT_FLOORS}
+    for name, per_seed in rows.items():
+        agree = [r["token_agreement"] for r in per_seed]
+        summary[name] = {"mean": float(np.mean(agree)), "min": float(np.min(agree)), "per_seed": agree,
+                         "max_logit_drift": max(r["max_logit_drift"] for r in per_seed),
+                         "norm_drift_max": max(r["norm_drift"] for r in per_seed), "floor": floors.get(name)}
+        if name in floors and summary[name]["mean"] < floors[name]:
+            missed.append(f"{name}: mean {summary[name]['mean']:.4f} below {floors[name]}")
+        if name in qa.FLOORS and summary[name]["norm_drift_max"] > qa.NORM_DRIFT_MAX:
+            missed.append(f"{name}: norm drift {summary[name]['norm_drift_max']:.3f} above {qa.NORM_DRIFT_MAX}")
+    line = {"seeds": list(ACC_SEEDS), "batch": ACC_BATCH, "steps": ACC_STEPS, "fixtures": "device (iid, structured)",
+            "rows": summary, "replay_equals_eager": exact, "launches": launches, "expected_launches": want}
+    if missed:
+        raise AssertionError(f"accuracy: floors missed: {missed}; {line}")
+    if launches != want:
+        raise AssertionError(f"accuracy: launches {launches} differ from the shapes' prediction {want}")
+    if missing := set(floors) - set(summary):
+        raise AssertionError(f"accuracy: no rows for {sorted(missing)}")
+    return line
 
 
 # --------------------------------------------------------------------------
@@ -2735,6 +2850,14 @@ def main() -> int:
         small = small_end_to_end(compute)
         phases[f"small_e2e_{label}_s"] = time.perf_counter() - t0
         log({"phase": f"small_end_to_end_{label}", "seconds": phases[f"small_e2e_{label}_s"], **small})
+    # the accuracy tooling: every serving variant teacher-forced against
+    # the f32 reference at Large-V3 width and depth, held to the floors
+    t0 = time.perf_counter()
+    acc = accuracy_phase(cfg)
+    phases["accuracy_s"] = time.perf_counter() - t0
+    log({"phase": "accuracy", "seconds": phases["accuracy_s"], **acc})
+    log({"phase": "device_memory", "after": "accuracy", "runners": len(cached_runners()),
+         "allocated_bytes": torch.cuda.memory_allocated(), "max_memory_allocated": torch.cuda.max_memory_allocated()})
     phases["total_s"] = time.perf_counter() - t_all
     log({"phases": phases})
 

@@ -1059,3 +1059,92 @@ def test_threads_on_one_runner_equal_sequential(lv3_pipeline, cold):
                 assert o.lang_token == r.lang_token
     assert len(w.cached_runners()) == 1
     w.clear_runners()
+
+
+# --------------------------------------------------------------------------
+# the teacher-forced steps of eval/quant_accuracy.py as a CUDA graph of one
+# step, and the device fixture generator
+
+
+FORCED_VARIANTS = ("q4_bf16", "q4_int8kv", "q4_int4selfkv")
+FORCED_STEPS = 24
+
+
+def _forced_inputs(lv3_two_layers, variant):
+    from whisper_burn_tpu_torch.eval.quant_accuracy import VARIANTS
+    from whisper_burn_tpu_torch.transcribe import prepare_params
+
+    cfg, raw, mels = lv3_two_layers
+    compute = VARIANTS[variant]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    tokens = torch.randint(0, cfg.n_vocab, (GRAPH_B, FORCED_STEPS), generator=g, device="cuda", dtype=torch.int32)
+    lang = torch.full((GRAPH_B,), cfg.lang_token_start, dtype=torch.int32, device="cuda")
+    return cfg, prepare_params(raw, compute), mels[0], lang, tokens, compute
+
+
+@pytest.mark.parametrize("variant", FORCED_VARIANTS)
+def test_forced_replay_equals_eager_body(lv3_two_layers, variant):
+    """The replayed teacher-forced logits equal the eager step's bit for
+    bit, with the eager run's launches, in three serving variants."""
+    from whisper_burn_tpu_torch.eval.quant_accuracy import forced_logits
+
+    cfg, params, mel, lang, tokens, compute = _forced_inputs(lv3_two_layers, variant)
+    _build.reset_launches()
+    eager = forced_logits(params, cfg, mel, lang, tokens, compute, FORCED_STEPS, graph=False)
+    eager_launches = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    replayed = forced_logits(params, cfg, mel, lang, tokens, compute, FORCED_STEPS)
+    assert torch.equal(replayed, eager)
+    assert dict(_build.LAUNCHES) == eager_launches
+    assert torch.isfinite(replayed[..., : cfg.n_vocab]).all()
+
+
+def test_forced_step_capture_raises_on_a_host_read(lv3_two_layers):
+    """A forced step that reads its step counter on the host runs eagerly
+    but cannot be captured: the runner's capture raises."""
+    from whisper_burn_tpu_torch.eval.quant_accuracy import ForcedRunner, forced_step
+    from whisper_burn_tpu_torch.models.whisper import encode_and_fill
+
+    cfg, params, mel, lang, tokens, compute = _forced_inputs(lv3_two_layers, "q4_bf16")
+
+    class HostRead(ForcedRunner):
+        def _body(self, variant):
+            int(self.k)  # a host read of a device value
+            return forced_step(self.params, self.cfg, self.compute, self.cache, self.tokens_t, self.k, self.out)
+
+    cache = encode_and_fill(params, cfg, mel, compute, FORCED_STEPS, "forced_logits")
+    out = torch.zeros((FORCED_STEPS, GRAPH_B, cfg.n_vocab_padded), device="cuda")
+    runner = HostRead(params, cfg, compute, cache, tokens.long().T.contiguous(), out)
+    with pytest.raises(RuntimeError):
+        runner.step()  # the eager step, then the capture
+    torch.cuda.synchronize()
+
+
+def test_device_fixture_generator_quantizes_as_the_cpu(gen):
+    """The device generator's Q4 codes and scales, made on the card, are
+    the CPU quantizer's on the same float weights (``repack_f32`` and the
+    device quantizer's CPU run): the card's float64 division, rounding and
+    f16 scale agree bit for bit. CPU and CUDA generators draw different
+    streams, so the floats are the card's own, moved to the CPU."""
+    import numpy as np
+
+    from whisper_burn_tpu_torch.gguf.repack import repack_f32
+    from whisper_burn_tpu_torch.models.config import WhisperConfig
+    from whisper_burn_tpu_torch.models.params import device_random_params, quantize_linears
+
+    cfg = WhisperConfig.tiny_test().replace(n_audio_state=256, n_text_state=256, n_audio_head=4, n_text_head=4)
+    for structured in (False, True):
+        f32 = device_random_params(cfg, seed=1, quantized=False, structured=structured, device="cuda")
+        q4 = device_random_params(cfg, seed=1, quantized=True, structured=structured, device="cuda")
+        cpu = quantize_linears({side: {"blocks": {k: {n: t.cpu() for n, t in p.items()}
+                                                  for k, p in f32[side]["blocks"].items() if "w" in p}}
+                                for side in ("encoder", "decoder")})
+        for side in ("encoder", "decoder"):
+            for name, p in cpu[side]["blocks"].items():
+                assert torch.equal(q4[side]["blocks"][name]["qw"].cpu(), p["qw"]), (side, name)
+                assert torch.equal(q4[side]["blocks"][name]["scales"].cpu(), p["scales"]), (side, name)
+        w = f32["decoder"]["blocks"]["fc2"]["w"][1].cpu().numpy()
+        ref = repack_f32(np.ascontiguousarray(w.T))
+        np.testing.assert_array_equal(q4["decoder"]["blocks"]["fc2"]["qw"][1].cpu().numpy(), ref.qw)
+        np.testing.assert_array_equal(q4["decoder"]["blocks"]["fc2"]["scales"][1].cpu().numpy(), ref.scales)

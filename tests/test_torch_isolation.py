@@ -45,7 +45,8 @@ def test_package_imports_no_jax():
 
 
 SCRIPT_NAMES = ("request_walls", "cross_attention_times", "self_attention_times", "q4_matmul_times",
-                "encoder_attention_times", "ffn_times", "ffn_phases", "ffn_variants", "cache_slot_times")
+                "encoder_attention_times", "ffn_times", "ffn_phases", "ffn_variants", "cache_slot_times",
+                "accuracy_sweep", "hf_realdims_parity", "native_host_times")
 SCRIPTS = [ROOT / "chip_smoke.py", *(ROOT / "scripts" / f"torch_{n}.py" for n in SCRIPT_NAMES)]
 
 
@@ -61,6 +62,24 @@ def test_sources_import_no_jax(path):
             names = [node.module]
         for name in names:
             assert name.split(".")[0] not in ("jax", "jaxlib", "whisper_burn_tpu"), (path, name)
+
+
+def test_transformers_imported_inside_functions_only():
+    """The card's machine has no ``transformers``: no module of the port
+    imports it at module level (eval/hf_oracle.py imports it inside its
+    functions), so every module imports there."""
+    for path in sorted(PACKAGE.rglob("*.py")):
+        for node in ast.parse(path.read_text()).body:
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            assert all(n.split(".")[0] != "transformers" for n in names), (path, names)
+    oracle = ast.parse((PACKAGE / "eval" / "hf_oracle.py").read_text())
+    inner = [n for f in oracle.body if isinstance(f, ast.FunctionDef) for n in ast.walk(f)
+             if isinstance(n, ast.Import) and any(a.name == "transformers" for a in n.names)]
+    assert inner, "hf_oracle imports transformers in its functions"
 
 
 def test_default_device_is_cuda_and_never_falls_back():

@@ -197,11 +197,14 @@ def test_tokenizer_matches_jax(tokenizer_file):
 
 @pytest.mark.parametrize("rate", [8000, 22050, 44100, 16000])
 def test_resample_to_16k_matches_jax(rate, monkeypatch):
-    """The JAX module's scipy path (its optional C++ resampler, which the
-    port does not copy, designs its filter apart and is turned off here)."""
+    """The scipy paths of both packages: each one's C++ resampler, which
+    designs its filter apart, is turned off here (the port's with
+    ``WHISPER_TPU_NATIVE=0``; tests/test_torch_native_host.py holds the two
+    C++ paths to each other)."""
     import whisper_burn_tpu.native_host as native_host
 
     monkeypatch.setattr(native_host, "resample_poly", lambda samples, up, down: None)
+    monkeypatch.setenv("WHISPER_TPU_NATIVE", "0")
     samples = np.random.default_rng(rate).standard_normal(rate // 2).astype(np.float32) * 0.3
     out = resample_to_16k(AudioBuffer(samples, rate))
     ref = j_resample_to_16k(JAudioBuffer(samples, rate))

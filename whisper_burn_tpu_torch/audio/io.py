@@ -1,7 +1,9 @@
 """WAV file I/O (host-side, stdlib ``wave`` + numpy).
 
 Copy of ``whisper_burn_tpu/audio/io.py`` (the port imports nothing of the
-JAX package), without its optional C++ parser: numpy and ``wave`` only.
+JAX package). Loading goes through the C++ host library's RIFF parser
+(``native_host.load_wav``, the same samples bit for bit on PCM); with
+``WHISPER_TPU_NATIVE=0``, through stdlib ``wave`` and numpy.
 
 Behavioral contract from the reference (src/audio/io.rs):
 
@@ -18,6 +20,8 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
+
+from whisper_burn_tpu_torch import native_host
 
 
 @dataclass
@@ -40,6 +44,9 @@ def load_wav(path: str | Path) -> AudioBuffer:
     (src/audio/io.rs:75-114).
     """
     path = Path(path)
+    if native_host.enabled():
+        samples, rate = native_host.load_wav(path)
+        return AudioBuffer(samples=samples, sample_rate=rate)
     with wave.open(str(path), "rb") as w:
         n_channels = w.getnchannels()
         sampwidth = w.getsampwidth()

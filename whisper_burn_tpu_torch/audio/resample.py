@@ -6,8 +6,9 @@ The reference uses rubato's FFT resampler in 1024-sample chunks
 vectorized pass — resampler choice is not part of the numerical parity
 contract (the parity fixture test.wav is already 16 kHz).
 
-Copy of ``whisper_burn_tpu/audio/resample.py`` without its optional C++
-path: scipy only.
+Copy of ``whisper_burn_tpu/audio/resample.py``: the C++ host library's
+polyphase resampler (``native_host.resample_poly``, scipy's filter design,
+within 2e-3 of scipy), or with ``WHISPER_TPU_NATIVE=0`` scipy's.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import math
 import numpy as np
 from scipy.signal import resample_poly
 
+from whisper_burn_tpu_torch import native_host
 from whisper_burn_tpu_torch.audio.io import AudioBuffer
 
 WHISPER_SAMPLE_RATE = 16_000
@@ -28,6 +30,8 @@ def resample(audio: AudioBuffer, target_rate: int) -> AudioBuffer:
         return audio
     g = math.gcd(audio.sample_rate, target_rate)
     up, down = target_rate // g, audio.sample_rate // g
+    if native_host.enabled():
+        return AudioBuffer(samples=native_host.resample_poly(audio.samples, up, down), sample_rate=target_rate)
     out = resample_poly(audio.samples.astype(np.float64), up, down).astype(np.float32)
     return AudioBuffer(samples=out, sample_rate=target_rate)
 

@@ -5,11 +5,12 @@ Port of ``whisper_burn_tpu/eval/runner.py``. Manifest = JSONL, one
 stream to ``<manifest>.results.jsonl`` as they complete, and a re-run
 resumes from the finished ids.
 
-The JAX runner feeds each batch through its C++ host library
-(``native_host.load_batch``) when that library loads, with the per-file
-path as its fallback and oracle; this runner takes the per-file path
-(``audio.io.load_wav``) only. The native feeder is still to port
-(ROADMAP).
+Each batch is fed through the C++ host library (``native_host.load_batch``):
+its files decoded, resampled to 16 kHz and padded to the pipeline's
+window on their own threads. A file it cannot read fails the run, naming
+the file. With ``WHISPER_TPU_NATIVE=0`` (or a pipeline without
+``chunk_samples``) each file goes through ``audio.io.load_wav`` instead,
+and the pipeline resamples and pads it.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator
 
+from whisper_burn_tpu_torch import native_host
 from whisper_burn_tpu_torch.audio.io import load_wav
 from whisper_burn_tpu_torch.eval.wer import wer
 
@@ -42,6 +44,19 @@ def read_manifest(path: str | Path) -> Iterator[dict]:
             line = line.strip()
             if line:
                 yield json.loads(line)
+
+
+def _feed(paths: list, chunk_samples: int | None) -> tuple[list, list[float]]:
+    """One batch's audio and each file's duration in seconds: the native
+    feeder's padded 16 kHz rows, or each file as loaded."""
+    if chunk_samples and native_host.enabled():
+        batch, statuses, lengths = native_host.load_batch(paths, chunk_samples)
+        for path, status in zip(paths, statuses):
+            if status != 0:
+                raise ValueError(f"{path}: the native batch feeder cannot read it (status {status})")
+        return list(batch), [float(n) / 16000.0 for n in lengths]
+    loaded = [load_wav(p) for p in paths]
+    return loaded, [a.duration_s for a in loaded]
 
 
 def evaluate_manifest(
@@ -72,14 +87,14 @@ def evaluate_manifest(
     with results_path.open("a") as out:
         for start in range(0, len(todo), batch_size):
             chunk = todo[start : start + batch_size]
-            audios = [load_wav(row["audio"]) for row in chunk]
+            audios, durations = _feed([row["audio"] for row in chunk], getattr(pipeline, "chunk_samples", None))
             results = pipeline.transcribe_batch(audios, [language] * len(chunk))
-            for row, audio, res in zip(chunk, audios, results):
+            for row, dur, res in zip(chunk, durations, results):
                 rec = {
                     "id": str(row["id"]),
                     "text": res.text,
                     "ref": row.get("text", ""),
-                    "audio_s": audio.duration_s,
+                    "audio_s": dur,
                     # TranscribeResult.inference_ms is already amortized
                     # over the real batch size (transcribe.py)
                     "inference_ms": res.inference_ms,

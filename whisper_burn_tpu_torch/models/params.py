@@ -27,7 +27,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from whisper_burn_tpu_torch.gguf.repack import repack_f32
+from whisper_burn_tpu_torch.gguf.repack import repack_f32, repack_f32_tensor
 from whisper_burn_tpu_torch.models.config import WhisperConfig
 from whisper_burn_tpu_torch.ops.compute import resolve_device
 
@@ -66,9 +66,9 @@ def _rand_ln(rng: np.random.Generator, d: int) -> Params:
 
 
 def _rand_block(
-    rng: np.random.Generator, d: int, f: int, *, cross: bool, quantized: bool
+    rng: np.random.Generator, d: int, f: int, *, cross: bool, quantized: bool, scale: float = 0.05
 ) -> Params:
-    lin = lambda k, n, bias: _rand_linear(rng, k, n, quantized=quantized, bias=bias)
+    lin = lambda k, n, bias: _rand_linear(rng, k, n, quantized=quantized, bias=bias, scale=scale)
     p = {
         "attn_ln": _rand_ln(rng, d),
         "attn_q": lin(d, d, True),
@@ -134,6 +134,160 @@ def random_params(
         },
     }
     return params_to_torch(np_params, device)
+
+
+def structured_params(
+    cfg: WhisperConfig, seed: int = 0, *, quantized: bool = True, v_eff: int = 64, device=None
+) -> Params:
+    """The accuracy fixture with a peaked logit surface, bit for bit the
+    JAX package's for the same seed and ``quantized`` flag.
+
+    :func:`random_params`' i.i.d. weights at a 51k vocab give a nearly
+    flat logit surface, where argmax agreement under weight quantization
+    is tie-breaking noise. Here the block weights scale as 1/sqrt(depth),
+    so the residual stream stays O(1) as in a trained net, and the first
+    ``v_eff`` embedding rows are anchors at 20x the tail's norm, so the
+    logits are peaked over a small effective vocabulary (kept small: the
+    top-2 margin among n anchor projections shrinks as n grows).
+    ``quantized`` picks the member of a matched f32/Q4 pair: the same
+    stream, so the same float weights."""
+    rng = np.random.default_rng(seed)
+    d, f = cfg.n_audio_state, cfg.ffn_dim
+    depth = max(cfg.n_audio_layer, cfg.n_text_layer)
+    scale = 0.05 / float(np.sqrt(depth))
+    enc_blocks = [
+        _rand_block(rng, d, f, cross=False, quantized=quantized, scale=scale) for _ in range(cfg.n_audio_layer)
+    ]
+    dec_blocks = [
+        _rand_block(rng, d, f, cross=True, quantized=quantized, scale=scale) for _ in range(cfg.n_text_layer)
+    ]
+    v_eff = min(v_eff, cfg.n_vocab)
+    tok_emb = np.zeros((cfg.n_vocab_padded, d), dtype=np.float32)
+    tok_emb[: cfg.n_vocab] = rng.standard_normal((cfg.n_vocab, d)).astype(np.float32) * 0.002
+    tok_emb[:v_eff] *= 20.0  # anchor rows: a clear winner set for the argmax
+    np_params = {
+        "encoder": {
+            "conv1": {
+                "w": rng.standard_normal((d, cfg.n_mels, 3)).astype(np.float32) * 0.05,
+                "b": np.zeros(d, np.float32),
+            },
+            "conv2": {
+                "w": rng.standard_normal((d, d, 3)).astype(np.float32) * 0.02,
+                "b": np.zeros(d, np.float32),
+            },
+            "pos": sinusoidal_positions(cfg.n_audio_ctx, d),
+            "blocks": stack_layers(enc_blocks),
+            "ln_post": _rand_ln(rng, d),
+        },
+        "decoder": {
+            "tok_emb": tok_emb,
+            "pos": rng.standard_normal((cfg.n_text_ctx, d)).astype(np.float32) * 0.01,
+            "blocks": stack_layers(dec_blocks),
+            "ln": _rand_ln(rng, d),
+        },
+    }
+    return params_to_torch(np_params, device)
+
+
+LINEARS = ("attn_q", "attn_k", "attn_v", "attn_o", "fc1", "fc2", "xattn_q", "xattn_k", "xattn_v", "xattn_o")
+
+
+def quantize_linears(params: Params) -> Params:
+    """The Q4 member of a matched pair from its f32 member: every dense
+    block linear ``{"w": [L, K, N]}`` becomes ``{"qw", "scales"}`` through
+    :func:`~whisper_burn_tpu_torch.gguf.repack.repack_f32_tensor` on the
+    weights' device, bit for bit what the numpy fixtures'
+    ``quantized=True`` gives for the same seed. Unfused params only."""
+
+    def blocks(bp: Params) -> Params:
+        out = dict(bp)
+        for name in LINEARS:
+            p = bp.get(name)
+            if p is not None and "w" in p:
+                qw, scales = repack_f32_tensor(p["w"].transpose(-1, -2))
+                out[name] = {"qw": qw, "scales": scales, **({"b": p["b"]} if "b" in p else {})}
+        return out
+
+    return {
+        side: {**params[side], "blocks": blocks(params[side]["blocks"])} for side in ("encoder", "decoder")
+    }
+
+
+def device_random_params(
+    cfg: WhisperConfig, seed: int = 0, *, quantized: bool = True, structured: bool = False, v_eff: int = 64,
+    device=None,
+) -> Params:
+    """:func:`random_params` (or, with ``structured``, :func:`structured_params`)
+    drawn on the device from a seeded ``torch.Generator``: the same
+    distributions, structure and dtypes, and Q4 codes and scales made on
+    the device with ``repack_f32``'s arithmetic (:func:`quantize_linears`).
+    ``quantized`` again picks the member of a matched pair. The stream is
+    PyTorch's, not numpy's, and differs between the CPU and CUDA
+    generators, so a seed here gives other weights than the numpy
+    fixtures' (and ``ACCURACY.json``'s) seed of the same number. At
+    Large-V3 the numpy fixtures take the host minutes; this takes the card
+    seconds."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    d, f = cfg.n_audio_state, cfg.ffn_dim
+    depth = max(cfg.n_audio_layer, cfg.n_text_layer)
+    scale = 0.05 / float(np.sqrt(depth)) if structured else 0.05
+
+    def randn(*shape, std=1.0, mean=0.0):
+        return torch.randn(shape, generator=g, device=dev) * std + mean
+
+    def ln(l):
+        return {"g": randn(l, d, std=0.02, mean=1.0), "b": randn(l, d, std=0.02)}
+
+    def lin(l, k, n, bias):
+        p = {"w": randn(l, k, n, std=scale)}
+        if bias:
+            p["b"] = randn(l, n, std=0.01)
+        return p
+
+    def blocks(l, cross):
+        p = {
+            "attn_ln": ln(l),
+            "attn_q": lin(l, d, d, True),
+            "attn_k": lin(l, d, d, False),
+            "attn_v": lin(l, d, d, True),
+            "attn_o": lin(l, d, d, True),
+            "mlp_ln": ln(l),
+            "fc1": lin(l, d, f, True),
+            "fc2": lin(l, f, d, True),
+        }
+        if cross:
+            p.update(
+                xattn_ln=ln(l),
+                xattn_q=lin(l, d, d, True),
+                xattn_k=lin(l, d, d, False),
+                xattn_v=lin(l, d, d, True),
+                xattn_o=lin(l, d, d, True),
+            )
+        return p
+
+    tok_emb = torch.zeros((cfg.n_vocab_padded, d), device=dev)
+    tok_emb[: cfg.n_vocab] = randn(cfg.n_vocab, d, std=0.002 if structured else 0.02)
+    if structured:
+        tok_emb[: min(v_eff, cfg.n_vocab)] *= 20.0
+    one_ln = lambda: {k: v[0] for k, v in ln(1).items()}
+    params = {
+        "encoder": {
+            "conv1": {"w": randn(d, cfg.n_mels, 3, std=0.05), "b": torch.zeros(d, device=dev)},
+            "conv2": {"w": randn(d, d, 3, std=0.02), "b": torch.zeros(d, device=dev)},
+            "pos": torch.from_numpy(sinusoidal_positions(cfg.n_audio_ctx, d)).to(dev),
+            "blocks": blocks(cfg.n_audio_layer, False),
+            "ln_post": one_ln(),
+        },
+        "decoder": {
+            "tok_emb": tok_emb,
+            "pos": randn(cfg.n_text_ctx, d, std=0.01),
+            "blocks": blocks(cfg.n_text_layer, True),
+            "ln": one_ln(),
+        },
+    }
+    return quantize_linears(params) if quantized else params
 
 
 def _fab_linear(rng: np.random.Generator, k: int, n: int, *, bias: bool) -> Params:

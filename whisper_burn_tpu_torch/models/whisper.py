@@ -135,6 +135,14 @@ def encode_and_fill(
     return cache
 
 
+def prompt_tokens(cfg: WhisperConfig, lang_tokens: torch.Tensor, task: str = "transcribe") -> torch.Tensor:
+    """The prompt ``[SOT, lang, TRANSCRIBE or TRANSLATE, NO_TIMESTAMPS]``
+    per stream, int64 ``[B, 4]`` on the language tokens' device."""
+    task_token = {"transcribe": cfg.transcribe_token, "translate": cfg.translate_token}[task]
+    full = lambda v: torch.full_like(lang_tokens, v)
+    return torch.stack([full(SOT), lang_tokens, full(task_token), full(cfg.no_timestamps_token)], dim=1).long()
+
+
 def prompt_logits(
     params: dict, cfg: WhisperConfig, cache: KVCache, lang_tokens: torch.Tensor, compute: Compute,
     *, detect: bool, task: str,
@@ -142,18 +150,11 @@ def prompt_logits(
     """Prefill the prompt ``[SOT, lang, task, NO_TIMESTAMPS]`` into
     ``cache``; returns sample #0's logits (EOT suppressed) and the
     language tokens (entries ``< 0`` auto-detected with ``detect``)."""
-    b = cache.self_v.shape[1]
-    dev = cache.self_v.device
-    lang_tokens = lang_tokens.to(device=dev, dtype=torch.int32)
+    lang_tokens = lang_tokens.to(device=cache.self_v.device, dtype=torch.int32)
     if detect:
         detected = detect_language(params, cfg, cache, compute)
         lang_tokens = torch.where(lang_tokens < 0, detected, lang_tokens)
-    task_token = {"transcribe": cfg.transcribe_token, "translate": cfg.translate_token}[task]
-    full = lambda v: torch.full((b,), v, dtype=torch.int32, device=dev)
-    prompt = torch.stack(
-        [full(SOT), lang_tokens, full(task_token), full(cfg.no_timestamps_token)], dim=1
-    ).long()
-    logits = prefill(params, cfg, prompt, cache, compute)
+    logits = prefill(params, cfg, prompt_tokens(cfg, lang_tokens, task), cache, compute)
     logits[:, EOT] = float("-inf")  # sample #0: EOT always suppressed
     return logits, lang_tokens
 
