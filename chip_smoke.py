@@ -161,6 +161,28 @@ Phases, each timed and each fatal on failure:
    prediction (``{"phase": "accuracy", ...}``: each row's mean, min,
    drifts and floor), then the device memory.
 
+7. scale-out (``parallel/``), run after phase 3c and before phase 4:
+   ``scaleout_nccl``: this process as a one-rank NCCL group,
+   ``sharded_greedy_decode`` and ``sharded_beam_decode`` (the serving
+   compute, B = 8, 224 tokens) through the runners, bit for bit
+   ``greedy_decode``'s and ``beam_decode``'s, one counted all-reduce, then
+   two processes trying one NCCL communicator on this card (NCCL's answer
+   logged); with two or more cards, one rank a card at tp = 2 through the
+   captured graphs, held to the eager body. ``scaleout_shared``: two
+   processes of this script (``--rank scaleout``) share the card over an
+   explicit gloo group, Large-V3 at full width and depth from seed 0 (the
+   accuracy phase's iid fixture), B = 8 x 30 s, 32 tokens, the loop body
+   driven step by step: meshes (1, 2) and (2, 1) in ``Compute.parity()``
+   (tokens equal to one rank's, or a divergence at a near-tie of the
+   one-rank f32 top-2 gap), (1, 2) 5-beam in ``Compute.parity()`` (each
+   stream equal to one rank's beam, or a near-tie of its score), (1, 2)
+   in the serving compute teacher-forced (agreement at least
+   q4_int8kv's floor) and (1, 2) serving 5-beam; on every
+   rank launches and collectives as the shapes predict and the
+   replication guard at 0. Phase 4 then adds ``tp_kernels``: every kernel
+   at Large-V3's per-rank shapes for tp = 2 (its rows' launches from rank
+   0's (1, 2) runs) and tp = 4 (off every path here, launches 0).
+
 It prints ``{"kernels": [...]}`` and the card line before its last line,
 and last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the
 repository beside it, and exits non-zero without a result otherwise.
@@ -463,7 +485,7 @@ def ffn_rows(cases, gen, path: str) -> list[dict]:
         # the launch this case takes: its regime, grid, block and the cooperative attribute
         log({"phase": "kernel_i_plan", "site": site, "path": path, "rows": m, "d": d, "f": f,
              **ffn_kernel._plan(dev, m, d, f, True)[0]})
-        lyr = lambda p, l: [p[k][l] for k in ("qw", "scales", "b")]
+        lyr = lambda p, l: [p[k][l] if k in p else None for k in ("qw", "scales", "b")]  # a shard's fc2: no "b"
         err_case = 0.0
         for dtype, rel in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
             for g in ("tanh", "erf"):
@@ -483,7 +505,7 @@ def ffn_rows(cases, gen, path: str) -> list[dict]:
         def two_launch():
             l = layer()
             h = q4_kernel.q4_matmul(x, fc1["qw"], fc1["scales"], layer=l, bias=fc1["b"], gelu=kind)
-            return q4_kernel.q4_matmul(h, fc2["qw"], fc2["scales"], layer=l, bias=fc2["b"])
+            return q4_kernel.q4_matmul(h, fc2["qw"], fc2["scales"], layer=l, bias=fc2.get("b"))
 
         w16 = [(dequant_weight(fc1["qw"][l], fc1["scales"][l], torch.bfloat16),
                 dequant_weight(fc2["qw"][l], fc2["scales"][l], torch.bfloat16)) for l in range(n_layers)]
@@ -496,7 +518,7 @@ def ffn_rows(cases, gen, path: str) -> list[dict]:
         two_ms, lib_ms = device_ms(two_launch, 64), device_ms(lib, 64)
         del w16
         # x and the output bf16, codes and scales of both weights, the biases
-        nbytes = 2 * m * d * 2 + 2 * (d * f + (d // 32) * f * 4) + (f + d) * 4
+        nbytes = 2 * m * d * 2 + 2 * (d * f + (d // 32) * f * 4) + (f + (d if "b" in fc2 else 0)) * 4
         b_ms, b_by = bound(nbytes, 4.0 * m * d * f)
         rows.append(dict(
             name=f"fused_ffn/{site}", route="cuda", source="whisper_burn_tpu_torch/csrc/ffn.cu", replaces=replaces,
@@ -561,17 +583,17 @@ def kernel_checks(params, cfg, gen):
     return rows
 
 
-def self_attention_row(cfg, gen, path: str, name: str) -> dict:
-    """Kernel B over the int8 self cache of BATCH streams at ctx 256 (its
-    path's cache), at the mean decode position when all MAX_TOKENS - 1
-    steps run (positions 4 .. 226): against its plain version, the store
-    exact, and its times."""
+def self_attention_row(cfg, gen, path: str, name: str, ctx: int = CTX, steps: int = MAX_TOKENS - 1) -> dict:
+    """Kernel B over the int8 self cache of BATCH streams at ``ctx`` (its
+    path's cache), at the mean decode position when all ``steps`` steps
+    run (positions 4 .. 226 at 224 tokens): against its plain version, the
+    store exact, and its times."""
     from whisper_burn_tpu_torch.ops.decode_attention import decode_self_attention, decode_self_attention_plain
 
     dev = torch.device("cuda")
     L = cfg.n_text_layer
-    d, h, ctx = cfg.n_text_state, cfg.n_text_head, 256
-    pos = round(mean_decode_pos(MAX_TOKENS - 1))
+    d, h = cfg.n_text_state, cfg.n_text_head
+    pos = round(mean_decode_pos(steps))
     kc = torch.randint(-127, 128, (L, BATCH, ctx, d), generator=gen, device=dev, dtype=torch.int8)
     vc = torch.randint(-127, 128, (L, BATCH, ctx, d), generator=gen, device=dev, dtype=torch.int8)
     sc = torch.rand((L, BATCH, ctx, 2), generator=gen, device=dev) * 0.02 + 1e-3
@@ -708,25 +730,26 @@ def beam_kernel_checks(params, cfg, gen):
     return rows
 
 
-def layer_attention_row(cfg, gen, path: str, name: str) -> dict:
+def layer_attention_row(cfg, gen, path: str, name: str, ctx: int = CTX, steps: int = MAX_TOKENS - 1) -> dict:
     """Kernel E over the int8 self cache of the STREAMS beam streams
-    (ctx 256), at the first, mean and last positions of 224 tokens' decode
-    steps, against its plain version, and its times at the mean."""
+    (``ctx``), at the first, mean and last positions of ``steps`` decode
+    steps (224 tokens' by default), against its plain version, and its
+    times at the mean."""
     from whisper_burn_tpu_torch.ops.decode_attention import decode_attention_layer, decode_attention_layer_plain
 
     dev = torch.device("cuda")
     L = cfg.n_text_layer
-    d, h, ctx = cfg.n_text_state, cfg.n_text_head, 256
+    d, h = cfg.n_text_state, cfg.n_text_head
     it = iter(range(1 << 30))
     layer = lambda: next(it) % L  # cycle layers: caches come from HBM, not L2
     kc = torch.randint(-127, 128, (L, STREAMS, ctx, d), generator=gen, device=dev, dtype=torch.int8)
     vc = torch.randint(-127, 128, (L, STREAMS, ctx, d), generator=gen, device=dev, dtype=torch.int8)
     sc = torch.rand((L, STREAMS, ctx, 2), generator=gen, device=dev) * 0.02 + 1e-3
     q = torch.randn((STREAMS, 1, d), generator=gen, device=dev).to(torch.bfloat16)
-    pos = round(mean_decode_pos(MAX_TOKENS - 1))
+    pos = round(mean_decode_pos(steps))
     layer_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for valid in (4, pos, 3 + MAX_TOKENS):
+        for valid in (4, pos, 4 + steps):
             out = decode_attention_layer(q.to(dtype), kc, vc, sc, L - 1, at(valid), h)
             ref = decode_attention_layer_plain(q.to(dtype), kc, vc, sc, L - 1, at(valid), h)
             for part, a, r in zip(("acc", "m", "l"), out, ref):
@@ -831,7 +854,7 @@ def decoder_row_tools(cfg, gen):
     return dev, L, d, h, layer, rand, heads
 
 
-def merged_rows(cfg, gen, cases) -> list[dict]:
+def merged_rows(cfg, gen, cases, suffix: str = "") -> list[dict]:
     """Kernel B' over the bf16 self cache, nothing stored, at each (path,
     streams, ctx, decode steps) of ``cases``: against its plain version at
     the first, mean and last positions of the steps, its times at the mean."""
@@ -864,7 +887,7 @@ def merged_rows(cfg, gen, cases) -> list[dict]:
         vd = [heads(vc[l, :, :p_mean + 1], p_mean + 1) for l in range(L)]
         qh = heads(q, 1)
         rows.append(isolated_row(
-            "decode_attention_merged" + ("/entry" if path == "entry" else ""), path, DA,
+            "decode_attention_merged" + ("/entry" if path == "entry" else "") + suffix, path, DA,
             "whisper_burn_tpu/ops/pallas_attention.py:66 (K2, decode_attention_merged without kq/vq)",
             ["decode_attention_merged", [b, ctx, d]],
             lambda p_t=at(p_mean): decode_attention_merged(q, kc, vc, layer(), p_t, h, kn, vn),
@@ -919,9 +942,9 @@ def unscaled_layer_row(cfg, gen, path: str) -> dict:
     return row
 
 
-def cross_unpacked_rows(cfg, gen, kinds) -> list[dict]:
-    """Kernel C' over the int8 and bf16 cross caches, T = 1536 with 1500
-    valid, at each (kind, [(entries, streams per entry, path)]) of
+def cross_unpacked_rows(cfg, gen, kinds, suffix: str = "") -> list[dict]:
+    """Kernel C' over the int8, bf16 and f32 cross caches, T = 1536 with
+    1500 valid, at each (kind, [(entries, streams per entry, path)]) of
     ``kinds``: against its plain version, and its times."""
     from whisper_burn_tpu_torch.ops.decode_attention import (
         decode_cross_attention, decode_cross_attention_plain, decode_cross_attention_ties,
@@ -936,9 +959,12 @@ def cross_unpacked_rows(cfg, gen, kinds) -> list[dict]:
             kT = torch.randint(-127, 128, (L, BATCH, d, t), generator=gen, device=dev, dtype=torch.int8)
             v = torch.randint(-127, 128, (L, BATCH, t, d), generator=gen, device=dev, dtype=torch.int8)
             qscale, item = 0.003, 1
-        else:
+        elif kind == "bf16":
             kT, v = rand(L, BATCH, d, t), rand(L, BATCH, t, d)
             qscale, item = 0.3, 2
+        else:  # f32, Compute.parity()'s cache
+            kT, v = rand(L, BATCH, d, t).float(), rand(L, BATCH, t, d).float()
+            qscale, item = 0.3, 4
         kd = [heads(kT[l, :, :, :valid].transpose(1, 2).to(bf), valid).contiguous() for l in range(L)]
         vd = [heads(v[l, :, :valid].to(bf), valid).contiguous() for l in range(L)]
         for b, g, path in cases:
@@ -946,19 +972,22 @@ def cross_unpacked_rows(cfg, gen, kinds) -> list[dict]:
             qx = rand(b * g, 1, d, scale=qscale)
             err = 0.0
             for dtype in (bf, torch.float32):
-                if kind == "bf16" and dtype == torch.float32:
+                if kind != "int8" and dtype != {"bf16": bf, "f32": torch.float32}[kind]:
                     continue  # a float cache takes a query of its dtype
                 args = (qx.to(dtype), kTb, vb, L - 1, valid, h, g)
                 out = decode_cross_attention(*args)
                 e = check_cross(f"decode_cross_attention {kind} B={b} G={g} {dtype}", out,
                                 decode_cross_attention_plain(*args), decode_cross_attention_ties(*args))
-                err = max(err, e) if dtype == bf else err
-            qh = qx.reshape(b, g, h, 64).transpose(1, 2)  # an utterance's streams as its queries
+                err = max(err, e) if dtype == bf or kind == "f32" else err
+            if kind == "f32":
+                qx = qx.float()  # the f32 cache's query, timed as its path runs it
+            qh = qx.to(bf).reshape(b, g, h, 64).transpose(1, 2)  # an utterance's streams as its queries
             # each entry's keys up to `valid` and its values read once; q bf16
             # in and f32 out per stream
-            nbytes = b * 2 * valid * d * item + b * g * (d * 2 + d * 4)
+            nbytes = b * 2 * valid * d * item + b * g * (d * qx.element_size() + d * 4)
             rows.append(isolated_row(
-                f"decode_cross_attention_unpacked/{kind}" + ("/grouped" if g > 1 else "") + ("/entry" if path == "entry" else ""),
+                f"decode_cross_attention_unpacked/{kind}" + ("/grouped" if g > 1 else "") + ("/entry" if path == "entry" else "")
+                + suffix,
                 path, DA,
                 f"whisper_burn_tpu/ops/pallas_attention.py:636 (K3, {kind} branch" + (", batch_groups)" if g > 1 else ")"),
                 ["decode_cross_attention_unpacked", [b * g, t, d, g, item]],
@@ -985,7 +1014,7 @@ def int4_attention_bound(pos: float, d: int, b: int, sw: int, key_bytes: float, 
     return bound(b * (d * 2 + cached + io), 4.0 * b * (pos + merged) * d)
 
 
-def int4_self_row(cfg, gen, mode: str, merged: bool, b: int, path: str) -> dict:
+def int4_self_row(cfg, gen, mode: str, merged: bool, b: int, path: str, suffix: str = "") -> dict:
     """Kernel G (``merged``) or H over ``b`` streams' int4 (``mode``
     "int4self") or mixed self cache at ctx CTX, against its plain version
     at positions 4, 115 and 227 in bf16 and f32, and its times at 115."""
@@ -1046,7 +1075,7 @@ def int4_self_row(cfg, gen, mode: str, merged: bool, b: int, path: str) -> dict:
     replaces += ", voff=1 :337-338)" if mode == "mixed" else ")"
     b_of = lambda p: int4_attention_bound(p, d, b, sw, key_bytes, merged, h)
     return isolated_row(
-        f"{fn}/{mode}" + (f"/pipeline/B={b}" if path == "pipeline" else ""), path, DA, replaces,
+        f"{fn}/{mode}" + (f"/pipeline/B={b}" if path == "pipeline" else "") + suffix, path, DA, replaces,
         [fn, [b, CTX, d, sw]], kern, plain,
         lambda: torch.nn.functional.scaled_dot_product_attention(qh, kd[(l := layer())], vd[l]),
         err, b_of(pos), "scaled_dot_product_attention on the dequantized bf16 cache rows",
@@ -1080,7 +1109,7 @@ def self_form(compute) -> str:
 
 
 def f_row(cfg, gen, compute, path: str, streams: int, ctx: int, beam: bool, steps: int,
-          suffix: str | None = None) -> tuple[dict, dict | None]:
+          suffix: str | None = None, positions: bool = True) -> tuple[dict, dict | None]:
     """Kernel F at one path's shape: the slot form (greedy paths: K, V and
     the scale row of ``streams`` streams in one launch) or the beam form
     (``streams`` = B x BEAM_WIDTH, each utterance's streams taking random
@@ -1150,6 +1179,8 @@ def f_row(cfg, gen, compute, path: str, streams: int, ctx: int, beam: bool, step
         f"index_copy_ along T, then index_select by parent, of each of the {len(xs)} caches (the old reorder)",
         "exact on the rows up to pos", shape, isolated_bound_ms=of(pos)[0], bound_of_pos=of,
     )
+    if not positions:
+        return row, None
     positions = {}
     for p in (4, round(mean_decode_pos(MAX_TOKENS - 1)), 3 + MAX_TOKENS - 1):
         p_t = at(p)
@@ -1875,11 +1906,14 @@ class MainPath:
     cfg: object = None  # the model's config, where it is not the main paths' Large-V3
 
 
-def eager_greedy(params, cfg, mel, lang, compute, max_tokens, detect=False):
+def eager_greedy(params, cfg, mel, lang, compute, max_tokens, detect=False, forced=None, on_logits=None):
     """A greedy request with the loop's body (``greedy_step``) called step
     by step from here, on a fresh state and cache, in the stage ranges
     ``greedy_decode`` marks: the eager reference that every replayed
-    request of a greedy path is held to bit for bit."""
+    request of a greedy path is held to bit for bit. With ``forced``
+    (int [B, max_tokens]) step k is fed ``forced[:, k - 1]`` (teacher
+    forcing, every step run); ``on_logits(k, logits)`` sees each step's
+    logits."""
     from torch.profiler import record_function
 
     from whisper_burn_tpu_torch.models import whisper as w
@@ -1891,9 +1925,13 @@ def eager_greedy(params, cfg, mel, lang, compute, max_tokens, detect=False):
     lang = w.start_request(params, cfg, mel, lang, compute, state, detect=detect, task="transcribe")
     with record_function("greedy_decode.decode"):
         for k in range(1, max_tokens):
-            if k % w.DONE_CHECK_EVERY == 0 and bool(state.done.all()):
+            if forced is None and k % w.DONE_CHECK_EVERY == 0 and bool(state.done.all()):
                 break
-            w.greedy_step(params, cfg, state, compute)
+            if forced is not None:
+                state.cur.copy_(forced[:, k - 1])
+            logits = w.greedy_step(params, cfg, state, compute)
+            if on_logits is not None:
+                on_logits(k, logits)
         n_gen = (state.tokens != EOT).sum(dim=-1).to(torch.int32)
     return w.GreedyResult(state.tokens, n_gen, lang)
 
@@ -2598,6 +2636,521 @@ def small_end_to_end(compute) -> dict:
             "beam_n_generated": ngen.tolist(), "beam_scores_max_abs_err": beam_err}
 
 
+# --------------------------------------------------------------------------
+# phase 7: scale-out (parallel/): every kernel at a shard's shapes, two
+# ranks sharing the card over gloo, and NCCL at the world the box has
+
+SCALEOUT_TOKENS = 32  # the shared-card ranks' requests: B = 8 x 30 s, 32 tokens
+# a parity divergence passes only as a near-tie: the one-rank run's f32
+# top-2 gap at the first differing step at most this x max(1, |top-1|)
+NEAR_TIE = 1e-3
+# a parity beam stream with one rank's tokens: its score within this x
+# max(1, |score|) of one rank's
+SCORE_TOL = 1e-4
+SHARD_NAMES = {2: "(tp = 2 shard)", 4: "(tp = 4 shard)"}
+
+
+def shard_cfg(cfg, tp: int):
+    """Large-V3 as one of ``tp`` model ranks sees its attention: heads and
+    width divided (the row helpers read the decoder's and encoder's)."""
+    return cfg.replace(n_text_state=cfg.n_text_state // tp, n_text_head=cfg.n_text_head // tp,
+                       n_audio_state=cfg.n_audio_state // tp, n_audio_head=cfg.n_audio_head // tp)
+
+
+def shard_blocks(params, tp: int) -> dict:
+    """Model rank 0's shard of the decoder's stacked blocks of ``params``
+    (``parallel/sharding.shard_params``)."""
+    from whisper_burn_tpu_torch.parallel import Mesh, shard_params
+
+    dec = {"decoder": {"blocks": params["decoder"]["blocks"]}}
+    return shard_params(dec, Mesh(1, tp, 0, 0))["decoder"]["blocks"]
+
+
+def tp_kernel_checks(params, cfg, gen) -> list[dict]:
+    """Every kernel at Large-V3's per-rank shapes. tp = 2 (10 heads, D 640,
+    F 2560), on the ``scaleout_shared`` path's shapes (B = 8, its 32-token
+    self cache of ctx 64): A at the decode's 8 rows (qkv 1280 -> 1920,
+    xattn_q 1280 -> 640, the K-split projections 640 -> 1280 without
+    bias), the prefill's 32 and the 5-beam step's 40; I at 8 (K4's order),
+    32 (K7's) and 40, fc2's bias zeroed as the sharded FFN runs it; B, B',
+    E, C, grouped C, C' (f32), D and F's two forms. tp = 4 (5 heads, D 320,
+    F 1280, not a multiple of 512, so the FFN is kernel A twice), off every
+    path that ran here (one card runs no tp = 4 mesh; launches 0), at the
+    224-token shapes: A, B, C (odd heads: one head a cluster, greedy and
+    the 5-beam's grouped form), C' (int8), D, E, G and H (odd heads: one
+    block a head) and F's slot form. Each against its plain version, as the
+    unsharded rows."""
+    from whisper_burn_tpu_torch.ops.compute import Compute
+
+    rows = []
+    k1, k5 = "whisper_burn_tpu/ops/pallas_q4.py:121 (K1)", "whisper_burn_tpu/ops/pallas_q4.py:44 (K5)"
+    bf = torch.bfloat16
+    ctx2 = max(64, -(-(4 + SCALEOUT_TOKENS) // 64) * 64)
+    for tp in (2, 4):
+        tag, path = SHARD_NAMES[tp], "scaleout_shared" if tp == 2 else "tp4_shard"
+        blocks = shard_blocks(params, tp)
+        scfg = shard_cfg(cfg, tp)
+        nob = lambda lin: {k: lin[k] for k in ("qw", "scales")}  # a row-parallel linear: its bias after the sum
+        ms = (BATCH, 4 * BATCH, STREAMS) if tp == 2 else (BATCH,)
+        cases = []
+        for m in ms:
+            k = k5 if m == 4 * BATCH else k1
+            cases += [(f"attn_qkv/{m} {tag}", m, blocks["attn_qkv"], None, bf, k),
+                      (f"xattn_q/{m} {tag}", m, blocks["xattn_q"], None, bf, k),
+                      (f"attn_o/xattn_o/{m} {tag}", m, nob(blocks["attn_o"]), None, bf, k)]
+        if tp == 4:  # F_loc 1280: the FFN as two launches of A, GELU in fc1's epilogue
+            cases += [(f"fc1/{BATCH} {tag}", BATCH, blocks["fc1"], cfg.gelu, bf, K4),
+                      (f"fc2/{BATCH} {tag}", BATCH, nob(blocks["fc2"]), None, bf, K4)]
+        rows += q4_rows(cases, gen, path)
+        if tp == 2:
+            ffn = {"fc1": blocks["fc1"], "fc2": {k: v for k, v in blocks["fc2"].items() if k != "b"}}
+            rows += ffn_rows([(f"decode {tag}", BATCH, ffn, cfg.gelu, True, K4),
+                              (f"prefill {tag}", 4 * BATCH, ffn, cfg.gelu, False, K7),
+                              (f"beam_decode {tag}", STREAMS, ffn, cfg.gelu, True, K4)], gen, path)
+            rows.append(self_attention_row(scfg, gen, path, f"decode_self_attention {tag}", ctx=ctx2,
+                                           steps=SCALEOUT_TOKENS - 1))
+            rows += merged_rows(scfg, gen, ((path, BATCH, ctx2, SCALEOUT_TOKENS - 1),), suffix=f" {tag}")
+            rows.append(layer_attention_row(scfg, gen, path, f"decode_attention_layer {tag}", ctx=ctx2,
+                                            steps=SCALEOUT_TOKENS - 1))
+            rows.append(cross_int4_row(scfg, gen, BATCH, 1, path, f"decode_cross_attention {tag}"))
+            rows.append(cross_int4_row(scfg, gen, BATCH, BEAM_WIDTH, path, f"decode_cross_attention/grouped {tag}"))
+            rows += cross_unpacked_rows(scfg, gen, (("f32", ((BATCH, 1, path),)),), suffix=f" {tag}")
+            f32 = Compute.parity()
+            serving = Compute.fastest(kv_bits=4)
+            rows.append(f_row(scfg, gen, f32, path, BATCH, ctx2, False, SCALEOUT_TOKENS - 1, suffix=f" {tag}")[0])
+            rows.append(f_row(scfg, gen, serving, path, STREAMS, ctx2, True, SCALEOUT_TOKENS - 1, suffix=f" {tag}",
+                              positions=False)[0])
+        else:
+            rows.append(self_attention_row(scfg, gen, path, f"decode_self_attention {tag}"))
+            rows.append(layer_attention_row(scfg, gen, path, f"decode_attention_layer {tag}"))
+            rows += cross_unpacked_rows(scfg, gen, (("int8", ((BATCH, 1, path),)),), suffix=f" {tag}")
+            rows.append(cross_int4_row(scfg, gen, BATCH, 1, path, f"decode_cross_attention {tag}"))
+            rows.append(cross_int4_row(scfg, gen, BATCH, BEAM_WIDTH, path, f"decode_cross_attention/grouped {tag}"))
+            for merged in (True, False):
+                for mode in ("int4self", "mixed"):
+                    rows.append(int4_self_row(scfg, gen, mode, merged, BATCH if merged else STREAMS, path,
+                                              suffix=f" {tag}"))
+            int4self = Compute.fastest(kv_bits=4).replace(self_kv_bits=4)
+            rows.append(f_row(scfg, gen, int4self, path, BATCH, CTX, False, MAX_TOKENS - 1, suffix=f" {tag}")[0])
+        rows.append(encoder_attention_row(scfg, gen, BATCH, path, f"encoder_attention {tag}"))
+        for row in rows:
+            if row["path"] == "tp4_shard":
+                row["off_path"] = True
+        del blocks
+        torch.cuda.empty_cache()
+    return rows
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(mode: str, world: int, timeout: float, out: Path, env_extra=None) -> list[dict]:
+    """``world`` processes of this script in rank mode ``mode``, each
+    writing ``out/rank<r>.json``; every one is stopped on the way out.
+    Returns their JSON, or raises with the failing rank's output."""
+    port = free_port()
+    env = dict(os.environ, **(env_extra or {}))
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank", mode, str(r), str(world),
+                               str(port), str(out)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    logs = [""] * world
+    try:
+        deadline = time.perf_counter() + timeout
+        for r, p in enumerate(procs):
+            logs[r] = p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"{mode} rank {r} exited {p.returncode}:\n{logs[r][-6000:]}")
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def beam_agreement(got: list, ref: list, scores: list, ref_scores: list) -> list[dict]:
+    """Each stream of a ``Compute.parity()`` beam against one rank's: equal
+    tokens with scores within SCORE_TOL x max(1, |score|) (the model
+    ranks' split sums move a score by f32 roundings only), or other
+    tokens whose score is within NEAR_TIE x max(1, |score|) of one rank's
+    (two hypotheses the search could not tell apart). A beam whose
+    sharded caches were reordered wrongly attends over another beam's
+    history and fails both."""
+    out = []
+    for b, (g, r, s, s1) in enumerate(zip(got, ref, scores, ref_scores)):
+        same, gap = g == r, abs(s - s1)
+        tol = (SCORE_TOL if same else NEAR_TIE) * max(1.0, abs(s1))
+        out.append({"stream": b, "tokens_equal": same, "score_gap": gap, "tol": tol, "ok": gap <= tol})
+    return out
+
+
+def first_divergence(got: list, ref: list, gaps: list, top1: list) -> dict | None:
+    """Where a stream's tokens first differ from the one-rank run's, with
+    that run's f32 top-2 gap there (``gaps[k - 1][b]``: step k's)."""
+    for b, (g, r) in enumerate(zip(got, ref)):
+        for k, (x, y) in enumerate(zip(g, r)):
+            if x != y:
+                gap, t1 = (gaps[k - 1][b], top1[k - 1][b]) if k >= 1 else (None, None)
+                return {"stream": b, "step": k, "got": x, "want": y, "top2_gap": gap, "top1": t1,
+                        "near_tie": gap is not None and gap <= NEAR_TIE * max(1.0, abs(t1))}
+    return None
+
+
+def scaleout_rank(rank: int, world: int, port: int, out: Path) -> None:
+    """One of two ranks sharing the card over an explicit gloo group
+    (gloo carries CUDA tensors through the host; NCCL takes no two ranks
+    of one communicator on one device). Large-V3 at full width and depth
+    from seed 0, B = 8 x 30 s of seeded audio, SCALEOUT_TOKENS tokens,
+    the loop body driven step by step (a graph captures NCCL only):
+
+    The weights are the accuracy phase's iid fixture of seed 0
+    (``device_random_params``), on which q4_int8kv's floor was set.
+
+    * rank 0 alone, one rank's references: ``Compute.parity()`` greedy
+      (with each step's f32 top-2 gaps) and 5-beam, serving greedy (with
+      its gaps) and 5-beam;
+    * mesh (1, 2) in ``Compute.parity()``, (2, 1) in ``Compute.parity()``
+      (each rank its 4 utterances, gathered), (1, 2) 5-beam in
+      ``Compute.parity()``, (1, 2) in the serving compute
+      teacher-forced along the one-rank serving trajectory (its argmax
+      against that trajectory at the steps before each stream's EOT, as
+      ``eval/quant_accuracy`` counts), and (1, 2) serving 5-beam; per run
+      the launches, the collectives before any gather, and the replication
+      guard's count."""
+    from whisper_burn_tpu_torch.audio.mel import MelFrontend
+    from whisper_burn_tpu_torch.models.config import EOT, WhisperConfig
+    from whisper_burn_tpu_torch.models.params import device_random_params
+    from whisper_burn_tpu_torch.ops import _build
+    from whisper_burn_tpu_torch.ops.collectives import KINDS
+    from whisper_burn_tpu_torch.ops.compute import Compute
+    from whisper_burn_tpu_torch.parallel import make_mesh, shard_params_tp, tp_compute
+    from whisper_burn_tpu_torch.parallel.audit import predicted_collectives
+    from whisper_burn_tpu_torch.parallel.guard import replication_mismatch
+    from whisper_burn_tpu_torch.parallel.multihost import initialize, local_batch_to_global
+    from whisper_burn_tpu_torch.transcribe import prepare_params
+
+    dev = initialize(f"localhost:{port}", world, rank, device="cuda:0", backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = WhisperConfig.large_v3()
+    parity = Compute.parity()
+    serving = Compute.fastest(kv_bits=4).replace(quantized_logits=True, w8a8=True)
+    t0 = time.perf_counter()
+    raw = device_random_params(cfg, seed=SEED, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1)
+    audio = torch.randn((BATCH, 480_000), generator=g, device=dev) * 0.1
+    mel = MelFrontend(n_mels=cfg.n_mels, norm="slaney")(audio)
+    lang = torch.full((BATCH,), cfg.lang_token_start, dtype=torch.int32, device=dev)
+    n = SCALEOUT_TOKENS
+    report = {"rank": rank, "setup_s": time.perf_counter() - t0, "runs": {}}
+    torch.cuda.synchronize()
+
+    if rank == 0:  # one rank's references
+        t0 = time.perf_counter()
+        gaps, top1, sgaps = [], [], []
+
+        def margins(into):
+            def on_logits(k, logits):
+                v = logits.topk(2, dim=-1).values
+                into.append((v[:, 0] - v[:, 1]).tolist())
+                if into is gaps:
+                    top1.append(v[:, 0].tolist())
+            return on_logits
+
+        pparams = prepare_params(raw, parity)
+        ref = eager_greedy(pparams, cfg, mel, lang, parity, n, on_logits=margins(gaps))
+        pbref = eager_beam(pparams, cfg, mel, lang, parity, n)
+        del pparams
+        sparams = prepare_params(raw, serving)
+        sref = eager_greedy(sparams, cfg, mel, lang, serving, n, on_logits=margins(sgaps))
+        bref = eager_beam(sparams, cfg, mel, lang, serving, n)
+        del sparams
+        report["ref"] = {"parity": ref.tokens.tolist(), "gaps": gaps, "top1": top1, "serving": sref.tokens.tolist(),
+                         "serving_n_generated": sref.n_generated.tolist(), "serving_gaps": sgaps,
+                         "beam": bref.tokens.tolist(), "beam_scores": bref.scores.tolist(),
+                         "parity_beam": pbref.tokens.tolist(), "parity_beam_scores": pbref.scores.tolist(),
+                         "s": time.perf_counter() - t0}
+        forced = torch.cat([sref.tokens.long(), sref.n_generated.long()[:, None]], dim=1)
+    else:
+        forced = torch.zeros((BATCH, n + 1), dtype=torch.long, device=dev)
+    # the serving trajectory and its lengths, to the other rank
+    torch.distributed.broadcast(forced, 0)
+    forced, n_gen = forced[:, :n].contiguous(), forced[:, n]
+    torch.cuda.synchronize()
+
+    shapes = collections.Counter()
+    for label, (data, model), compute, kind in (("parity_1x2", (1, 2), parity, "greedy"),
+                                                ("parity_2x1", (2, 1), parity, "greedy"),
+                                                ("beam_parity_1x2", (1, 2), parity, "beam"),
+                                                ("serving_1x2", (1, 2), serving, "forced"),
+                                                ("beam_1x2", (1, 2), serving, "beam")):
+        mesh = make_mesh(data, model, device=dev)
+        local = tp_compute(compute, mesh)
+        params = shard_params_tp(prepare_params(raw, compute, model), mesh)
+        rows = mesh.rows(BATCH)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        agree = []
+        if kind == "beam":
+            res = eager_beam(params, cfg, mel[rows], lang[rows], local, n)
+        elif kind == "forced":
+            res = eager_greedy(params, cfg, mel[rows], lang[rows], local, n, forced=forced[rows],
+                               on_logits=lambda k, lg: agree.append(lg.argmax(dim=-1) == forced[rows][:, k]))
+        else:
+            res = eager_greedy(params, cfg, mel[rows], lang[rows], local, n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        collectives = {k: _build.COLLECTIVES.get(k, 0) for k in KINDS}
+        if model > 1:
+            shapes.update(shape_counts())
+        self_fn = self_kernel(compute, kind == "beam")
+        steps = launches.get(self_fn, 0) // cfg.n_text_layer
+        want = predicted_launches(cfg, compute, BATCH // data, steps, kind == "beam")
+        want_coll = {**predicted_collectives(cfg, mesh, steps=steps, beam=kind == "beam"), "all_gather": 0}
+        mismatch = replication_mismatch(res, mesh.model_group, mesh.model, mesh.model_index)
+        tokens = local_batch_to_global(mesh, res.tokens.contiguous())
+        run = {"mesh": [data, model], "wall_s": wall, "decode_steps": steps, "launches": launches,
+               "expected_launches": want, "collectives": collectives, "expected_collectives": want_coll,
+               "replication_mismatch": mismatch, "tokens": tokens.tolist()}
+        if kind == "forced":  # steps k before each stream's EOT (k < n_generated)
+            agreed = torch.stack(agree)  # [n - 1, B], step k in row k - 1
+            valid = torch.arange(1, n, device=dev)[:, None] < n_gen[rows][None, :]
+            run["forced_agreement"] = float(agreed[valid].float().mean())
+            run["forced_steps"] = int(valid.sum())
+            run["forced_disagree"] = [[k + 1, b] for k, b in (~agreed & valid).nonzero().tolist()]
+        if kind == "beam":
+            run["scores"] = local_batch_to_global(mesh, res.scores.contiguous()).tolist()
+            run["n_generated"] = res.n_generated.tolist()
+        else:
+            after_eot = (res.tokens == EOT).int().cummax(dim=1).values.bool()
+            run["eot_filled"] = bool((res.tokens[after_eot] == EOT).all())
+        report["runs"][label] = run
+        del params
+        torch.cuda.empty_cache()
+    report["shapes"] = dict(shapes)
+    (out / f"rank{rank}.json").write_text(json.dumps(report))
+    torch.distributed.destroy_process_group()
+
+
+def scaleout_shared_phase() -> tuple[dict, dict, dict]:
+    """Two ranks on the one card over gloo (``scaleout_rank``); the checks
+    on what they report: parity tokens of (1, 2) and (2, 1) equal to the
+    one-rank run's (or diverging first at a near-tie), the serving
+    compute's teacher-forced agreement at least q4_int8kv's floor, the
+    5-beam requests' hypotheses in range, the parity 5-beam's streams
+    each equal to one rank's or a near-tie of it (``beam_agreement``),
+    and on every rank and run the
+    launches and collectives equal to the shapes' prediction and the
+    replication guard at 0. Returns the phase line, rank 0's (1, 2)
+    launches by kernel and by shape (the ``scaleout_shared`` rows')."""
+    from whisper_burn_tpu_torch.eval.quant_accuracy import FLOORS
+    from whisper_burn_tpu_torch.models.config import EOT
+
+    TRACE_DIR.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=TRACE_DIR.parent) as tmp:
+        reports = run_ranks("scaleout", 2, 600, Path(tmp))
+    ref = reports[0]["ref"]
+    line = {"phase": "scaleout_shared", "backend": "gloo", "ranks": 2, "device": "cuda:0 (shared)",
+            "tokens": SCALEOUT_TOKENS, "setup_s": [r["setup_s"] for r in reports], "reference_s": ref["s"], "runs": {}}
+    floor = FLOORS["q4_int8kv"]
+    for label in reports[0]["runs"]:
+        runs = [r["runs"][label] for r in reports]
+        got = runs[0]
+        entry = {"mesh": got["mesh"], "wall_s": [r["wall_s"] for r in runs], "decode_steps": got["decode_steps"],
+                 "replication_mismatch": [r["replication_mismatch"] for r in runs],
+                 "collectives": got["collectives"], "expected_collectives": got["expected_collectives"]}
+        for r, run in enumerate(runs):
+            if run["launches"] != run["expected_launches"]:
+                raise AssertionError(f"scaleout {label} rank {r}: launches {run['launches']} differ from the "
+                                     f"shapes' prediction {run['expected_launches']}")
+            if run["collectives"] != run["expected_collectives"]:
+                raise AssertionError(f"scaleout {label} rank {r}: collectives {run['collectives']} differ from "
+                                     f"the prediction {run['expected_collectives']}")
+            if run["replication_mismatch"] != 0:
+                raise AssertionError(f"scaleout {label} rank {r}: {run['replication_mismatch']} elements differ "
+                                     "across the model ranks")
+            if run["tokens"] != got["tokens"]:
+                raise AssertionError(f"scaleout {label}: the ranks gathered different tokens")
+        if label.startswith("parity"):
+            div = first_divergence(got["tokens"], ref["parity"], ref["gaps"], ref["top1"])
+            entry["tokens_equal_one_rank"] = div is None
+            entry["first_divergence"] = div
+            if div is not None and not div["near_tie"]:
+                raise AssertionError(f"scaleout {label}: tokens diverge from one rank's at {div}, not a near-tie "
+                                     f"(top-2 gap above {NEAR_TIE} x max(1, |top-1|))")
+        elif label.startswith("serving"):
+            entry["forced_agreement"] = [r["forced_agreement"] for r in runs]
+            entry["forced_steps"] = got["forced_steps"]
+            entry["floor"] = floor
+            # where the argmax left the one-rank trajectory, with that run's top-2 gap there
+            entry["disagreements"] = [{"step": k, "stream": b, "one_rank_top2_gap": ref["serving_gaps"][k - 1][b]}
+                                      for k, b in got["forced_disagree"][:16]]
+            gaps = sorted(g for row in ref["serving_gaps"] for g in row)
+            entry["one_rank_top2_gap_median"] = gaps[len(gaps) // 2]
+            if min(entry["forced_agreement"]) < floor:
+                raise AssertionError(f"scaleout {label}: teacher-forced agreement {entry['forced_agreement']} "
+                                     f"below {floor}")
+        else:
+            tok = torch.tensor(got["tokens"])
+            if tuple(tok.shape) != (BATCH, SCALEOUT_TOKENS) or int(tok.min()) < 0 or int(tok.max()) >= 51866:
+                raise AssertionError(f"scaleout {label}: tokens {tuple(tok.shape)} out of shape or range")
+            if not all(s <= 0 for s in got["scores"]):
+                raise AssertionError(f"scaleout {label}: scores {got['scores']} are not log-probabilities")
+            key = "parity_beam" if label == "beam_parity_1x2" else "beam"
+            entry["tokens_equal_one_rank"] = got["tokens"] == ref[key]
+            entry["scores"], entry["one_rank_scores"] = got["scores"], ref[f"{key}_scores"]
+            entry["max_score_gap"] = max(abs(a - b) for a, b in zip(got["scores"], ref[f"{key}_scores"]))
+            if label == "beam_parity_1x2":
+                streams = beam_agreement(got["tokens"], ref[key], got["scores"], ref[f"{key}_scores"])
+                entry["streams_tokens_equal"] = sum(s["tokens_equal"] for s in streams)
+                bad = [s for s in streams if not s["ok"]]
+                if bad:
+                    raise AssertionError(f"scaleout {label}: streams {bad} neither equal one rank's beam nor a "
+                                         "near-tie of it")
+        if not label.startswith("beam") and not all(r["runs"][label].get("eot_filled", True) for r in reports):
+            raise AssertionError(f"scaleout {label}: a stream emitted a token after its EOT ({EOT})")
+        line["runs"][label] = entry
+    launches = collections.Counter()
+    for label in ("parity_1x2", "beam_parity_1x2", "serving_1x2", "beam_1x2"):
+        launches.update(reports[0]["runs"][label]["launches"])
+    return line, dict(launches), reports[0]["shapes"]
+
+
+def nccl_rank(rank: int, world: int, port: int, out: Path) -> None:
+    """One rank a card over NCCL (world >= 2): Large-V3 from seed 0 on
+    mesh (world / 2, 2) in the serving compute through the runners (the
+    all-reduces captured in the step's graphs), greedy and 5-beam, 224
+    tokens, B = 8 per data rank; then the eager body on the same inputs,
+    whose tokens the replayed ones must equal bit for bit."""
+    from whisper_burn_tpu_torch.audio.mel import MelFrontend
+    from whisper_burn_tpu_torch.models.config import WhisperConfig
+    from whisper_burn_tpu_torch.models.params import device_fabricated_params
+    from whisper_burn_tpu_torch.ops.compute import Compute
+    from whisper_burn_tpu_torch.parallel import (
+        make_mesh, shard_params_tp, sharded_beam_decode, sharded_greedy_decode, tp_compute,
+    )
+    from whisper_burn_tpu_torch.parallel.multihost import initialize, local_batch_to_global
+    from whisper_burn_tpu_torch.transcribe import prepare_params
+
+    dev = initialize(f"localhost:{port}", world, rank, device=f"cuda:{rank}")
+    cfg = WhisperConfig.large_v3()
+    serving = Compute.fastest(kv_bits=4).replace(quantized_logits=True, w8a8=True)
+    mesh = make_mesh(model=2, device=dev)
+    params = shard_params_tp(prepare_params(device_fabricated_params(cfg, seed=SEED, device=dev), serving, 2), mesh)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1)
+    batch = BATCH * mesh.data
+    mel = MelFrontend(n_mels=cfg.n_mels, norm="slaney")(torch.randn((batch, 480_000), generator=g, device=dev) * 0.1)
+    lang = torch.full((batch,), cfg.lang_token_start, dtype=torch.int32, device=dev)
+    local, rows = tp_compute(serving, mesh), mesh.rows(batch)
+    report = {"rank": rank, "mesh": [mesh.data, mesh.model], "nccl": list(torch.cuda.nccl.version())}
+    t0 = time.perf_counter()
+    res = sharded_greedy_decode(params, cfg, mel, lang, serving, mesh, max_tokens=MAX_TOKENS, debug_replication=True)
+    report["greedy_s"] = time.perf_counter() - t0
+    eager = eager_greedy(params, cfg, mel[rows], lang[rows], local, MAX_TOKENS)
+    report["greedy_equal"] = bool(torch.equal(local_batch_to_global(mesh, eager.tokens.contiguous()), res.tokens))
+    t0 = time.perf_counter()
+    bres = sharded_beam_decode(params, cfg, mel, lang, serving, mesh, beam_width=BEAM_WIDTH, max_tokens=MAX_TOKENS)
+    report["beam_s"] = time.perf_counter() - t0
+    beager = eager_beam(params, cfg, mel[rows], lang[rows], local, MAX_TOKENS)
+    report["beam_equal"] = bool(torch.equal(local_batch_to_global(mesh, beager.tokens.contiguous()), bres.tokens))
+    (out / f"rank{rank}.json").write_text(json.dumps(report))
+    torch.distributed.destroy_process_group()
+
+
+def duplicate_rank(rank: int, world: int, port: int, out: Path) -> None:
+    """Two ranks of one NCCL communicator on one device: one all-reduce,
+    whatever becomes of it written down."""
+    from whisper_burn_tpu_torch.parallel.multihost import initialize
+
+    report = {"rank": rank}
+    try:
+        initialize(f"localhost:{port}", world, rank, device="cuda:0")
+        x = torch.ones(4, device="cuda:0")
+        torch.distributed.all_reduce(x)
+        torch.cuda.synchronize()
+        report["result"] = f"all-reduce returned {x.tolist()}"
+    except Exception as e:  # the outcome is the record
+        report["result"] = f"{type(e).__name__}: {str(e)[:400]}"
+    (out / f"rank{rank}.json").write_text(json.dumps(report))
+    os._exit(0)  # a refused communicator may leave threads that never end
+
+
+def scaleout_nccl_phase(params, cfg, mel, lang, serving) -> dict:
+    """NCCL at the world the box has. One card: this process is rank 0 of
+    a one-rank NCCL group, ``sharded_greedy_decode`` and
+    ``sharded_beam_decode`` (B = 8, 224 tokens, the serving compute)
+    through the runners, their tokens (and scores) bit for bit those of
+    ``greedy_decode`` and ``beam_decode``; one all-reduce over the group;
+    then two processes try one communicator on this card, and what NCCL
+    does is logged. With two or more cards, one rank a card runs tp = 2
+    through the captured graphs (``nccl_rank``)."""
+    from whisper_burn_tpu_torch.models.beam import beam_decode
+    from whisper_burn_tpu_torch.models.whisper import greedy_decode
+    from whisper_burn_tpu_torch.ops import _build
+    from whisper_burn_tpu_torch.ops.collectives import all_reduce
+    from whisper_burn_tpu_torch.parallel import make_mesh, sharded_beam_decode, sharded_greedy_decode
+    from whisper_burn_tpu_torch.parallel.multihost import initialize
+
+    world = torch.cuda.device_count()
+    line = {"phase": "scaleout_nccl", "world": world, "nccl": list(torch.cuda.nccl.version())}
+    initialize(f"localhost:{free_port()}", 1, 0, device="cuda:0")
+    try:
+        mesh = make_mesh(1, 1, device="cuda:0")
+        t0 = time.perf_counter()
+        res = sharded_greedy_decode(params, cfg, mel, lang, serving, mesh, max_tokens=MAX_TOKENS, debug_replication=True)
+        bres = sharded_beam_decode(params, cfg, mel, lang, serving, mesh, beam_width=BEAM_WIDTH, max_tokens=MAX_TOKENS)
+        torch.cuda.synchronize()
+        line["sharded_s"] = time.perf_counter() - t0
+        ref = greedy_decode(params, cfg, mel, lang, serving, max_tokens=MAX_TOKENS)
+        bref = beam_decode(params, cfg, mel, lang, serving, beam_width=BEAM_WIDTH, max_tokens=MAX_TOKENS)
+        line["greedy_equal"] = bool(torch.equal(res.tokens, ref.tokens) and torch.equal(res.n_generated, ref.n_generated))
+        line["beam_equal"] = bool(torch.equal(bres.tokens, bref.tokens) and torch.equal(bres.scores, bref.scores))
+        _build.reset_launches()
+        x = all_reduce(torch.full((4,), 2.0, device="cuda:0"), torch.distributed.group.WORLD)
+        line["all_reduce"] = {"result": x.tolist(), "counted": dict(_build.COLLECTIVES)}
+        if not (line["greedy_equal"] and line["beam_equal"] and x.tolist() == [2.0] * 4):
+            raise AssertionError(f"scaleout_nccl at world 1: {line}")
+    finally:
+        torch.distributed.destroy_process_group()
+    TRACE_DIR.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=TRACE_DIR.parent) as tmp:
+        try:
+            dup = run_ranks("duplicate", 2, 120, Path(tmp))
+            line["two_ranks_one_card"] = [r["result"] for r in dup]
+        except (AssertionError, subprocess.TimeoutExpired) as e:
+            line["two_ranks_one_card"] = f"{type(e).__name__}: {str(e)[:400]}"
+        if world >= 2:
+            ranks = run_ranks("nccl", world - world % 2, 900, Path(tmp))
+            line["multi_card"] = ranks
+            if not all(r["greedy_equal"] and r["beam_equal"] for r in ranks):
+                raise AssertionError(f"scaleout_nccl: replayed tokens differ from the eager body's: {ranks}")
+        else:
+            line["multi_card"] = "not run: one card (tp >= 2 over NCCL needs one rank a card)"
+    return line
+
+
+def rank_main(argv: list) -> int:
+    """``chip_smoke.py --rank MODE RANK WORLD PORT OUT``: one rank of a
+    scale-out phase."""
+    mode, rank, world, port, out = argv[0], int(argv[1]), int(argv[2]), int(argv[3]), Path(argv[4])
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if mode == "duplicate":
+        duplicate_rank(rank, world, port, out)
+    else:
+        {"scaleout": scaleout_rank, "nccl": nccl_rank}[mode](rank, world, port, out)
+    return 0
+
+
 def is_decode_row(row: dict) -> bool:
     return not any(stage in row["name"] for stage in ("prefill", "encoder", "cross_fill"))
 
@@ -2752,6 +3305,20 @@ def main() -> int:
     log({"phase": "kernel_i_unit_copies", "copies": [
         {"layers": u.shape[0], "k": u.shape[2] * 32, "n": u.shape[1] * 16, "bytes": u.nbytes} for u in copies]})
 
+    # phase 7: scale-out. NCCL at the world the box has (the serving
+    # runners' greedy and beam at B = 8, 224 tokens), then two ranks
+    # sharing the card over gloo; their (1, 2) runs give the tp = 2 rows'
+    # launches
+    t0 = time.perf_counter()
+    nccl_line = scaleout_nccl_phase(params, cfg, mel_frontend(audios[0]), lang_tokens(cfg, BATCH), serving)
+    phases["scaleout_nccl_s"] = time.perf_counter() - t0
+    log({**nccl_line, "seconds": phases["scaleout_nccl_s"]})
+    t0 = time.perf_counter()
+    shared_line, launches["scaleout_shared"], counts["scaleout_shared"] = scaleout_shared_phase()
+    counts["tp4_shard"] = {}
+    phases["scaleout_shared_s"] = time.perf_counter() - t0
+    log({**shared_line, "seconds": phases["scaleout_shared_s"], "launches": launches["scaleout_shared"]})
+
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -2762,6 +3329,10 @@ def main() -> int:
     rows += medium_kernel_checks(mparams, mcfg, gen, serving)
     phases["kernels_s"] = time.perf_counter() - t0
     log({"phase": "kernels", "seconds": phases["kernels_s"]})
+    t0 = time.perf_counter()
+    rows += tp_kernel_checks(params, cfg, gen)
+    phases["tp_kernels_s"] = time.perf_counter() - t0
+    log({"phase": "tp_kernels", "seconds": phases["tp_kernels_s"]})
     sigs, rows_by_key = {}, {}
     for row in rows:
         key = json.dumps(row["shape_key"])
@@ -2869,4 +3440,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"] else main())

@@ -9,7 +9,9 @@ and ``eval`` give the JAX CLI's text, token counts and WER in f32 on 16 kHz
 WAVs; ``parity`` records, passes, fails on a divergence, skips without
 weights and records its offline intake chain; ``config`` saves under
 ``XDG_CONFIG_HOME``; ``serve`` maps its options to the JAX CLI's compute
-and serves over HTTP until SIGINT; ``--dp``/``--tp`` raise; without a card
+and serves over HTTP until SIGINT; ``transcribe --tp 2`` under
+``torch.distributed.run`` gives the JAX CLI's mesh text, ``serve
+--dp/--tp`` and meshes one rank cannot hold raise; without a card
 and without ``--device cpu`` the commands refuse. Every path is under a
 temporary directory."""
 
@@ -149,6 +151,25 @@ def test_transcribe_json_matches_jax(files, language, capsys, tmp_path):
     (trace,) = (tmp_path / "tr").glob("trace-*.json")
     assert f"written to {trace}" in err
     assert "greedy_decode.decode" in {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+
+
+def test_transcribe_under_torchrun_matches_jax_mesh(files, capsys):
+    """``transcribe --tp 2`` on two CPU ranks under ``torch.distributed.run``
+    (rank 0 alone prints) against the JAX CLI's ``--tp 2`` mesh run."""
+    argv = ["transcribe", *files["wavs"][:2], "--model", files["gguf"], "--tokenizer", files["tokenizer"],
+            "--json", "--max-tokens", MAX_TOKENS, "--language", "en", "--tp", "2"]
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+                           "-m", "whisper_burn_tpu_torch.cli", *argv, "--device", "cpu"],
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-4000:]
+    jrc, ref, _ = _run(jcli.main, argv, capsys)
+    ours, ref = _json_lines(proc.stdout), _json_lines(ref)
+    assert jrc == 0 and len(ours) == len(ref) == 2  # one rank's lines
+    for o, r in zip(ours, ref):
+        assert {k: o[k] for k in ("file", "text", "n_tokens", "lang_token")} == {
+            k: r[k] for k in ("file", "text", "n_tokens", "lang_token")}
 
 
 def test_transcribe_plain_output_and_saved_defaults(files, capsys, tmp_path):
@@ -359,9 +380,14 @@ def test_serve_answers_over_http_until_sigint(files, tmp_path):
 @pytest.mark.parametrize("command", ["transcribe", "serve"])
 @pytest.mark.parametrize("mesh", [["--dp", "2"], ["--tp", "2"], ["--dp", "1", "--tp", "4"]])
 def test_mesh_options_raise(files, command, mesh):
+    """``serve --dp/--tp`` waits for its ROADMAP item; ``transcribe`` runs
+    a mesh, but one rank (no ``torch.distributed.run``) holds none of
+    these, and the shape is refused before any process group starts."""
     argv = ["transcribe", files["wavs"][0]] if command == "transcribe" else ["serve"]
-    with pytest.raises(NotImplementedError, match="Queue 1, item 15"):
+    error, match = (ValueError, "ranks") if command == "transcribe" else (NotImplementedError, "Queue 1, item 6")
+    with pytest.raises(error, match=match):
         cli.main(argv + ["--model", files["gguf"], "--device", "cpu", *mesh])
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("argv", [["transcribe", "x.wav", "--model", "m.gguf"], ["serve", "--model", "m.gguf"],

@@ -1148,3 +1148,115 @@ def test_device_fixture_generator_quantizes_as_the_cpu(gen):
         ref = repack_f32(np.ascontiguousarray(w.T))
         np.testing.assert_array_equal(q4["decoder"]["blocks"]["fc2"]["qw"][1].cpu().numpy(), ref.qw)
         np.testing.assert_array_equal(q4["decoder"]["blocks"]["fc2"]["scales"][1].cpu().numpy(), ref.scales)
+
+
+# Tensor parallelism: Large-V3's per-rank shapes over 2 model ranks (10
+# heads, D 640, F 2560) for kernels A (qkv 1280 -> 1920, the K-split
+# projections 640 -> 1280, xattn_q 1280 -> 640), I (8 rows, 1280 <-> 2560,
+# fc2's bias zeroed as the sharded FFN runs it), B, C and D; and G, H and
+# C at 4 ranks' 5 heads (D 320: odd heads; G and H with 10 scale groups of
+# 32 channels, one block a head; C one head a cluster) and at 3 heads.
+TP2_Q4 = [(8, 1280, 1920), (8, 640, 1280), (8, 1280, 640), (32, 1280, 1920), (40, 640, 1280)]
+
+
+@pytest.mark.parametrize("m,k,n", TP2_Q4)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_q4_matmul_kernel_tp2_shard(gen, m, k, n, dtype, tol):
+    x, qw, sc, _ = _q4_inputs(gen, m, k, n, dtype)
+    out = q4_matmul(x, qw, sc, layer=1)
+    assert _rel_err(out, q4_matmul_plain(x, qw[1], sc[1], None, None, dtype)) <= tol
+
+
+@pytest.mark.parametrize("m", [8, 40, 64])
+@pytest.mark.parametrize("order", [True, False], ids=["K4", "K7"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_fused_ffn_kernel_tp2_shard(gen, m, order, dtype, tol):
+    """Kernel I on a shard's F, fc2 without its bias (a null pointer, as
+    the sharded FFN runs it; 64 bf16 rows take the wgmma regime)."""
+    x, fc1, fc2 = _ffn_inputs(gen, m, 1280, 2560, dtype)
+    fc2 = {k: v for k, v in fc2.items() if k != "b"}
+    _build.reset_launches()
+    out = fused_ffn(x, fc1, fc2, "erf", layer=1, bias_after_round=order)
+    assert _build.LAUNCHES["fused_ffn"] == 1
+    ref = fused_ffn_plain(x, *(fc1[k][1] for k in ("qw", "scales", "b")), fc2["qw"][1], fc2["scales"][1], None,
+                          "erf", order)
+    assert _rel_err(out, ref) <= tol
+
+
+@pytest.mark.parametrize("pos", [0, 115, 226])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_self_attention_kernel_tp2_shard(gen, pos, dtype):
+    l_dim, b, ctx, d, h = 2, 8, 256, 640, 10
+    kc = torch.randint(-127, 128, (l_dim, b, ctx, d), generator=gen, device="cuda", dtype=torch.int8)
+    vc = torch.randint(-127, 128, (l_dim, b, ctx, d), generator=gen, device="cuda", dtype=torch.int8)
+    sc = torch.rand((l_dim, b, ctx, 2), generator=gen, device="cuda") * 0.02 + 1e-3
+    q, kn, vn = (torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
+    kq = torch.randint(-127, 128, (b, 1, d), generator=gen, device="cuda", dtype=torch.int8)
+    vq = torch.randint(-127, 128, (b, 1, d), generator=gen, device="cuda", dtype=torch.int8)
+    nsc = torch.rand((b, 1, 2), generator=gen, device="cuda") * 0.02 + 1e-3
+    caches = [(kc.clone(), vc.clone(), sc.clone()) for _ in range(2)]
+    out = decode_self_attention(q, *caches[0], 1, _at(pos), h, kn, vn, kq, vq, nsc)
+    ref = decode_self_attention_plain(q, *caches[1], 1, _at(pos), h, kn, vn, kq, vq, nsc)
+    assert _rel_err(out, ref) <= 1e-5
+    assert all(torch.equal(a, r) for a, r in zip(*caches))
+
+
+@pytest.mark.parametrize("groups", [1, 5])
+def test_cross_attention_kernel_tp2_shard(gen, groups):
+    l_dim, b, t, d, h = 2, 8, 1536, 640, 10
+    kT = torch.randint(0, 256, (l_dim, b, d // 2, t), generator=gen, device="cuda", dtype=torch.uint8)
+    v = torch.randint(0, 256, (l_dim, b, t // 2, d), generator=gen, device="cuda", dtype=torch.uint8)
+    q = (torch.randn((b * groups, 1, d), generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    out = decode_cross_attention(q, kT, v, 1, 1500, h, groups)
+    _cross_close(out, q, kT, v, 1, 1500, h, groups)
+
+
+@pytest.mark.parametrize("groups", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h", [(320, 5), (192, 3)], ids=["tp4_shard", "three_heads"])
+def test_cross_attention_kernel_odd_heads(gen, d, h, dtype, groups):
+    """Kernel C at an odd head count (one head a cluster, each key channel
+    row's own nibble) over the int4 cache in the JAX layout: the plain
+    version's output, bitwise twice."""
+    l_dim, b, t = 2, 8, 1536
+    kT = torch.randint(0, 256, (l_dim, b, d // 2, t), generator=gen, device="cuda", dtype=torch.uint8)
+    v = torch.randint(0, 256, (l_dim, b, t // 2, d), generator=gen, device="cuda", dtype=torch.uint8)
+    q = (torch.randn((b * groups, 1, d), generator=gen, device="cuda") * 0.05).to(dtype)
+    call = lambda: decode_cross_attention(q, kT, v, 1, 1500, h, groups)
+    _build.reset_launches()
+    out = call()
+    assert _build.LAUNCHES["decode_cross_attention"] == 1
+    _cross_close(out, q, kT, v, 1, 1500, h, groups)
+    _bitwise_twice(call, out)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_encoder_attention_kernel_tp2_shard(gen, dtype, tol):
+    b, t, valid, d, h = 2, 1536, 1500, 640, 10
+    q, k, v = (torch.randn((b, t, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
+    out = encoder_attention(q, k, v, h, valid=valid)
+    assert _rel_err(out[:, :valid], encoder_attention_plain(q, k, v, h, valid)[:, :valid]) <= tol
+
+
+@pytest.mark.parametrize("fmt", ["groups", "mixed", "scalar", "unscaled"])
+@pytest.mark.parametrize("pos", [0, 9, 115, 255])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h", [(320, 5), (192, 3)], ids=["tp4_shard", "three_heads"])
+def test_int4_self_attention_kernels_odd_heads(gen, fmt, pos, dtype, d, h):
+    """Kernels G and H at an odd head count (one block a head, each lane's
+    own nibble and scale group): the plain versions' outputs, bitwise
+    twice."""
+    l_dim, b, ctx = 2, 8, 256
+    k, v, sc = _int4_cache(gen, fmt, l_dim, b, ctx, d)
+    q, kn, vn = (torch.randn((b, 1, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
+    call = lambda: decode_attention_merged_int4(q, k, v, sc, 1, _at(pos), h, kn, vn)
+    _build.reset_launches()
+    out = call()
+    assert _build.LAUNCHES["decode_attention_merged_int4"] == 1
+    assert _rel_err(out, decode_attention_merged_int4_plain(q, k, v, sc, 1, _at(pos), h, kn, vn)) <= 1e-5
+    _bitwise_twice(call, out)
+    call = lambda: decode_attention_layer_int4(q, k, v, sc, 1, _at(pos), h)
+    out = call()
+    assert _build.LAUNCHES["decode_attention_layer_int4"] == 1
+    _close_parts(out, decode_attention_layer_int4_plain(q, k, v, sc, 1, _at(pos), h))
+    _bitwise_twice(call, out)

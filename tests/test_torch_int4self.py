@@ -190,8 +190,11 @@ def test_attention_layer_int4_matches_pallas(fmt, d, h, valid):
 
 @pytest.mark.parametrize("case", ["odd heads", "group splits a head", "mixed without scales", "scale width"])
 def test_int4_layouts_the_kernels_do_not_serve_raise(case):
-    """A uint8 self cache the kernels do not serve raises ValueError on
-    every device, never falls back."""
+    """A uint8 self cache that is not one of the layouts raises ValueError
+    on every device, never falls back. Odd head counts (a tensor-parallel
+    shard's) and scale groups narrower than a head are layouts the JAX
+    package serves, and so does the port since scale-out: those two cases
+    give the attention over the dequantized rows."""
     rng = np.random.default_rng(23)
     d, h = 256, 4
     k, v, sc = (torch.from_numpy(a) for a in _self_cache(rng, "groups", 1, 2, 64, d))
@@ -199,16 +202,33 @@ def test_int4_layouts_the_kernels_do_not_serve_raise(case):
         d, h = 192, 3
         k, v, sc = (torch.from_numpy(a) for a in _self_cache(rng, "groups", 1, 2, 64, d))
     elif case == "group splits a head":
-        sc = torch.ones((1, 2, 64, 16))  # 8 groups of 32 channels
+        sc = torch.rand((1, 2, 64, 16)) * 0.04 + 0.01  # 8 groups of 32 channels
     elif case == "mixed without scales":
         k, sc = torch.zeros((1, 2, 64, d), dtype=torch.int8), None
     else:
         sc = torch.ones((1, 2, 64, 5))
-    q, pos = torch.zeros((2, 1, d)), torch.tensor(5, dtype=torch.int32)
+    q, pos = torch.from_numpy(rng.standard_normal((2, 1, d)).astype(np.float32)), torch.tensor(5, dtype=torch.int32)
+    if case in ("odd heads", "group splits a head"):
+        kf, vf = dequantize_self_rows(k[0], v[0], sc[0], int4_lanes("t", q, k, v, sc, h))
+        want = decoder_attention_reference(q, kf, vf, pos, h)
+        out = decode_attention_layer_int4(q, k, v, sc, 0, pos, h)
+        for a, r in zip(out, want):
+            np.testing.assert_allclose(a.numpy(), r.numpy(), rtol=1e-6, atol=1e-6)
+        merged = decode_attention_merged_int4(q, k, v, sc, 0, pos, h, q, q)
+        np.testing.assert_allclose(merged.numpy(), flash_merge_extra_key(*want, q, q, q, h).numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        return
     with pytest.raises(ValueError):
         decode_attention_layer_int4(q, k, v, sc, 0, pos, h)
     with pytest.raises(ValueError):
         decode_attention_merged_int4(q, k, v, sc, 0, pos, h, q, q)
+
+
+def decoder_attention_reference(q, kf, vf, pos, h):
+    """(acc, m, l) over float rows ``[B, ctx, D]``: keys below ``pos``."""
+    from whisper_burn_tpu_torch.ops.decode_attention import decode_attention_layer_plain
+
+    return decode_attention_layer_plain(q, kf[None], vf[None], None, 0, pos, h)
 
 
 @pytest.mark.parametrize("d", [64, 256, 640, 1024, 1280, 96])

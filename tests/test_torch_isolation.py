@@ -105,9 +105,10 @@ def test_cpu_tensors_take_plain_version_without_launch():
     assert sum(_build.LAUNCHES.values()) == 0
 
 
-@pytest.mark.parametrize("kw, item", [({"tp": 2}, "item 15")])
+@pytest.mark.parametrize("kw, item", [({"tp": 2}, "process group")])
 def test_modes_outside_the_slice_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Tensor parallelism needs the model ranks' group (parallel/sharded.tp_compute)."""
+    with pytest.raises(ValueError, match=item):
         Compute.fastest(kv_bits=4).replace(**kw)
 
 

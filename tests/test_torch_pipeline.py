@@ -231,8 +231,14 @@ def test_pipeline_runs_on_cuda_unless_asked():
 
 
 def test_pipeline_mesh_waits_for_item_15():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        WhisperPipeline((CFG, {}), mesh=object(), device="cpu")
+    """A mesh is served since scale-out was ported; one that is not this
+    rank's ``parallel.mesh.Mesh`` (here a layout without a process group)
+    is refused."""
+    from whisper_burn_tpu_torch.parallel import make_mesh
+
+    for mesh in (object(), make_mesh(2, 1, world=2)):
+        with pytest.raises(ValueError, match="this rank's parallel.mesh.Mesh"):
+            WhisperPipeline((CFG, {}), mesh=mesh, device="cpu")
 
 
 def test_profile_report_counts_stages():

@@ -5,12 +5,18 @@ plus ``--device`` on the commands that build a pipeline: ``cuda`` by
 default, ``cpu`` for the plain PyTorch versions (the tests' choice).
 Without a CUDA device and without ``--device cpu`` those commands exit
 with code 2 and ``resolve_device``'s message; nothing falls back to the
-CPU. ``--dp`` and ``--tp`` ask for a device mesh, which is not ported
-(ROADMAP Queue 1, item 15): any non-zero value raises.
+CPU. ``transcribe --dp/--tp`` runs on a ``(data, model)`` mesh of ranks,
+one process each, started by ``torch.distributed.run`` (each rank on
+``cuda:LOCAL_RANK`` with NCCL, or the CPU with gloo under ``--device
+cpu``; rank 0 alone prints); ``--dp 0`` takes every rank left after
+``--tp``. ``serve --dp/--tp`` raises: a server under SPMD needs rank 0 to
+hand each batch to the other ranks (ROADMAP Queue 1, item 6).
 
 Usage:
     python -m whisper_burn_tpu_torch.cli transcribe audio.wav \\
         --model model-q4.gguf [--tokenizer tokenizer.json] [--language en]
+    python -m torch.distributed.run --nproc-per-node 2 -m whisper_burn_tpu_torch.cli \\
+        transcribe audio.wav --model model-q4.gguf --tp 2
     python -m whisper_burn_tpu_torch.cli serve --model model-q4.gguf --port 8000
     python -m whisper_burn_tpu_torch.cli eval --model model-q4.gguf --manifest m.jsonl
     python -m whisper_burn_tpu_torch.cli info --model model-q4.gguf
@@ -22,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -38,11 +45,34 @@ def _no_device(args: argparse.Namespace) -> bool:
     return False
 
 
-def _mesh(args: argparse.Namespace) -> dict | None:
-    """The mesh that ``--dp``/``--tp`` ask for; ``WhisperPipeline`` refuses
-    any (ROADMAP Queue 1, item 15)."""
+def _mesh(args: argparse.Namespace):
+    """The ``(data, model)`` mesh that ``--dp``/``--tp`` ask for, or None.
+    Its shape is checked against the ranks (``WORLD_SIZE``, 1 outside
+    ``torch.distributed.run``) before any process group starts, then this
+    rank's group starts (``parallel/multihost.initialize``: torchrun's
+    environment, or a one-rank group on a free local port) and the mesh
+    is made on ``--device`` (``cuda`` means ``cuda:LOCAL_RANK``)."""
     dp, tp = getattr(args, "dp", 0), getattr(args, "tp", 0)
-    return {"data": dp, "model": tp} if dp or tp else None
+    if not (dp or tp):
+        return None
+    import os
+
+    from whisper_burn_tpu_torch.parallel.mesh import make_mesh, mesh_shape
+    from whisper_burn_tpu_torch.parallel.multihost import initialize
+
+    mesh_shape(dp or None, tp or 1, int(os.environ.get("WORLD_SIZE", "1")))
+    device = getattr(args, "device", None)
+    device = None if device == "cuda" else device
+    if "RANK" in os.environ:
+        initialize(device=device)
+    else:
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        initialize(f"localhost:{port}", 1, 0, device=device)
+    return make_mesh(data=dp or None, model=tp or 1, device=device)
 
 
 def build_pipeline(model_path: str, tokenizer_path: str | None, args: argparse.Namespace):
@@ -68,6 +98,19 @@ def build_pipeline(model_path: str, tokenizer_path: str | None, args: argparse.N
 
 
 def _cmd_transcribe(args: argparse.Namespace) -> int:
+    if not (getattr(args, "dp", 0) or getattr(args, "tp", 0)):
+        return _transcribe(args)
+    import torch.distributed as dist
+
+    started = not dist.is_initialized()
+    try:
+        return _transcribe(args)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _transcribe(args: argparse.Namespace) -> int:
     import contextlib
 
     from whisper_burn_tpu_torch.app_config import load_config
@@ -84,6 +127,12 @@ def _cmd_transcribe(args: argparse.Namespace) -> int:
         return 2
 
     pipe = build_pipeline(args.model, args.tokenizer, args)
+    if pipe.mesh is not None:  # every rank decodes its share; rank 0 alone prints
+        import torch.distributed as dist
+
+        if dist.get_rank() != 0:
+            args.json, args.profile, args.trace = False, False, None
+            sys.stdout = open(os.devnull, "w")
 
     trace_cm = contextlib.nullcontext()
     if args.trace:
@@ -202,6 +251,11 @@ def serving_compute(args: argparse.Namespace):
 
 
 def _cmd_serve(args: argparse.Namespace) -> int:
+    if args.dp or args.tp:
+        raise NotImplementedError(
+            "serve --dp/--tp is not ported yet: under SPMD rank 0 must hand each batch to the other "
+            "ranks (ROADMAP Queue 1, item 6)"
+        )
     if _no_device(args):
         return 2
     from whisper_burn_tpu_torch.gguf.cache import load_whisper
@@ -212,7 +266,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     model = load_whisper(args.model)
     tokenizer = WhisperTokenizer.from_file(args.tokenizer) if args.tokenizer else None
     pipe = WhisperPipeline(
-        model, tokenizer, compute=serving_compute(args), beam_width=args.beam, mesh=_mesh(args), device=args.device
+        model, tokenizer, compute=serving_compute(args), beam_width=args.beam, device=args.device
     )
     server, transcriber = serve_http(pipe, host=args.host, port=args.port, batch_size=args.batch)
     print(f"serving on http://{server.server_address[0]}:{server.server_address[1]}", flush=True)
@@ -425,9 +479,10 @@ def _add_device(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda", help="torch device (cpu runs the plain PyTorch versions)")
 
 
-def _add_mesh(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--dp", type=int, default=0, help="data-parallel mesh axis (not ported: non-zero raises)")
-    p.add_argument("--tp", type=int, default=0, help="tensor-parallel mesh axis (not ported: non-zero raises)")
+def _add_mesh(p: argparse.ArgumentParser, serve: bool = False) -> None:
+    later = " (serve: not ported yet, non-zero raises)" if serve else ""
+    p.add_argument("--dp", type=int, default=0, help="data-parallel mesh axis (0 = every rank after --tp)" + later)
+    p.add_argument("--tp", type=int, default=0, help="tensor-parallel mesh axis" + later)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -491,7 +546,7 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--batch", type=int, default=8)
     sv.add_argument("--beam", type=int, default=1)
     sv.add_argument("--compute", choices=["parity", "fast", "fastest"], default="fastest")
-    _add_mesh(sv)
+    _add_mesh(sv, serve=True)
     sv.add_argument("--self-kv", choices=["int8", "int4"], default="int8",
                     help="self-KV cache precision (int4 = packed keys and values)")
     sv.add_argument("--w8a8", action="store_true", help="int8 x int8 encoder matmuls")

@@ -28,10 +28,15 @@
 //   are int4 pairs packed along D ([L, B, ctx, D/2] uint8, channels j and
 //   j + D/2 in the low and high nibble of byte j, biased by 8), so heads h
 //   and h + H/2 share every byte; keys the same, or int8 codes (the mixed
-//   mode). Per-token scales [L, B, ctx, sw] f32, K lanes first: a head's
-//   64 channels lie in one channel group, so each (token, head) has one K
-//   and one V scale (Lane::of); the scalar-scale form reads lanes 0 and 1,
-//   the unscaled form none. The TPU kernel rounds the dequantized keys to
+//   mode). Per-token scales [L, B, ctx, sw] f32, K lanes first: where a
+//   head's 64 channels lie in one channel group each (token, head) has one
+//   K and one V scale (Lane::of); the scalar-scale form reads lanes 0 and 1,
+//   the unscaled form none. With an odd head count (a tensor-parallel
+//   shard's, 5 heads at Large-V3 over 4 ranks) heads h and h + H/2 share
+//   no byte, and groups may be narrower than a head (32 channels there):
+//   then one block serves one head, each lane's 16 channels from their own
+//   nibble (NibbleHead) with their own group's scale (LaneGroup), applied
+//   before the lanes' sum. The TPU kernel rounds the dequantized keys to
 //   the compute dtype before its dot and folds the bias out as 8 * sum(q);
 //   here the dot runs in f32 on the unbiased codes.
 //
@@ -49,7 +54,8 @@
 //
 // Design, one loop for all six (attend_cached): one block of 8 warps per
 // (stream, head), for G and H per (stream, head pair h, h + H/2), so each
-// packed byte is read once. A lane loads 16 bytes of a key row and 16 of
+// packed byte is read once (at an odd head count per (stream, head), each
+// byte read by the two blocks of its nibbles). A lane loads 16 bytes of a key row and 16 of
 // its value row: an int8 or int4-pair head row (64 bytes) takes 4 lanes, a
 // bf16 one 8 and an f32 one 16, so a warp load instruction covers 8, 4 or
 // 2 keys, one a key slot. Warp w owns a contiguous run of keys and issues
@@ -98,7 +104,11 @@
 // (D 1280, T 1536, 1500 valid) 1.94 MB an entry and layer for C, 3.84 MB
 // for bf16 C'. Design: the keys are split over the blocks of a thread
 // block cluster (split-KV, as in flash-decoding). A cluster serves one
-// (entry, head pair h, h + H/2) for C, (entry, head) for C'; its S <= 16
+// (entry, head pair h, h + H/2) for C, (entry, head) for C' and for C at
+// an odd head count (a tensor-parallel shard's, 5 heads at Large-V3 over 4
+// ranks: there heads h and h + H/2 share no key byte, so the cluster of
+// head h reads the nibble of each of its key channel rows, the low below
+// D/2 and the high above, and its own value bytes); its S <= 16
 // blocks take runs of 16-key units (S so the grid fills three quarters of
 // the card: enough blocks at B = 1, few enough at B = 8 for each block to
 // stream several steps), for C a run of packed value rows t2 with the keys
@@ -244,6 +254,37 @@ struct Nibbles {
   }
 };
 
+// Head h alone of an int4 cache, for odd head counts: channel c of the
+// row lies in the low nibble of byte c below D/2 and in the high nibble of
+// byte c - D/2 above; a lane's 16 channels lie on one side (D/2 = 32 H),
+// so each lane has its own byte offset b0 and nibble (NH = 1).
+struct NibbleHead {
+  static constexpr int CPL = 16;
+  struct Raw {
+    uint4 w;
+  };
+  const uint8_t* p;
+  int D2, b0, nib;
+  static __device__ NibbleHead of(const uint8_t* p, int D, int h) {
+    const int c = h * DH + (threadIdx.x % 32) % (DH / CPL) * CPL;  // the lane's first channel
+    const int hi = c >= D / 2;
+    return {p, D / 2, c - hi * (D / 2), hi};
+  }
+  __device__ Raw load(size_t row, int) const { return {load16(p + row * D2 + b0)}; }
+  __device__ void unpack(const Raw& r, int, float* f) const {
+    const uint32_t u[4] = {r.w.x, r.w.y, r.w.z, r.w.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) f[4 * k + b] = biased_byte((u[k] >> (4 * nib)) & 0x0f0f0f0fu, b) - 8388616.0f;
+  }
+};
+
+// head h alone of an int4-valued cache: int4 pairs, or int8 codes (the
+// mixed mode's keys)
+__device__ __forceinline__ NibbleHead head_of(const uint8_t* p, int D, int h) { return NibbleHead::of(p, D, h); }
+__device__ __forceinline__ Rows<int8_t, 1> head_of(const int8_t* p, int D, int h) { return {p, D, {h * DH}}; }
+
 // the keys (or values) of head pair h, h + H/2 of an int4-valued cache:
 // int4 pairs, or int8 codes (the mixed mode's keys)
 __device__ __forceinline__ Nibbles pair_of(const uint8_t* p, int D, int H, int h) {
@@ -257,6 +298,7 @@ __device__ __forceinline__ Rows<int8_t, 2> pair_of(const int8_t* p, int D, int H
 // wide; One is the scale of an unscaled cache. of() picks the lane of head
 // h: off + (h * 64) / gs for groups of gs channels, off itself for gs = 0.
 struct Lane {
+  static constexpr bool PER_LANE = false;  // one scale for the whole head
   const float* p;
   int sw, lane;
   static __device__ Lane of(const float* p, int sw, int off, int gs, int h) {
@@ -266,8 +308,24 @@ struct Lane {
 };
 
 struct One {
+  static constexpr bool PER_LANE = false;
   static __device__ One of(const float*, int, int, int, int) { return {}; }
   __device__ float at(size_t) const { return 1.f; }
+};
+
+// A lane's per-token scale where a head spans several groups (the
+// one-head form): the lane of this lane's 16 channels, off + c / gs for
+// its first channel c (off itself for gs = 0). A key score takes it per
+// lane, before the lanes' partial dots are summed (PER_LANE).
+struct LaneGroup {
+  static constexpr bool PER_LANE = true;
+  const float* p;
+  int sw, lane;
+  static __device__ LaneGroup of(const float* p, int sw, int off, int gs, int h) {
+    const int c = h * DH + (threadIdx.x % 32) % (DH / 16) * 16;
+    return {p, sw, off + (gs ? c / gs : 0)};
+  }
+  __device__ float at(size_t row) const { return p[row * sw + lane]; }
 };
 
 // The block's running states per head, one a warp, merged in warp order.
@@ -340,9 +398,10 @@ __device__ void attend_cached(const T* q, const int (&head)[NH], KA ka, VA va, c
         float d = 0.f;
 #pragma unroll
         for (int i = 0; i < CPL; ++i) d += qf[j][i] * kf[i];
+        if constexpr (KS::PER_LANE) d *= sk[u][j];  // this lane's group
 #pragma unroll
         for (int o = LPK / 2; o > 0; o >>= 1) d += __shfl_xor_sync(FULL, d, o);
-        s[u] = ok[u] ? d * scale * sk[u][j] : NEG_BIG;
+        s[u] = ok[u] ? (KS::PER_LANE ? d * scale : d * scale * sk[u][j]) : NEG_BIG;
         mc = fmaxf(mc, s[u]);
       }
 #pragma unroll
@@ -518,26 +577,37 @@ merged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* _
   finish_merged(tok, head, D, part, out);
 }
 
-// Kernel G for block (stream b, head pair h, h + H/2): keys KC (uint8 int4
-// pairs, or int8 codes in the mixed mode) and int4 values, per-token
-// scales SC (Lane, or One for the unscaled int4 form); lanes as in Lane::of.
-template <typename T, typename KC, class SC>
+// Kernel G for block (stream b, head pair h, h + H/2), or with !PAIRS
+// (odd head counts, groups narrower than a head) for block (stream b,
+// head h): keys KC (uint8 int4 pairs, or int8 codes in the mixed mode)
+// and int4 values, per-token scales SC (Lane, LaneGroup without pairs, or
+// One for the unscaled int4 form); lanes as in Lane::of.
+template <typename T, typename KC, class SC, bool PAIRS>
 __global__ void __launch_bounds__(SELF_THREADS, 2)
 merged_int4_kernel(const T* __restrict__ q, const KC* __restrict__ kc,
                    const uint8_t* __restrict__ vc, const float* __restrict__ kvs,
                    const T* __restrict__ k_new, const T* __restrict__ v_new,
                    float* __restrict__ out, int layer, const int* __restrict__ pos_at, int B, int ctx,
                    int D, int H, int sw, int kgs, int vgs, int voff) {
-  __shared__ Partials<2> part;
+  constexpr int NH = PAIRS ? 2 : 1;
+  __shared__ Partials<NH> part;
   const int h = blockIdx.y;
   const int pos = read_pos(pos_at, ctx - 1);
-  const int head[2] = {h, h + H / 2};
-  const TokenCols tok = token_cols(q, k_new, v_new, head, D);
-  const SC ks[2] = {SC::of(kvs, sw, 0, kgs, head[0]), SC::of(kvs, sw, 0, kgs, head[1])};
-  const SC vs[2] = {SC::of(kvs, sw, voff, vgs, head[0]), SC::of(kvs, sw, voff, vgs, head[1])};
-  attend_cached(q, head, pair_of(kc, D, H, h), pair_of(vc, D, H, h), ks, vs,
-                ((size_t)layer * B + blockIdx.x) * ctx, pos, D, part);
-  finish_merged(tok, head, D, part, out);
+  const size_t row0 = ((size_t)layer * B + blockIdx.x) * ctx;
+  if constexpr (PAIRS) {
+    const int head[2] = {h, h + H / 2};
+    const TokenCols tok = token_cols(q, k_new, v_new, head, D);
+    const SC ks[2] = {SC::of(kvs, sw, 0, kgs, head[0]), SC::of(kvs, sw, 0, kgs, head[1])};
+    const SC vs[2] = {SC::of(kvs, sw, voff, vgs, head[0]), SC::of(kvs, sw, voff, vgs, head[1])};
+    attend_cached(q, head, pair_of(kc, D, H, h), pair_of(vc, D, H, h), ks, vs, row0, pos, D, part);
+    finish_merged(tok, head, D, part, out);
+  } else {
+    const int head[1] = {h};
+    const TokenCols tok = token_cols(q, k_new, v_new, head, D);
+    const SC ks[1] = {SC::of(kvs, sw, 0, kgs, h)}, vs[1] = {SC::of(kvs, sw, voff, vgs, h)};
+    attend_cached(q, head, head_of(kc, D, h), head_of(vc, D, h), ks, vs, row0, pos, D, part);
+    finish_merged(tok, head, D, part, out);
+  }
 }
 
 // Kernel E for block (stream b, head h)
@@ -577,44 +647,64 @@ layer_unscaled_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T
   finish_layer(head, D, H, part, acc_out, m_out, l_out);
 }
 
-// Kernel H for block (stream b, head pair h, h + H/2): the caches and
-// scales of kernel G
-template <typename T, typename KC, class SC>
+// Kernel H for block (stream b, head pair h, h + H/2), or with !PAIRS
+// for block (stream b, head h): the caches and scales of kernel G
+template <typename T, typename KC, class SC, bool PAIRS>
 __global__ void __launch_bounds__(SELF_THREADS, 2)
 layer_int4_kernel(const T* __restrict__ q, const KC* __restrict__ kc,
                   const uint8_t* __restrict__ vc, const float* __restrict__ kvs,
                   float* __restrict__ acc_out, float* __restrict__ m_out,
                   float* __restrict__ l_out, int layer, const int* __restrict__ valid_at, int B,
                   int ctx, int D, int H, int sw, int kgs, int vgs, int voff) {
-  __shared__ Partials<2> part;
+  constexpr int NH = PAIRS ? 2 : 1;
+  __shared__ Partials<NH> part;
   const int h = blockIdx.y;
   const int valid = read_pos(valid_at, ctx);
-  const int head[2] = {h, h + H / 2};
-  const SC ks[2] = {SC::of(kvs, sw, 0, kgs, head[0]), SC::of(kvs, sw, 0, kgs, head[1])};
-  const SC vs[2] = {SC::of(kvs, sw, voff, vgs, head[0]), SC::of(kvs, sw, voff, vgs, head[1])};
-  attend_cached(q, head, pair_of(kc, D, H, h), pair_of(vc, D, H, h), ks, vs,
-                ((size_t)layer * B + blockIdx.x) * ctx, valid, D, part);
-  finish_layer(head, D, H, part, acc_out, m_out, l_out);
+  const size_t row0 = ((size_t)layer * B + blockIdx.x) * ctx;
+  if constexpr (PAIRS) {
+    const int head[2] = {h, h + H / 2};
+    const SC ks[2] = {SC::of(kvs, sw, 0, kgs, head[0]), SC::of(kvs, sw, 0, kgs, head[1])};
+    const SC vs[2] = {SC::of(kvs, sw, voff, vgs, head[0]), SC::of(kvs, sw, voff, vgs, head[1])};
+    attend_cached(q, head, pair_of(kc, D, H, h), pair_of(vc, D, H, h), ks, vs, row0, valid, D, part);
+    finish_layer(head, D, H, part, acc_out, m_out, l_out);
+  } else {
+    const int head[1] = {h};
+    const SC ks[1] = {SC::of(kvs, sw, 0, kgs, h)}, vs[1] = {SC::of(kvs, sw, voff, vgs, h)};
+    attend_cached(q, head, head_of(kc, D, h), head_of(vc, D, h), ks, vs, row0, valid, D, part);
+    finish_layer(head, D, H, part, acc_out, m_out, l_out);
+  }
 }
 
 // launch G (MERGED) or H over one of the three int4 self-cache forms:
-// int4 keys with scales, int4 keys without, int8 keys with (mixed)
+// int4 keys with scales, int4 keys without, int8 keys with (mixed); in
+// head pairs where the head count is even and no group splits a head,
+// else one head a block (SC's per-lane form, LaneGroup, where it scales)
 template <bool MERGED, typename T, typename KC, class SC>
 int launch_int4(const void* q, const void* kc, const void* vc, const void* kvs, const void* k_new,
                 const void* v_new, float* o0, float* o1, float* o2, int layer, const int* valid,
                 int B, int ctx, int D, int H, int sw, int kgs, int vgs, int voff, cudaStream_t st) {
-  dim3 grid(B, H / 2);
+  using SC1 = typename std::conditional<std::is_same<SC, One>::value, One, LaneGroup>::type;
+  const bool pairs = H % 2 == 0 && kgs % DH == 0 && vgs % DH == 0;
   const T* qt = static_cast<const T*>(q);
   const KC* k = static_cast<const KC*>(kc);
   const uint8_t* v = static_cast<const uint8_t*>(vc);
   const float* sc = static_cast<const float*>(kvs);
+  const T* kn = static_cast<const T*>(k_new);
+  const T* vn = static_cast<const T*>(v_new);
   if constexpr (MERGED) {
-    merged_int4_kernel<T, KC, SC><<<grid, SELF_THREADS, 0, st>>>(
-        qt, k, v, sc, static_cast<const T*>(k_new), static_cast<const T*>(v_new), o0, layer, valid,
-        B, ctx, D, H, sw, kgs, vgs, voff);
+    if (pairs)
+      merged_int4_kernel<T, KC, SC, true><<<dim3(B, H / 2), SELF_THREADS, 0, st>>>(
+          qt, k, v, sc, kn, vn, o0, layer, valid, B, ctx, D, H, sw, kgs, vgs, voff);
+    else
+      merged_int4_kernel<T, KC, SC1, false><<<dim3(B, H), SELF_THREADS, 0, st>>>(
+          qt, k, v, sc, kn, vn, o0, layer, valid, B, ctx, D, H, sw, kgs, vgs, voff);
   } else {
-    layer_int4_kernel<T, KC, SC><<<grid, SELF_THREADS, 0, st>>>(
-        qt, k, v, sc, o0, o1, o2, layer, valid, B, ctx, D, H, sw, kgs, vgs, voff);
+    if (pairs)
+      layer_int4_kernel<T, KC, SC, true><<<dim3(B, H / 2), SELF_THREADS, 0, st>>>(
+          qt, k, v, sc, o0, o1, o2, layer, valid, B, ctx, D, H, sw, kgs, vgs, voff);
+    else
+      layer_int4_kernel<T, KC, SC1, false><<<dim3(B, H), SELF_THREADS, 0, st>>>(
+          qt, k, v, sc, o0, o1, o2, layer, valid, B, ctx, D, H, sw, kgs, vgs, voff);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -728,9 +818,12 @@ __device__ __forceinline__ void code_pairs(uint32_t w, float bias, bool sign, ui
 struct Int4Pairs {  // C: NH = 2 heads a block; key columns [0, 128) the
                     // times r0 + c, [128, 256) the times T/2 + r0 + c - 128
   using Code = uint8_t;
+  static constexpr bool PACKED = true;
   static constexpr int NH = 2, KEYS = 2 * X_STEP, HALF = X_STEP, JS = 4, STAGES = X_STAGES;
   static constexpr int KPITCH = KEYS + 2 * X_KPAD, VROW = 2 * DH, VPITCH = VROW + X_VPAD;
-  static __device__ void keys(const unsigned char* row, int col, float bias, float (*f)[4]) {
+  // keys(): 4 key columns of a channel row; `plane`, the row's nibble,
+  // is Int4Head's (a pair takes both)
+  static __device__ void keys(const unsigned char* row, int col, int, float bias, float (*f)[4]) {
     const uint32_t u = *reinterpret_cast<const uint32_t*>(row + col);
     nibbles(u, 0, bias, f[0]);  // head h
     nibbles(u, 1, bias, f[1]);  // head h + H/2
@@ -746,12 +839,23 @@ struct Int4Pairs {  // C: NH = 2 heads a block; key columns [0, 128) the
     code_pairs((w >> (4 * n)) & 0x0f0f0f0fu, bias, false, b0, b1);
   }
 };
+// C at an odd head count: NH = 1 head a block; a key channel row holds
+// the head's channel in nibble `plane` (the low one below D/2, the high
+// one above), the other nibble another head's; values as Int4Pairs', one
+// head's 64 bytes a row
+struct Int4Head : Int4Pairs {
+  static constexpr int NH = 1, VROW = DH, VPITCH = VROW + X_VPAD;
+  static __device__ void keys(const unsigned char* row, int col, int plane, float bias, float (*f)[4]) {
+    nibbles(*reinterpret_cast<const uint32_t*>(row + col), plane, bias, f[0]);
+  }
+};
 template <typename C>
 struct Plain {  // C': one head a block, key columns the times r0 + c
   using Code = C;
+  static constexpr bool PACKED = false;
   static constexpr int NH = 1, KEYS = X_STEP, HALF = X_STEP, JS = 8, STAGES = sizeof(C) < 4 ? X_STAGES : 2;
   static constexpr int KPITCH = (KEYS + X_KPAD) * (int)sizeof(C), VROW = DH * (int)sizeof(C), VPITCH = VROW + X_VPAD;
-  static __device__ void keys(const unsigned char* row, int col, float, float (*f)[4]) {
+  static __device__ void keys(const unsigned char* row, int col, int, float, float (*f)[4]) {
     four(reinterpret_cast<const C*>(row) + col, f[0]);
   }
   // an mma B fragment for a bf16 query (int8 codes or bf16 values), as
@@ -799,7 +903,8 @@ struct XLayout {
 };
 
 // The block of cluster rank `rank` over units [u0, u0 + nu) of cluster
-// (entry e, head unit hu): C' head hu, C heads hu and hu + H/2. It walks
+// (entry e, head unit hu): C' head hu, C heads hu and hu + H/2 (at an odd
+// head count, Int4Head, head hu). It walks
 // its units in steps of X_STEP keys (C: packed value rows): every step's
 // keys, then every step's values, each a chunk through a ring of
 // F::STAGES stages, so F::STAGES - 1 chunks are in flight while one is
@@ -810,7 +915,7 @@ __device__ void cross_split(const T* __restrict__ q, const typename F::Code* __r
                             int layer, int valid, int E, int G, int D, int Tn, int H, int units) {
   using Lay = XLayout<F, NG>;
   using Code = typename F::Code;
-  constexpr bool PACKED = F::NH == 2;
+  constexpr bool PACKED = F::PACKED;
   // bf16 folds the int4 codes' bias out after each sum, as K3 does, so p
   // rounds where K3's does; in f32, where p is not rounded, the sums are
   // taken on the unbiased codes
@@ -842,6 +947,10 @@ __device__ void cross_split(const T* __restrict__ q, const typename F::Code* __r
   const int T2 = Tn / 2;
   const size_t entry = (size_t)layer * E + e;
   auto head = [&](int jh) { return hu + jh * (H / 2); };
+  // Int4Head: the nibble of the head's key channel row j. It changes at
+  // most once in a head, at j = 32 (D/2 = 32 H), so the 16 rows of an mma
+  // k-step share it
+  auto plane = [&](int j) { return hu * DH + j >= D / 2 ? 1 : 0; };
   // score column c (step c / KEYS): its time, and whether it is a valid key
   auto time_of = [&](int c) {
     const int k = c % F::KEYS;
@@ -865,7 +974,8 @@ __device__ void cross_split(const T* __restrict__ q, const typename F::Code* __r
         const int col = half * F::HALF + u * X_UNIT;  // the unit's first column in the step
         const int t = time_of(k * F::KEYS + col);
         if (u >= su || t >= valid) continue;  // never used: masked
-        const size_t krow = entry * (PACKED ? D / 2 : D) + hu * DH + j;
+        const int c = hu * DH + j;  // C: its byte row c mod D/2 (c itself for a pair)
+        const size_t krow = entry * (PACKED ? D / 2 : D) + (PACKED ? c % (D / 2) : c);
         cp_async16(stage + j * F::KPITCH + col * (int)sizeof(Code) + sub * 16,
                    kT + krow * Tn + t + sub * (16 / (int)sizeof(Code)));
       }
@@ -931,9 +1041,10 @@ __device__ void cross_split(const T* __restrict__ q, const typename F::Code* __r
 #pragma unroll
           for (int jh = 0; jh < F::NH; ++jh) {
             uint32_t b0, b1;
-            F::frag(w, jh, 0.f, b0, b1);  // biased nibbles: the bias folds out below
+            // biased nibbles: the bias folds out below
+            F::frag(w, F::NH == 2 ? jh : plane(kk * 16), 0.f, b0, b1);
             if (jh == 0) mma_bf16(d, qa[kk][0][0], 0u, qa[kk][0][1], 0u, b0, b1);
-            else mma_bf16(d, 0u, qa[kk][1][0], 0u, qa[kk][1][1], b0, b1);
+            else mma_bf16(d, 0u, qa[kk][F::NH - 1][0], 0u, qa[kk][F::NH - 1][1], b0, b1);
           }
         }
         if (fr < NG)
@@ -962,7 +1073,7 @@ __device__ void cross_split(const T* __restrict__ q, const typename F::Code* __r
       for (int i = 0; i < DH / JS; ++i) {
         const int j = i * JS + js;
         float code[F::NH][4];
-        F::keys(ks + j * F::KPITCH, c0, FOLD ? 0.f : 8.f, code);
+        F::keys(ks + j * F::KPITCH, c0, plane(j), FOLD ? 0.f : 8.f, code);
         float qf[NQP];
 #pragma unroll
         for (int r = 0; r < NQP; r += 4) {
@@ -1090,15 +1201,18 @@ __device__ void cross_split(const T* __restrict__ q, const typename F::Code* __r
         }
       }
     } else if constexpr (PACKED) {
-      const int jh = lane / 16;  // lane's bytes: head jh's channels (lane % 16) * 4 ..
-      for (int r = warp; r < sr; r += X_WARPS) {
-        const uint32_t u = *reinterpret_cast<const uint32_t*>(vs + r * F::VPITCH + lane * 4);
+      // lane's bytes: head jh's channels (lane % 16) * 4 ..; one head a
+      // block (Int4Head): lanes 0-15 and 16-31 take alternate rows
+      constexpr int RW = 2 / F::NH;  // rows a warp takes at once
+      const int jh = F::NH == 2 ? lane / 16 : 0, lr0 = F::NH == 2 ? 0 : lane / 16;
+      for (int r = warp * RW + lr0; r < sr; r += RW * X_WARPS) {
+        const uint32_t u = *reinterpret_cast<const uint32_t*>(vs + r * F::VPITCH + (lane % (16 * F::NH)) * 4);
         float lo[4], hi[4];
         nibbles(u, 0, FOLD ? 0.f : 8.f, lo);  // time r0 + r
         nibbles(u, 1, FOLD ? 0.f : 8.f, hi);  // time T/2 + r0 + r
 #pragma unroll
         for (int g = 0; g < NG; ++g) {
-          const float plo = pk[(g * 2 + jh) * pp + r], phi = pk[(g * 2 + jh) * pp + F::HALF + r];
+          const float plo = pk[(g * F::NH + jh) * pp + r], phi = pk[(g * F::NH + jh) * pp + F::HALF + r];
 #pragma unroll
           for (int c = 0; c < 4; ++c) acc[g][c] = fmaf(phi, hi[c], fmaf(plo, lo[c], acc[g][c]));
         }
@@ -1117,7 +1231,7 @@ __device__ void cross_split(const T* __restrict__ q, const typename F::Code* __r
       }
     }
   }
-  if constexpr (!PACKED && !MMA) {
+  if constexpr (F::NH == 1 && !MMA) {  // the two half-warps' rows
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
@@ -1133,8 +1247,8 @@ __device__ void cross_split(const T* __restrict__ q, const typename F::Code* __r
       for (int jh = 0; jh < F::NH; ++jh)
         *reinterpret_cast<float2*>(part + (fr * F::NH + jh) * DH + warp * 8 + 2 * fc) =
             make_float2(vacc[jh][0], vacc[jh][1]);
-  } else if (PACKED || lane < 16) {
-    const int jh = PACKED ? lane / 16 : 0, c = (lane % 16) * 4;
+  } else if (F::NH == 2 || lane < 16) {
+    const int jh = F::NH == 2 ? lane / 16 : 0, c = (lane % 16) * 4;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
       *reinterpret_cast<float4*>(part + warp * NO + (g * F::NH + jh) * DH + c) =
@@ -1161,12 +1275,13 @@ __device__ void cross_split(const T* __restrict__ q, const typename F::Code* __r
   }
 }
 
-template <typename T, int NG>
+// Kernel C: F is Int4Pairs, or Int4Head at an odd head count
+template <typename T, class F, int NG>
 __global__ void __launch_bounds__(X_THREADS, X_BLOCKS_PER_SM(NG))
 cross_attn_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kT,
                   const uint8_t* __restrict__ v, float* __restrict__ out, int layer, int valid,
                   int E, int G, int D, int Tn, int H, int units) {
-  cross_split<T, Int4Pairs, NG>(q, kT, v, out, layer, valid, E, G, D, Tn, H, units);
+  cross_split<T, F, NG>(q, kT, v, out, layer, valid, E, G, D, Tn, H, units);
 }
 
 template <typename T, typename C, int NG>
@@ -1188,7 +1303,7 @@ int launch_cross(void (*kernel)(const T*, const C*, const C*, float*, int, int, 
                  int B, int G, int D, int Tn, int H, cudaStream_t st) {
   using Lay = XLayout<F, NG>;
   const int E = B / G, hunits = H / F::NH;
-  const int rows = F::NH == 2 ? min(Tn / 2, valid) : valid;
+  const int rows = F::PACKED ? min(Tn / 2, valid) : valid;
   const int units = (rows + X_UNIT - 1) / X_UNIT;
   constexpr int UPS = X_STEP / X_UNIT;
   constexpr int max_steps = X_SCORE_BYTES / (Lay::NQ * F::KEYS * 4);
@@ -1250,8 +1365,11 @@ struct LaunchC {
   struct At {
     static int run(const void* q, const void* kT, const void* v, float* out, int layer, int valid,
                    int B, int G, int D, int Tn, int H, cudaStream_t st) {
-      return launch_cross<Int4Pairs, NG>(cross_attn_kernel<T, NG>, q, kT, v, out, layer, valid, B, G, D,
-                                         Tn, H, st);
+      if (H % 2)  // heads h and h + H/2 share no key byte: one head a cluster
+        return launch_cross<Int4Head, NG>(cross_attn_kernel<T, Int4Head, NG>, q, kT, v, out, layer, valid, B, G,
+                                          D, Tn, H, st);
+      return launch_cross<Int4Pairs, NG>(cross_attn_kernel<T, Int4Pairs, NG>, q, kT, v, out, layer, valid, B, G,
+                                         D, Tn, H, st);
     }
   };
 };
@@ -1379,9 +1497,10 @@ extern "C" int decode_attention_layer_unscaled(const void* q, int bf16, const vo
 // D/2]; kvs: f32 [L, B, ctx, sw] (null with sw = 0: an unscaled int4
 // cache); a head's scale lanes as in Lane::of (keys from lane 0 in groups
 // of kgs channels, values from lane voff in groups of vgs); out: f32
-// [B, D], normalized; nothing is stored. Head width 64, H even, a scale
-// group a whole number of heads, caches 16-byte aligned; pos: one int32
-// in device memory, 0 <= *pos < ctx.
+// [B, D], normalized; nothing is stored. Head width 64; head pairs where
+// H is even and a scale group is a whole number of heads, else one head a
+// block with groups of a multiple of 16 channels; caches 16-byte aligned;
+// pos: one int32 in device memory, 0 <= *pos < ctx.
 extern "C" int decode_attention_merged_int4(const void* q, int bf16, const void* kc,
                                             const void* vc, const void* kvs, const void* k_new,
                                             const void* v_new, void* out, int layer, const int* pos,
@@ -1418,7 +1537,8 @@ extern "C" int decode_attention_layer_int4(const void* q, int bf16, const void* 
 }
 // q: [B, D] f32 or bf16, B query streams, G <= 8 of them per cache entry
 // (B % G == 0); kT: uint8 [L, B/G, D/2, T]; v: uint8 [L, B/G, T/2, D]; out:
-// f32 [B, D], normalized. Head width 64, H even, T a multiple of 32,
+// f32 [B, D], normalized. Head width 64 (head pairs where H is even, else
+// one head a cluster), T a multiple of 32,
 // caches 16-byte aligned, 0 < valid <= T, min(T/2, valid) <= 2048.
 extern "C" int decode_cross_attention(const void* q, int bf16, const void* kT, const void* v,
                                       void* out, int layer, int valid, int B, int G, int D, int T,

@@ -485,10 +485,10 @@ __global__ void __launch_bounds__(32 * dec_warps(std::is_same<T, __nv_bfloat16>:
     if (lane == 0) {
       if (c1)
         for (int p = 0; p < nparts; ++p) mbar_expect(&bars[p], c1 * part + (p ? 0 : 4 * W));
-      if (L.fc2 >= 0) mbar_expect(&bars[nparts], WARPS * piece + 4 * UNIT);
+      if (L.fc2 >= 0) mbar_expect(&bars[nparts], WARPS * piece + (a.b2 ? 4 * UNIT : 0));
     }
     __syncwarp();
-    const int n1 = c1 ? c1 * nparts + 1 : 0, n2 = L.fc2 >= 0 ? WARPS + 1 : 0;
+    const int n1 = c1 ? c1 * nparts + 1 : 0, n2 = L.fc2 >= 0 ? WARPS + (a.b2 ? 1 : 0) : 0;
     for (int k = lane; k < n1 + n2; k += 32) {
       if (k < n1 - 1) {  // part p of unit i
         const int p = k / c1, i = k - p * c1;
@@ -557,7 +557,7 @@ __global__ void __launch_bounds__(32 * dec_warps(std::is_same<T, __nv_bfloat16>:
       const int r = idx / UNIT, c = idx - r * UNIT;
       float v = 0.f;
       for (int w = 0; w < WARPS; ++w) v += P[((size_t)w * R + r) * UNIT + c];
-      store(out + (size_t)(m0 + r) * D + n0 + c, finish<BF>(v, b2s[c], a.bias_after_round));
+      store(out + (size_t)(m0 + r) * D + n0 + c, finish<BF>(v, a.b2 ? b2s[c] : 0.f, a.bias_after_round));
     }
     __syncthreads();
   }
@@ -747,8 +747,8 @@ __global__ void __launch_bounds__(THREADS, 1) ffn_wgmma_kernel(const __grid_cons
                       pack_bf16(gelu(v0 + a.b1[col], a.gelu_erf), gelu(v1 + a.b1[col + 1], a.gelu_erf));
                 else
                   *reinterpret_cast<uint32_t*>(a.out + (size_t)row * a.D + col) =
-                      pack_bf16(finish<true>(v0, a.b2[col], a.bias_after_round),
-                                finish<true>(v1, a.b2[col + 1], a.bias_after_round));
+                      pack_bf16(finish<true>(v0, a.b2 ? a.b2[col] : 0.f, a.bias_after_round),
+                                finish<true>(v1, a.b2 ? a.b2[col + 1] : 0.f, a.bias_after_round));
               }
               acc[p][4 * j + 2 * hf] = 0.f, acc[p][4 * j + 2 * hf + 1] = 0.f;
             }
@@ -954,7 +954,8 @@ extern "C" int ffn_plan(int M, int D, int F, int x_bf16, long long* plan) {
 }
 
 // x: [M, D] f32 or bf16 (x_bf16); qw1 int8 [D, F], s1 f32 [D/32, F], b1 f32
-// [F]; qw2 int8 [F, D], s2 f32 [F/32, D], b2 f32 [D]; w1u, w2u: the same
+// [F]; qw2 int8 [F, D], s2 f32 [F/32, D], b2 f32 [D] or null (no bias: a
+// tensor-parallel shard's fc2, whose bias is added after the sum); w1u, w2u: the same
 // codes and scales in units (KB_BYTES; read below 64 rows of bf16 and for
 // f32, may be null otherwise); out: [M, D] in x's dtype; g: the
 // scratch, M x F in x's dtype; bar: one uint64, zero before the first

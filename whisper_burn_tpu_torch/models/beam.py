@@ -60,6 +60,7 @@ from whisper_burn_tpu_torch.models.whisper import (
     PROMPT_LEN,
     GraphRunner,
     cached_runner,
+    check_capturable,
     check_positions,
     encode_and_fill,
     prompt_logits,
@@ -297,6 +298,7 @@ class BeamRunner(GraphRunner):
 
     def __init__(self, params: dict, cfg: WhisperConfig, compute: Compute, batch: int, beam_width: int, ctx: int,
                  max_tokens: int, length_penalty: float, early_stopping: bool, device: torch.device):
+        check_capturable(compute, device)
         super().__init__(device)
         self.params, self.cfg, self.compute = params, cfg, compute
         self.batch, self.beam_width, self.ctx, self.max_tokens = batch, beam_width, ctx, max_tokens

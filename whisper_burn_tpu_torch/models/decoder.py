@@ -55,6 +55,16 @@ deferred branch and returns those rows unwritten: beam search writes
 them with kernel F's beam form, fused with its gather by parent beam
 (``models/beam.py``).
 
+Under tensor parallelism (``compute.tp > 1``) a rank holds
+``n_text_head // tp`` heads: its caches are ``D / tp`` channels wide (the
+int4 self cache pairs channels j and j + D/(2 tp) inside the shard, its
+scale groups from that width), its per-token and per-channel scales are
+this shard's absmax, and the row-parallel linears sum over the model
+ranks; the embedding, the residual stream and the logits are replicated.
+The int4 cross cache keeps the JAX layout at every head count: at an odd
+count a rank (5 heads at Large-V3 over 4 ranks) kernel C serves one head
+a block (``ops/decode_attention``).
+
 The caches are updated in place. The decode step's position is a 0-d
 int32 tensor on the device, read there by the kernels and by index ops,
 never on the host: the step is one fixed sequence of launches at every
@@ -133,8 +143,9 @@ SELF_FIELDS = ("self_k", "self_v", "self_kv_scale")
 
 def init_self_cache(cfg: WhisperConfig, streams: int, compute: Compute, ctx: int, device) -> dict:
     """The self fields of a zeroed :class:`KVCache` of ``streams`` streams,
-    by name (``self_kv_scale`` None for an unquantized self cache)."""
-    l, d = cfg.n_text_layer, cfg.n_text_state
+    by name (``self_kv_scale`` None for an unquantized self cache); ``D / tp``
+    channels wide."""
+    l, d = cfg.n_text_layer, cfg.n_text_state // compute.tp
     kw = self_kv_groups(d) if compute.self_kv_packed else 1  # scale lanes of the keys
     vw = self_kv_groups(d) if compute.self_v_packed else 1
     zeros = lambda *shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
@@ -146,7 +157,7 @@ def init_self_cache(cfg: WhisperConfig, streams: int, compute: Compute, ctx: int
 
 
 def init_cache(cfg: WhisperConfig, batch: int, compute: Compute, ctx: int, device) -> KVCache:
-    l, d, t = cfg.n_text_layer, cfg.n_text_state, cross_cache_len(cfg)
+    l, d, t = cfg.n_text_layer, cfg.n_text_state // compute.tp, cross_cache_len(cfg)
     zeros = lambda *shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
     kv_dt = compute.cross_kv_dtype
     if compute.kv_packed:
@@ -337,7 +348,7 @@ def prefill(
     blocks = dec["blocks"]
     b, t = tokens.shape
     dev = tokens.device
-    n_heads = cfg.n_text_head
+    n_heads = cfg.n_text_head // compute.tp
     x = _embed(dec, tokens, 0, compute)
     mask = causal_mask(t, t, device=dev)
     cross_t = cache.cross_k.shape[-1]
@@ -396,7 +407,7 @@ def decode_step(
     store_in_kernel = quantized_self and not v_packed and not deferred  # kernel B
     dec = params["decoder"]
     blocks = dec["blocks"]
-    n_heads = cfg.n_text_head
+    n_heads = cfg.n_text_head // compute.tp
     x = _embed(dec, token[:, None], pos, compute)  # [B, 1, D]
     new_k, new_v = [], []
     for layer in range(cfg.n_text_layer):

@@ -5,6 +5,9 @@ p=1) -> GELU -> transpose -> + positions -> L pre-norm blocks (LN ->
 non-causal self-attention -> residual; LN -> FFN -> residual) -> final LN
 -> ``[B, 1500, D]``. T is padded to a multiple of 128 once for the whole
 stack (1500 -> 1536) with the pad keys masked in attention (kernel D).
+Under tensor parallelism (``compute.tp > 1``) each rank holds
+``n_audio_head // tp`` heads of q/k/v and a K shard of attn_o and fc2,
+whose partial sums ``ops/linear`` adds over the model ranks.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ def encoder_block(
     ln = lambda name: (blocks[name]["g"][layer], blocks[name]["b"][layer])
     h = layer_norm(x, *ln("attn_ln"))
     q, k, v = qkv_proj(blocks, h, compute, layer=layer)
-    a = encoder_attention(q, k, v, cfg.n_audio_head, valid=valid)
+    a = encoder_attention(q, k, v, cfg.n_audio_head // compute.tp, valid=valid)
     x = x + apply_reduce_linear(blocks["attn_o"], a, compute, layer=layer)
     h = layer_norm(x, *ln("mlp_ln"))
     return x + apply_ffn(blocks, h, cfg.gelu, compute, layer=layer)

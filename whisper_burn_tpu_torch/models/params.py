@@ -484,13 +484,29 @@ def attach_w8a8(params: Params) -> Params:
     }
 
 
-def _fuse_linears(linears: list[Params]) -> Params:
+def _interleave_n(arrs: list[torch.Tensor], tp: int) -> torch.Tensor:
+    """Concatenate ``[..., N]`` tensors along N, interleaved at ``tp``-shard
+    granularity: ``[a0_s0 | a1_s0 | ... | a0_s1 | a1_s1 | ...]`` where
+    ``ai_sj`` is tensor i's j-th N shard; a plain concat at ``tp = 1``. An
+    equal split of the fused N axis into ``tp`` shards then gives each
+    model rank its own ``[q | k | v]`` slab, so ``ops/linear.qkv_proj``'s
+    thirds stay right on a shard."""
+    if tp == 1:
+        return torch.cat(arrs, dim=-1)
+    for a in arrs:
+        if a.shape[-1] % tp:
+            raise ValueError(f"fused N axis {a.shape[-1]} not divisible by tp={tp}")
+    return torch.cat([c for s in range(tp) for c in (a.chunk(tp, dim=-1)[s] for a in arrs)], dim=-1)
+
+
+def _fuse_linears(linears: list[Params], tp: int = 1) -> Params:
     """Concatenate linears that share an input along the output axis;
-    a missing bias (the key projections) becomes zeros."""
+    a missing bias (the key projections) becomes zeros. ``tp > 1`` builds
+    the shard-interleaved layout of :func:`_interleave_n`."""
     key = "qw" if "qw" in linears[0] else "w"
-    fused: Params = {key: torch.cat([p[key] for p in linears], dim=-1)}
+    fused: Params = {key: _interleave_n([p[key] for p in linears], tp)}
     if key == "qw":
-        fused["scales"] = torch.cat([p["scales"] for p in linears], dim=-1)
+        fused["scales"] = _interleave_n([p["scales"] for p in linears], tp)
     if any("b" in p for p in linears):
         biases = []
         for p in linears:
@@ -499,21 +515,23 @@ def _fuse_linears(linears: list[Params]) -> Params:
             else:
                 shape = p[key].shape[:-2] + p[key].shape[-1:]
                 biases.append(torch.zeros(shape, dtype=torch.float32, device=p[key].device))
-        fused["b"] = torch.cat(biases, dim=-1)
+        fused["b"] = _interleave_n(biases, tp)
     return fused
 
 
-def fuse_attention_params(params: Params) -> Params:
+def fuse_attention_params(params: Params, tp: int = 1) -> Params:
     """Fuse q/k/v (``attn_qkv``) and cross k/v (``xattn_kv``) projections
-    into single wide matmuls (single-device layout)."""
+    into single wide matmuls. ``tp > 1`` builds the fused N axis
+    shard-interleaved, for params that ``parallel/sharding.shard_params``
+    then splits over ``tp`` model ranks (wrong to use unsharded)."""
 
     def fuse_blocks(blocks: Params, cross: bool) -> Params:
         nb = dict(blocks)
-        nb["attn_qkv"] = _fuse_linears([blocks["attn_q"], blocks["attn_k"], blocks["attn_v"]])
+        nb["attn_qkv"] = _fuse_linears([blocks["attn_q"], blocks["attn_k"], blocks["attn_v"]], tp)
         for k in ("attn_q", "attn_k", "attn_v"):
             del nb[k]
         if cross:
-            nb["xattn_kv"] = _fuse_linears([blocks["xattn_k"], blocks["xattn_v"]])
+            nb["xattn_kv"] = _fuse_linears([blocks["xattn_k"], blocks["xattn_v"]], tp)
             del nb["xattn_k"], nb["xattn_v"]
         return nb
 

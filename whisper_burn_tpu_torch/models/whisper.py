@@ -22,6 +22,10 @@ load and one-time launch settings happen there), captures the step once
 as a CUDA graph and replays it once per token, for this request and every
 later one of the same shape (:class:`GraphRunner`, which beam search's
 runner shares). On the CPU the same body runs eagerly, step by step.
+Under tensor parallelism the step's all-reduces are captured with it:
+its eager first step also starts the NCCL communicator, which a capture
+cannot; a group that a graph cannot capture (gloo) is refused on the card
+(:func:`check_capturable`).
 Whether every stream is done is read on the host once every
 ``DONE_CHECK_EVERY`` steps; finished streams emit EOT either way, so the
 tokens are the same as stopping at once.
@@ -221,6 +225,22 @@ def capture_graph(fn, stream: torch.cuda.Stream):
     return graph, out, _build.LaunchTally(recorded)
 
 
+def check_capturable(compute: Compute, device: torch.device) -> None:
+    """A CUDA graph of the step captures its all-reduces only over NCCL:
+    on the card a model group of another backend (gloo, which goes
+    through the host) raises here, at the runner, rather than run the
+    loop eagerly. Such a group serves the loop body driven step by step
+    (:func:`greedy_step`, ``models/beam.beam_step``)."""
+    import torch.distributed as dist
+
+    group = compute.tp_group
+    if device.type == "cuda" and group is not None and dist.get_backend(group) != "nccl":
+        raise ValueError(
+            f"a CUDA graph captures NCCL collectives only, and the model ranks' group is "
+            f"{dist.get_backend(group)}: use NCCL, or drive the loop body step by step"
+        )
+
+
 class GraphRunner:
     """A decode loop's step over state that the runner owns: on a CUDA
     device the first step runs eagerly on the runner's stream, then each
@@ -279,6 +299,7 @@ class GreedyRunner(GraphRunner):
 
     def __init__(self, params: dict, cfg: WhisperConfig, compute: Compute, batch: int, ctx: int,
                  max_tokens: int, device: torch.device):
+        check_capturable(compute, device)
         super().__init__(device)
         self.params, self.cfg, self.compute = params, cfg, compute
         self.batch, self.ctx, self.max_tokens = batch, ctx, max_tokens

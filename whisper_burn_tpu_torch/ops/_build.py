@@ -15,6 +15,10 @@ trace can be matched to their shapes one by one. A CUDA graph's capture
 launches nothing: inside :func:`recording_launches` the wrappers' calls
 are recorded instead of counted, and each replay of the graph adds the
 recording with :func:`add_launches`, so the counts stay exact.
+
+The collectives of tensor and data parallelism (``ops/collectives.py``)
+are counted the same way, by kind in ``COLLECTIVES``: a capture records
+them beside the launches and each replay adds them.
 """
 
 from __future__ import annotations
@@ -44,6 +48,8 @@ LAUNCHES: collections.Counter = collections.Counter()
 # the same launches keyed by (kernel, shape), so a run can attribute them
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
 LAUNCH_LOG: list | None = None
+COLLECTIVES: collections.Counter = collections.Counter()
+COLLECTIVE = "collective"  # a recorded collective's name; its kind stands where a launch has its shape
 # a capture's launches, in order, per thread: a capture records only the
 # launches of the thread that captures, the other threads' are counted
 _RECORDING = threading.local()
@@ -55,6 +61,7 @@ def reset_launches() -> None:
     with _COUNT_LOCK:
         LAUNCHES.clear()
         LAUNCH_SHAPES.clear()
+        COLLECTIVES.clear()
 
 
 def count_launch(name: str, shape: tuple) -> None:
@@ -67,6 +74,16 @@ def count_launch(name: str, shape: tuple) -> None:
         LAUNCH_SHAPES[(name, shape)] += 1
         if LAUNCH_LOG is not None:
             LAUNCH_LOG.append((name, shape))
+
+
+def count_collective(kind: str) -> None:
+    """One collective of ``kind`` issued (recorded while a graph captures)."""
+    recording = getattr(_RECORDING, "launches", None)
+    if recording is not None:
+        recording.append((COLLECTIVE, kind))
+        return
+    with _COUNT_LOCK:
+        COLLECTIVES[kind] += 1
 
 
 @contextlib.contextmanager
@@ -88,9 +105,10 @@ class LaunchTally:
     replay adds it in a few dictionary updates."""
 
     def __init__(self, recorded: list):
-        self.log = list(recorded)
-        self.names = collections.Counter(name for name, _ in recorded)
-        self.shapes = collections.Counter(recorded)
+        self.log = [e for e in recorded if e[0] != COLLECTIVE]
+        self.names = collections.Counter(name for name, _ in self.log)
+        self.shapes = collections.Counter(self.log)
+        self.collectives = collections.Counter(kind for name, kind in recorded if name == COLLECTIVE)
 
 
 def add_launches(tally: LaunchTally) -> None:
@@ -98,6 +116,7 @@ def add_launches(tally: LaunchTally) -> None:
     with _COUNT_LOCK:
         LAUNCHES.update(tally.names)
         LAUNCH_SHAPES.update(tally.shapes)
+        COLLECTIVES.update(tally.collectives)
         if LAUNCH_LOG is not None:
             LAUNCH_LOG.extend(tally.log)
 

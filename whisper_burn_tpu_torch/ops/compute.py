@@ -2,8 +2,9 @@
 
 Port of ``whisper_burn_tpu/ops/compute.py``. There is no backend field: the
 device of the tensors decides between a hand-written CUDA kernel (CUDA
-tensors) and its plain PyTorch version (CPU tensors). Modes that this port
-does not serve yet raise ``NotImplementedError`` naming the ROADMAP item.
+tensors) and its plain PyTorch version (CPU tensors). Tensor parallelism is
+``tp`` and ``tp_group``, the process group of the model ranks
+(``parallel/mesh.py``), where the JAX package has ``tp`` and ``tp_axis``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,12 @@ class Compute:
     * ``.replace(self_kv_bits=4)``: int4 self keys and values with
       per-token, per-channel-group scales; ``.replace(self_kv_vbits=4)``:
       int8 self keys, int4 values (the mixed mode).
+
+    ``tp`` is the model axis's size: each rank holds ``n_heads // tp``
+    heads and ``ffn_dim // tp`` of the FFN, and ``tp_group`` (a
+    ``torch.distributed`` process group, None at ``tp = 1``) sums the
+    row-parallel linears' partial products (``ops/linear.py``). The group
+    hashes by identity, so a ``Compute`` stays a runner's key.
     """
 
     dtype: torch.dtype = torch.float32
@@ -60,6 +67,7 @@ class Compute:
     # int8 x int8 -> int32 matmuls for the encoder and the cross-KV fill
     w8a8: bool = False
     tp: int = 1
+    tp_group: object = None
 
     @classmethod
     def parity(cls) -> "Compute":
@@ -129,9 +137,10 @@ class Compute:
                 "(int4 keys require int4 values; the supported mixed mode "
                 "is int8 keys + int4 values: self_kv_bits=8, self_kv_vbits=4)"
             )
-        if self.tp != 1:
-            raise NotImplementedError(
-                "tensor parallelism (tp > 1) is not ported yet: ROADMAP Queue 1, item 15"
+        if self.tp < 1 or (self.tp > 1) != (self.tp_group is not None):
+            raise ValueError(
+                f"tp={self.tp} takes a model-rank process group exactly when tp > 1 "
+                "(parallel/sharded.tp_compute builds it from a mesh)"
             )
 
     def replace(self, **kw) -> "Compute":

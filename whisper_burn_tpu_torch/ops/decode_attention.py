@@ -31,9 +31,11 @@ Counterpart of ``whisper_burn_tpu/ops/pallas_attention.py``; source
 Each reads one layer of a stacked cache by index, so no slice is copied,
 and each is bound on the H100 by the cache bytes it reads (see the source
 note for how each design keeps every byte read once: G and H run one block
-per head pair, the two heads that share each packed byte; C and C' split
+per head pair, the two heads that share each packed byte, and one block a
+head where the head count is odd (a tensor-parallel shard's) or a scale
+group narrower than a head; C and C' split
 the keys over a thread block cluster that serves every stream of its
-cache entry). The self-attention kernels (B, B', E, E', G, H) share one
+cache entry, C's cluster a head pair, or one head at an odd head count). The self-attention kernels (B, B', E, E', G, H) share one
 loop that reads 16 bytes a lane, and C and C' copy 16-byte chunks, so the
 caches must be 16-byte aligned. CPU tensors take the plain versions; CUDA
 tensors launch the kernel or raise.
@@ -53,8 +55,10 @@ The int4 self cache (``models/decoder._quantize_tokens4``) packs channel
 lanes: ``sw = 2·ng`` (int4 keys and values, ``ng`` channel groups a side
 in natural channel order), ``1 + ng`` (mixed: the int8 keys' scalar in
 lane 0), or ``2`` (one scalar a side); an int4 cache may also come without
-scales. :func:`int4_lanes` reads that layout, or raises where the kernels
-do not serve it (odd head counts, groups that split a head).
+scales. :func:`int4_lanes` reads that layout, or raises where it is not
+one (a mixed cache without scales, a scale row of another width), as the
+JAX package's ``_packed_scales_ok`` does: any head count, and groups of
+any width that divides the half row.
 """
 
 from __future__ import annotations
@@ -348,8 +352,9 @@ def int4_lanes(fn: str, q, k_cache, v_cache, kv_scale, n_heads: int) -> tuple[in
     of channel ``c`` sits in lane ``c // kgs`` (``kgs`` channels a group)
     or lane 0 with ``kgs = 0``, the value scale in lane ``voff + c // vgs``
     or ``voff``. Raises ``ValueError`` for a layout the kernels do not
-    serve: odd head counts (a head would straddle the two nibble halves),
-    groups narrower than a head, a mixed cache without scales."""
+    serve: a mixed cache without scales, a scale row whose width fits no
+    form. Odd head counts and groups narrower than a head are served (by
+    the one-head form of G and H on the card)."""
     b, _, d = q.shape
     if v_cache.dtype != torch.uint8 or k_cache.dtype not in (torch.uint8, torch.int8):
         raise ValueError(f"{fn}: uint8 values with uint8 or int8 keys, got {k_cache.dtype}, {v_cache.dtype}")
@@ -357,8 +362,6 @@ def int4_lanes(fn: str, q, k_cache, v_cache, kv_scale, n_heads: int) -> tuple[in
     l_dim, kb, ctx, ds_k = k_cache.shape
     if (kb, ds_k) != (b, d // 2 if k4 else d) or v_cache.shape != (l_dim, b, ctx, d // 2):
         raise ValueError(f"{fn}: cache shapes do not match the query")
-    if n_heads % 2:
-        raise ValueError(f"{fn}: an int4 self cache needs an even head count, got {n_heads}")
     if kv_scale is None:
         if not k4:
             raise ValueError(f"{fn}: int8 keys with int4 values carry scales")
@@ -370,8 +373,6 @@ def int4_lanes(fn: str, q, k_cache, v_cache, kv_scale, n_heads: int) -> tuple[in
         return 1, 2, 0, 0, 1
     ng = sw // 2 if k4 else sw - 1
     gs = d // ng
-    if gs % (d // n_heads):
-        raise ValueError(f"{fn}: scale groups of {gs} channels split a head")
     return (1, sw, gs, gs, ng) if k4 else (0, sw, 0, gs, 1)
 
 
@@ -421,6 +422,8 @@ def _int4_call(fn, q, k_cache, v_cache, kv_scale, layer, valid, n_heads, extra):
     if q.device.type == "cpu":
         return None
     _check_heads(d, n_heads)
+    if any(gs % 16 for gs in lanes[2:4]):
+        raise ValueError(f"{fn}: the kernel takes scale groups of a multiple of 16 channels, got {lanes[2:4]}")
     q, extra = q.contiguous(), tuple(t.contiguous() for t in extra)
     scales = () if kv_scale is None else (kv_scale,)
     _build.require_cuda(q, k_cache, v_cache, *scales, *extra)
@@ -570,7 +573,7 @@ def decode_cross_attention(
     if batch_groups < 1 or (kb * batch_groups, dk * (2 if packed else 1)) != (b, d):
         raise ValueError(f"decode_cross_attention: {b} query streams for {kb} cache entries x {batch_groups}")
     v_shape = (l_dim, kb, t // 2, d) if packed else (l_dim, kb, t, d)
-    if v.shape != v_shape or v.dtype != kT.dtype or t % (2 if packed else 4) or n_heads % 2:
+    if v.shape != v_shape or v.dtype != kT.dtype or t % (2 if packed else 4) or d % n_heads:
         raise ValueError("decode_cross_attention: cache shapes do not match the query")
     if not (0 < valid <= t and 0 <= layer < l_dim):
         raise ValueError(f"decode_cross_attention: valid {valid} / layer {layer} out of range")

@@ -73,13 +73,16 @@ def gelu(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 def fused_ffn_plain(
     x2: torch.Tensor, qw1: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
-    qw2: torch.Tensor, s2: torch.Tensor, b2: torch.Tensor, kind: str, bias_after_round: bool,
+    qw2: torch.Tensor, s2: torch.Tensor, b2: torch.Tensor | None, kind: str, bias_after_round: bool,
 ) -> torch.Tensor:
-    """``x2 [M, D] -> [M, D]`` in x2's dtype, the arithmetic of K4 / K7."""
+    """``x2 [M, D] -> [M, D]`` in x2's dtype, the arithmetic of K4 / K7;
+    ``b2`` None adds a zero bias."""
     dt = x2.dtype
     h = x2.float() @ dequant_weight(qw1, s1, dt).float() + b1.float()
     g = gelu(h, kind).to(dt)
     y = g.float() @ dequant_weight(qw2, s2, dt).float()
+    if b2 is None:
+        b2 = y.new_zeros(y.shape[-1])
     if bias_after_round:
         return y.to(dt) + b2.to(dt)
     return (y + b2.float()).to(dt)
@@ -150,28 +153,32 @@ def _plan(device: torch.device, m: int, d: int, f: int, bf16: bool):
 
 def _checked(ws: tuple, stacked: bool, device: torch.device) -> tuple:
     """``(d, f, [(address, layer stride in bytes)] x 6)`` of the six weight
-    tensors, checked once per set of tensors (while they live): shapes,
-    int8 codes and f32 scales and biases, contiguous, 16-byte aligned, on
-    ``device``."""
+    tensors (fc2's bias may be None: address 0), checked once per set of
+    tensors (while they live): shapes, int8 codes and f32 scales and
+    biases, contiguous, 16-byte aligned, on ``device``."""
     key = (*map(id, ws), stacked, device)
     hit = _CHECKED.get(key)
     if hit is not None and all(r() is a for r, a in zip(hit[0], ws)):
         return hit[1]
-    qw1, s1, b1, qw2, s2, b2 = (a.shape[int(stacked):] for a in ws)
+    given = [a for a in ws if a is not None]
+    qw1, s1, b1, qw2, s2, b2 = (None if a is None else a.shape[int(stacked):] for a in ws)
     d, f = qw1
-    if (d % 32 or f % 32 or s1 != (d // 32, f) or b1 != (f,) or qw2 != (f, d) or s2 != (f // 32, d) or b2 != (d,)
-            or (stacked and any(a.shape[0] != ws[0].shape[0] for a in ws))):
-        raise ValueError(f"fused_ffn shapes: fc1 {[tuple(a.shape) for a in ws[:3]]}, fc2 {[tuple(a.shape) for a in ws[3:]]}")
+    if (d % 32 or f % 32 or s1 != (d // 32, f) or b1 != (f,) or qw2 != (f, d) or s2 != (f // 32, d)
+            or b2 not in (None, (d,)) or (stacked and any(a.shape[0] != ws[0].shape[0] for a in given))):
+        raise ValueError(f"fused_ffn shapes: fc1 {[tuple(a.shape) for a in ws[:3]]}, "
+                         f"fc2 {[None if a is None else tuple(a.shape) for a in ws[3:]]}")
     if device.type != "cpu":
-        _build.require_cuda(*ws)
-        if any(a.device != device for a in ws):
+        _build.require_cuda(*given)
+        if any(a.device != device for a in given):
             raise ValueError(f"fused_ffn: weights on {ws[0].device}, x on {device}")
-        if ws[0].dtype != torch.int8 or ws[3].dtype != torch.int8 or any(ws[i].dtype != torch.float32 for i in (1, 2, 4, 5)):
+        if (ws[0].dtype != torch.int8 or ws[3].dtype != torch.int8
+                or any(ws[i].dtype != torch.float32 for i in (1, 2, 4, 5) if ws[i] is not None)):
             raise ValueError("fused_ffn takes int8 codes and f32 scales and biases")
-        if any(a.data_ptr() % 16 or (stacked and a.stride(0) * a.element_size() % 16) for a in ws):
+        if any(a.data_ptr() % 16 or (stacked and a.stride(0) * a.element_size() % 16) for a in given):
             raise ValueError("fused_ffn copies in 16-byte pieces: pass aligned tensors")
-    out = (d, f, [(a.data_ptr(), a.stride(0) * a.element_size() if stacked else 0) for a in ws])
-    _CHECKED[key] = ([weakref.ref(a) for a in ws], out)
+    out = (d, f, [(0, 0) if a is None else (a.data_ptr(), a.stride(0) * a.element_size() if stacked else 0)
+                  for a in ws])
+    _CHECKED[key] = ([(lambda: None) if a is None else weakref.ref(a) for a in ws], out)
     return out
 
 
@@ -181,9 +188,10 @@ def fused_ffn(
 ) -> torch.Tensor:
     """``x [..., D] -> [..., D]`` in x's dtype (f32 or bf16). ``fc1``:
     ``qw`` int8 ``[D, F]``, ``scales`` f32 ``[D/32, F]``, ``b`` f32 ``[F]``;
-    ``fc2`` the same at ``[F, D]``; each stacked ``[L, ...]`` with
-    ``layer``. ``kind``: "tanh" or "erf"."""
-    ws = (fc1["qw"], fc1["scales"], fc1["b"], fc2["qw"], fc2["scales"], fc2["b"])
+    ``fc2`` the same at ``[F, D]``, or without ``b`` (a zero bias: a
+    tensor-parallel shard's, whose bias is added after the sum); each
+    stacked ``[L, ...]`` with ``layer``. ``kind``: "tanh" or "erf"."""
+    ws = (fc1["qw"], fc1["scales"], fc1["b"], fc2["qw"], fc2["scales"], fc2.get("b"))
     if layer is not None:
         if not -ws[0].shape[0] <= layer < ws[0].shape[0]:
             raise IndexError(f"fused_ffn: layer {layer} of {ws[0].shape[0]} stacked")
@@ -196,7 +204,7 @@ def fused_ffn(
     batch = x.shape[:-1]
     x2 = x.reshape(-1, d)
     if x.device.type == "cpu":
-        one = ws if layer is None else [a[layer] for a in ws]
+        one = ws if layer is None else [None if a is None else a[layer] for a in ws]
         return fused_ffn_plain(x2, *one, kind, bias_after_round).reshape(*batch, d)
 
     x2 = x2.contiguous()

@@ -15,8 +15,13 @@ What the JAX module has and this one does not:
 * ``bucket_batches=False`` (decoding a batch at its own size) is not
   ported: every batch is bucketed, the JAX default, and serving pads its
   batches to one size itself (``serving.BatchingTranscriber``). Each
-  unbucketed size would capture runners of its own;
-* a device ``mesh`` (tensor and data parallelism) waits for item 15.
+  unbucketed size would capture runners of its own.
+
+With a ``mesh`` (``parallel/mesh.make_mesh``) the pipeline runs on every
+rank of it (SPMD): each rank holds its shard of the params on its own
+device, takes its data index's utterances of each batch and decodes them
+on its shard (``parallel/sharded.decode_rows``), and the results are
+gathered over the data ranks, so every rank returns the whole batch.
 """
 
 from __future__ import annotations
@@ -65,13 +70,17 @@ def quantize_logit_embedding(tok_emb: torch.Tensor) -> dict:
     return {"qw": qw.reshape(k, n_pad), "scales": s}
 
 
-def prepare_params(params: dict, compute: Compute) -> dict:
+def prepare_params(params: dict, compute: Compute, tp: int = 1) -> dict:
     """Fuse the q/k/v projections, attach the W8A8 copies when
     ``compute.w8a8``, add the int8 logits embedding when
     ``compute.quantized_logits``, and cast dense weights, the embedding and
     the positions to the compute dtype (LayerNorm params, biases and
-    quantization scales stay f32). Runs on the params' device."""
-    params = fuse_attention_params(params)
+    quantization scales stay f32). Runs on the params' device. Under tensor
+    parallelism pass ``tp``, the model axis's size: the fused N axis is
+    then built shard-interleaved, for ``parallel/sharding.shard_params``
+    (the W8A8 copies' column scales come from the whole K, as the JAX
+    package's, before the split)."""
+    params = fuse_attention_params(params, tp)
     if compute.w8a8:
         params = attach_w8a8(params)
     if compute.quantized_logits and "tok_emb_q" not in params["decoder"]:
@@ -177,7 +186,11 @@ class WhisperPipeline:
     search. A batch is always padded to the next power of two with silence
     and language 50259, as the JAX pipeline does: a quantized cross cache
     takes its scales over the whole batch, so the padding is part of the
-    result. ``profile`` keeps per-stage wall times (audio prep, device
+    result. With a ``mesh`` the parameters are prepared for its
+    model axis and sharded (``parallel/sharding.py``) on the mesh's device
+    (``device`` must then be None or that device), and a batch is padded
+    so that every data rank gets the same power-of-two count, as the JAX
+    pipeline does. ``profile`` keeps per-stage wall times (audio prep, device
     step, detokenize) and throughput, read with :meth:`profile_report`.
     """
 
@@ -194,8 +207,6 @@ class WhisperPipeline:
         profile: bool = False,
         device: str | torch.device | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("a device mesh is not ported yet: ROADMAP Queue 1, item 15")
         cfg, params = (model.config, model.params) if isinstance(model, LoadedModel) else model
         if frontend == "openai":
             cfg = cfg.replace(gelu="erf")
@@ -205,6 +216,18 @@ class WhisperPipeline:
             mel_norm = None
         else:
             raise ValueError(f"unknown frontend {frontend!r}")
+        tp = 1
+        if mesh is not None:
+            from whisper_burn_tpu_torch.parallel.mesh import Mesh
+            from whisper_burn_tpu_torch.parallel.sharded import validate_tp
+
+            if not isinstance(mesh, Mesh) or not mesh.in_mesh:
+                raise ValueError(f"mesh must be this rank's parallel.mesh.Mesh (make_mesh), got {mesh!r}")
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            tp = validate_tp(cfg, mesh)
+            device = mesh.device
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.config = cfg
         self.compute = compute or Compute.parity()
@@ -212,7 +235,11 @@ class WhisperPipeline:
         self.max_tokens = max_tokens
         self.beam_width = beam_width
         self.task = task
-        self.params = prepare_params(_to_device(params, self.device), self.compute)
+        self.params = prepare_params(_to_device(params, self.device), self.compute, tp)
+        if mesh is not None:
+            from whisper_burn_tpu_torch.parallel.sharding import shard_params
+
+            self.params = shard_params(self.params, mesh)
         self.mel = MelFrontend(n_mels=cfg.n_mels, norm=mel_norm)
         # 30 s (480,000 samples) for real models; from the audio context so
         # small test configs work too (frames = 2 * n_audio_ctx)
@@ -222,10 +249,20 @@ class WhisperPipeline:
         self.throughput = ThroughputMeter() if profile else None
 
     def _decode(self, samples: np.ndarray, lang_tokens: np.ndarray, detect: bool):
+        if self.mesh is not None:  # this rank's utterances; the mel is per utterance
+            rows = self.mesh.rows(len(samples))
+            samples, lang_tokens = samples[rows], lang_tokens[rows]
         audio = torch.from_numpy(samples).to(self.device)
         langs = torch.from_numpy(lang_tokens).to(self.device)
         features = self.mel(audio)  # [B, n_mels, 2 * n_audio_ctx]
         cfg, compute = self.config, self.compute
+        if self.mesh is not None:
+            from whisper_burn_tpu_torch.parallel.sharded import decode_rows
+
+            return decode_rows(
+                self.params, cfg, features, langs, compute, self.mesh, beam_width=self.beam_width,
+                detect=detect, max_tokens=self.max_tokens, task=self.task,
+            )
         if self.beam_width > 1:
             return beam_decode(
                 self.params, cfg, features, langs, compute, beam_width=self.beam_width,
@@ -261,6 +298,12 @@ class WhisperPipeline:
         detect = bool((lang_tokens < 0).any())
 
         padded_b = 1 << (b - 1).bit_length()  # next power of two
+        data = 1 if self.mesh is None else self.mesh.data
+        if data > 1:
+            # every data rank gets the same power-of-two utterance count
+            per_rank = -(-padded_b // data)
+            per_rank = 1 << max(0, per_rank - 1).bit_length() if per_rank > 1 else 1
+            padded_b = data * per_rank
         if padded_b != b:
             pad = padded_b - b
             samples = np.concatenate([samples, np.zeros((pad,) + samples.shape[1:], samples.dtype)])
