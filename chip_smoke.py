@@ -67,8 +67,26 @@ Phases, each timed and each fatal on failure:
    ``transcribe --bf16 --json --trace`` of two WAVs (the trace
    naming kernels A, I, C' and D), ``eval --bf16`` of a four-row manifest,
    ``serve --port 0`` for one ``/healthz`` and one POST, then SIGINT, exit
-   0 (``{"phase": "serving_cli", ...}``: each command's wall). The
-   directory is removed on the way out.
+   0 (``{"phase": "serving_cli", ...}``: each command's wall);
+   3d. ``serve`` over a mesh, on the same checkpoint: two processes of this
+   script (``--rank serving_mesh``) share the card over an explicit gloo
+   group at mesh (2, 1), each loading the checkpoint (warm) into the
+   pipeline ``serve`` builds from its default options (batch 8, 4 a
+   rank). Rank 0 hands each batch to rank 1 over the control group
+   (``parallel/multihost.control_group``): a ``BatchingTranscriber`` given
+   eight seeded utterances in order (one batch), then ``serve_http`` given
+   phase 3c's HTTP mix (32 requests from 8 clients) from this process,
+   then SIGINT to both ranks; rank 1 follows (``serving.follow_batches``).
+   Every reply 200, rank 1's batches as many as rank 0 formed, on each
+   rank the first batch's launches as the shapes predict at B = 4, every
+   kernel of the path launched, one captured runner of batch 4, its rows
+   of the eight equal bit for bit to a one-rank pipeline's at batch 4,
+   every rank exit 0; then ``serve --dp 1`` under ``torch.distributed.run``
+   (NCCL at world 1): ``/healthz`` and phase 3c's POST with its language
+   token, then SIGINT to the rank, exit 0 (``{"phase": "serving_mesh",
+   ...}``: latency, requests/s, audio-s/s, batches, fill, each rank's
+   set-up and capture ms, the hand-off's ms a batch). The directory is
+   removed on the way out.
    The first request of a path is its warm-up. Every request
    runs its decode loop through a cached runner's CUDA graphs of the step
    (``models/whisper.py``, ``models/beam.py``): the runner's first request
@@ -1584,20 +1602,15 @@ def serving_in_process(pipe, cfg, rng) -> dict:
             "launches": launches, "n_tokens": [len(r.tokens) for r in got8 + got5]}
 
 
-def serving_http(pipe, cfg, rng, batch: int) -> dict:
-    """(b) ``serve_http(pipe, port=0, batch_size=batch)`` with SERVE_CLIENTS
-    client threads sending SERVE_EACH WAVs each (16-bit PCM, 5-30 s, every
-    third at 44.1 kHz stereo, half with the language detected): every reply
-    200 with a language token in range; a malformed body 400; ``/stats``
-    with every request completed and batches of more than one on average.
-    This thread touches no CUDA while the server decodes; the launches are
-    read after shutdown, and every kernel of the path must have run."""
+def http_traffic(base: str, cfg, rng) -> dict:
+    """SERVE_CLIENTS client threads sending SERVE_EACH WAVs each to the
+    server at ``base`` (16-bit PCM, 5-30 s, every third at 44.1 kHz stereo,
+    half with the language detected): every reply 200 with a language
+    token in range; a malformed body 400; ``/stats`` with every request
+    completed and batches of more than one on average."""
     import threading
     import urllib.error
     import urllib.request
-
-    from whisper_burn_tpu_torch.ops import _build
-    from whisper_burn_tpu_torch.serving import serve_http
 
     bodies, audio_s = {}, 0.0
     for c in range(SERVE_CLIENTS):
@@ -1607,12 +1620,6 @@ def serving_http(pipe, cfg, rng, batch: int) -> dict:
             lang = "auto" if i % 2 else ("en", "de", "fr", "es")[c % 4]
             bodies[c, i] = (pcm_wav(utterance(rng, seconds, rate), rate, 2 if stereo else 1), lang)
             audio_s += int(seconds * rate) / rate
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    server, transcriber = serve_http(pipe, port=0, batch_size=batch)
-    base = f"http://127.0.0.1:{server.server_address[1]}"
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
     replies, errors = {}, []
 
     def client(c):
@@ -1626,27 +1633,21 @@ def serving_http(pipe, cfg, rng, batch: int) -> dict:
         except Exception as e:  # raised below
             errors.append(e)
 
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+    for th in clients:
+        th.start()
+    for th in clients:
+        th.join()
+    wall = time.perf_counter() - t0
     try:
-        t0 = time.perf_counter()
-        clients = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
-        for th in clients:
-            th.start()
-        for th in clients:
-            th.join()
-        wall = time.perf_counter() - t0
-        try:
-            urllib.request.urlopen(urllib.request.Request(f"{base}/v1/transcribe", data=b"RIFF, but no WAV",
-                                                          method="POST"), timeout=60)
-            malformed = 200
-        except urllib.error.HTTPError as e:
-            malformed = e.code
-        with urllib.request.urlopen(f"{base}/stats", timeout=60) as resp:
-            stats = json.loads(resp.read())
-    finally:
-        server.shutdown()
-        server.server_close()
-        final = transcriber.shutdown(timeout=900)
-        thread.join(timeout=60)
+        urllib.request.urlopen(urllib.request.Request(f"{base}/v1/transcribe", data=b"RIFF, but no WAV",
+                                                      method="POST"), timeout=60)
+        malformed = 200
+    except urllib.error.HTTPError as e:
+        malformed = e.code
+    with urllib.request.urlopen(f"{base}/stats", timeout=60) as resp:
+        stats = json.loads(resp.read())
     if errors:
         raise AssertionError(f"serving over HTTP: a client failed: {errors[0]!r}")
     bad = {k: v for k, v in replies.items()
@@ -1657,15 +1658,40 @@ def serving_http(pipe, cfg, rng, batch: int) -> dict:
         raise AssertionError(f"serving over HTTP: a malformed body got {malformed}, not 400")
     if stats["completed"] != len(replies) or stats["failed"] or not stats["mean_batch_fill"] > 1:
         raise AssertionError(f"serving over HTTP: /stats {stats}")
+    return {"requests": len(replies), "clients": SERVE_CLIENTS, "wall_s": wall, "requests_per_s": len(replies) / wall,
+            "audio_s": audio_s, "audio_s_per_s": audio_s / wall, "latency_ms": stats["latency_ms"],
+            "batches": stats["batches"], "mean_batch_fill": stats["mean_batch_fill"],
+            "stats_requests_per_s": stats["requests_per_s"],
+            "inference_ms": sorted(v[1]["inference_ms"] for v in replies.values())}
+
+
+def serving_http(pipe, cfg, rng, batch: int) -> dict:
+    """(b) ``serve_http(pipe, port=0, batch_size=batch)`` under
+    :func:`http_traffic`. This thread touches no CUDA while the server
+    decodes; the launches are read after shutdown, and every kernel of the
+    path must have run."""
+    import threading
+
+    from whisper_burn_tpu_torch.ops import _build
+    from whisper_burn_tpu_torch.serving import serve_http
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    server, transcriber = serve_http(pipe, port=0, batch_size=batch)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        traffic = http_traffic(f"http://127.0.0.1:{server.server_address[1]}", cfg, rng)
+    finally:
+        server.shutdown()
+        server.server_close()
+        final = transcriber.shutdown(timeout=900)
+        thread.join(timeout=60)
     launches = dict(_build.LAUNCHES)
     missing = sorted(k for k in predicted_launches(cfg, pipe.compute, batch, 1, False) if not launches.get(k))
     if missing or launches.get(self_kernel(pipe.compute, False), 0) % cfg.n_text_layer:
         raise AssertionError(f"serving over HTTP: kernels {missing} not launched ({launches})")
-    return {"requests": len(replies), "clients": SERVE_CLIENTS, "wall_s": wall, "requests_per_s": len(replies) / wall,
-            "audio_s": audio_s, "audio_s_per_s": audio_s / wall, "latency_ms": stats["latency_ms"],
-            "batches": stats["batches"], "mean_batch_fill": stats["mean_batch_fill"],
-            "stats_requests_per_s": stats["requests_per_s"], "final": final, "launches": launches,
-            "inference_ms": sorted(v[1]["inference_ms"] for v in replies.values())}
+    return {**traffic, "final": final, "launches": launches}
 
 
 def serving_cli(tmp: Path, gguf: Path, cfg, rng) -> dict:
@@ -1750,12 +1776,13 @@ def serving_cli(tmp: Path, gguf: Path, cfg, rng) -> dict:
             "eval": summary, "serve_reply": body}
 
 
-def serving_phase(tmp: Path, params, cfg, captured: weakref.WeakSet) -> None:
+def serving_phase(tmp: Path, params, cfg, captured: weakref.WeakSet) -> dict:
     """Phase 3c: a ``WhisperPipeline`` over ``params`` (on the card) as
     ``serve`` builds it from its default options (its compute, beam width
     and batch), through the batching transcriber in process, then over
     HTTP (one runner, B = 8, captured in the first; none other), then the
-    CLI in processes of its own on the checkpoint ``tmp`` holds."""
+    CLI in processes of its own on the checkpoint ``tmp`` holds. Returns
+    the one-rank ``serve``'s reply to its POST."""
     from whisper_burn_tpu_torch import cli as port_cli
     from whisper_burn_tpu_torch.models.whisper import GreedyRunner, cached_runners
     from whisper_burn_tpu_torch.transcribe import WhisperPipeline
@@ -1788,6 +1815,239 @@ def serving_phase(tmp: Path, params, cfg, captured: weakref.WeakSet) -> None:
     t0 = time.perf_counter()
     cli = serving_cli(tmp, gguf, cfg, rng)
     log({"phase": "serving_cli", "seconds": time.perf_counter() - t0, **cli})
+    return cli["serve_reply"]
+
+
+# --------------------------------------------------------------------------
+# phase 3d: serve over a mesh of two ranks sharing the card, and over NCCL
+# at world 1
+
+MESH_SECONDS = (1.0, 30.0, 5.0, 12.0, 30.0, 2.5, 20.0, 8.0)
+MESH_LANGS = ("en", "auto", "de", "fr", "auto", "es", "ja", "en")  # each rank's half detects a language
+
+
+def serving_mesh_rank(rank: int, world: int, port: int, out: Path) -> None:
+    """One of two ranks sharing the card at mesh (2, 1) over an explicit
+    gloo group (NCCL takes no two ranks of one communicator on one device),
+    serving Large-V3-Turbo from the GGUF at ``CHIP_SMOKE_GGUF`` (the
+    repacked cache warm) in the pipeline ``serve`` builds from its default
+    options, the control group made right after the mesh's groups:
+
+    * rank 0: a ``BatchingTranscriber`` (batch 8, 2 s wait) given eight
+      seeded utterances in order, one batch handed to rank 1, then
+      stopped; then ``serve_http`` on port 0 (its port written to
+      ``OUT/port``) until SIGINT;
+    * rank 1: ``follow_batches`` for each of the two;
+    * each rank: its launches for the first batch and in all, the runners
+      of the meshed pipeline, and its rows of the eight through a one-rank
+      pipeline (no mesh) at the per-rank batch of 4."""
+    from whisper_burn_tpu_torch import cli as port_cli
+    from whisper_burn_tpu_torch.gguf.cache import load_whisper
+    from whisper_burn_tpu_torch.models.whisper import cached_runners
+    from whisper_burn_tpu_torch.ops import _build
+    from whisper_burn_tpu_torch.parallel import make_mesh
+    from whisper_burn_tpu_torch.parallel.multihost import control_group, initialize
+    from whisper_burn_tpu_torch.serving import BatchingTranscriber, follow_batches, run_until_interrupted, serve_http
+    from whisper_burn_tpu_torch.transcribe import WhisperPipeline
+
+    dev = initialize(f"localhost:{port}", world, rank, device="cuda:0", backend="gloo")
+    mesh = make_mesh(2, 1, device=dev)
+    group = control_group()
+    gguf = os.environ["CHIP_SMOKE_GGUF"]
+    args = port_cli.build_parser().parse_args(["serve", "--model", gguf])
+    t0 = time.perf_counter()
+    model = load_whisper(gguf)
+    pipe = WhisperPipeline(model, None, compute=port_cli.serving_compute(args), beam_width=args.beam, mesh=mesh)
+    torch.cuda.synchronize()
+    report = {"rank": rank, "setup_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(SEED + 50)
+    eight = [utterance(rng, s) for s in MESH_SECONDS]
+    _build.reset_launches()
+    if rank == 0:
+        transcriber = BatchingTranscriber(pipe, batch_size=args.batch, max_wait_ms=2000, group=group)
+        try:
+            t0 = time.perf_counter()
+            got = [r.wait(timeout=900) for r in [transcriber.submit(a, lang) for a, lang in zip(eight, MESH_LANGS)]]
+            first_s = time.perf_counter() - t0
+            report["first_batch_launches"] = dict(_build.LAUNCHES)
+        finally:
+            snap = transcriber.shutdown(timeout=900)
+        report["in_process"] = {"first_batch_ms": first_s * 1e3, "stats": snap, "handoffs": transcriber.handoffs,
+                                "handoff_ms": transcriber.handoff_s * 1e3, "tokens": [r.tokens.tolist() for r in got],
+                                "lang_tokens": [r.lang_token for r in got]}
+        server, http = serve_http(pipe, port=0, batch_size=args.batch, group=group)
+        (out / "port.tmp").write_text(str(server.server_address[1]))
+        (out / "port.tmp").rename(out / "port")
+        if run_until_interrupted(server, http):
+            raise RuntimeError(f"serving_mesh rank 0: serving stopped: {http.fault!r}")
+        report["http"] = {"stats": http.stats.snapshot(), "handoffs": http.handoffs,
+                          "handoff_ms_per_batch": http.handoff_s * 1e3 / max(http.handoffs, 1)}
+    else:
+        followed = [follow_batches(pipe, group)]
+        report["first_batch_launches"] = dict(_build.LAUNCHES)
+        followed.append(follow_batches(pipe, group))
+        report["followed"] = followed
+    torch.cuda.synchronize()
+    report["launches"] = dict(_build.LAUNCHES)
+    steps = report["first_batch_launches"].get(self_kernel(pipe.compute, False), 0) // pipe.config.n_text_layer
+    report["first_batch_steps"] = steps
+    report["first_batch_predicted"] = predicted_launches(pipe.config, pipe.compute, args.batch // mesh.data, steps,
+                                                         False, detect=True)
+    report["missing"] = sorted(k for k in report["first_batch_predicted"] if not report["launches"].get(k))
+    report["runners"] = [{"kind": type(r).__name__, "batch": r.batch,
+                          "capture_ms": None if r.capture_s is None else r.capture_s * 1e3}
+                         for r in cached_runners() if r.params is pipe.params]
+    rows = mesh.rows(len(eight))
+    plain = WhisperPipeline(model, None, compute=pipe.compute, beam_width=args.beam)
+    ref = plain.transcribe_batch(eight[rows], list(MESH_LANGS[rows]))
+    report["one_rank"] = {"rows": [rows.start, rows.stop], "tokens": [r.tokens.tolist() for r in ref],
+                          "lang_tokens": [r.lang_token for r in ref]}
+    (out / f"rank{rank}.json").write_text(json.dumps(report))
+    torch.distributed.destroy_process_group()
+
+
+def child_pids(pid: int) -> list[int]:
+    """The processes whose parent is ``pid`` (read from ``/proc``)."""
+    out = []
+    for entry in Path("/proc").iterdir():
+        if entry.name.isdigit():
+            try:
+                stat = (entry / "stat").read_text()
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                out.append(int(entry.name))
+    return out
+
+
+def serve_nccl_world1(tmp: Path, gguf: Path, wav: Path, reply: dict) -> dict:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
+    whisper_burn_tpu_torch.cli serve --dp 1 --port 0``: a one-rank NCCL
+    group, mesh (1, 1), the control group over gloo and nothing handed
+    over. ``/healthz``, the POST of phase 3c's ``serve`` with its language
+    token, then SIGINT to the rank (torchrun starts it in a session of its
+    own and, SIGINTed itself, exits 1 by its own design): the rank and so
+    torchrun exit 0."""
+    import signal
+    import threading
+    import urllib.request
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root), XDG_CONFIG_HOME=str(tmp / "xdg"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1", "-m",
+           "whisper_burn_tpu_torch.cli", "serve", "--model", str(gguf), "--dp", "1", "--port", "0"]
+    t0 = time.perf_counter()
+    with open(tmp / "serve_nccl.err", "w") as err:
+        proc = subprocess.Popen(cmd, cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    ranks: list[int] = []
+
+    def stop():  # the rank first: torchrun killed alone would leave it running
+        for pid in ranks or child_pids(proc.pid):
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        proc.kill()
+
+    timer = threading.Timer(600, stop)  # a server that never answers is stopped
+    timer.start()
+    try:
+        line = proc.stdout.readline()
+        if not line.startswith("serving on http://"):
+            raise AssertionError(f"serve --dp 1 under torchrun: {line!r} {(tmp / 'serve_nccl.err').read_text()[-3000:]}")
+        start_s = time.perf_counter() - t0
+        ranks.extend(child_pids(proc.pid))
+        base = line.split()[-1]
+        with urllib.request.urlopen(f"{base}/healthz", timeout=60) as resp:
+            healthy = json.loads(resp.read()) == {"status": "ok"}
+        req = urllib.request.Request(f"{base}/v1/transcribe", data=wav.read_bytes(), method="POST")
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status, body = resp.status, json.loads(resp.read())
+        if len(ranks) != 1:
+            raise AssertionError(f"serve --dp 1 under torchrun: rank processes {ranks}, not one")
+        os.kill(ranks[0], signal.SIGINT)
+        proc.communicate(timeout=120)
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            stop()
+            proc.communicate()
+    log_text = (tmp / "serve_nccl.err").read_text()
+    line = {"start_s": start_s, "wall_s": time.perf_counter() - t0, "healthz": healthy, "status": status,
+            "reply": body, "one_rank_reply": reply, "exit": proc.returncode,
+            "group": next((x for x in log_text.splitlines() if x.startswith("rank 0 of")), None)}
+    if not (healthy and status == 200 and body["lang_token"] == reply["lang_token"] and proc.returncode == 0
+            and line["group"] == "rank 0 of 1: mesh 1x1 over nccl"):
+        raise AssertionError(f"serve --dp 1 under torchrun: {line}: {log_text[-3000:]}")
+    return line
+
+
+def serving_mesh_phase(tmp: Path, gguf: Path, cfg, reply: dict) -> dict:
+    """Phase 3d: ``serving_mesh_rank`` on two ranks sharing the card at
+    mesh (2, 1), rank 0 given :func:`http_traffic` from this process, then
+    SIGINT to both (as a terminal's Ctrl-C; rank 1 ignores it and leaves on
+    rank 0's stop). Checks: every reply 200 (``http_traffic``'s checks);
+    rank 1 followed as many batches as rank 0 formed, in process and over
+    HTTP; on each rank the first batch's launches as the shapes predict,
+    every kernel of the path launched, one captured runner of batch 4, and
+    its rows of the in-process batch equal bit for bit to the one-rank
+    pipeline's at batch 4; every rank exits 0. Then ``serve --dp 1`` under
+    torchrun over NCCL (:func:`serve_nccl_world1`)."""
+    import signal
+
+    out = tmp / "serving_mesh"
+    out.mkdir()
+    rng = np.random.default_rng(SEED + 60)
+    t0 = time.perf_counter()
+    procs = start_ranks("serving_mesh", 2, out, {"CHIP_SMOKE_GGUF": str(gguf)})
+    try:
+        deadline = time.perf_counter() + 600
+        while not (out / "port").exists():
+            if any(p.poll() is not None for p in procs) or time.perf_counter() > deadline:
+                raise AssertionError("serving_mesh: rank 0 never served")  # finish_ranks says why
+            time.sleep(0.1)
+        start_s = time.perf_counter() - t0
+        http = http_traffic(f"http://127.0.0.1:{(out / 'port').read_text()}", cfg, rng)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGINT)
+        reports = finish_ranks("serving_mesh", procs, 300, out)
+    r0, r1 = reports
+    line = {"mesh": [2, 1], "backend": "gloo", "device": "cuda:0 (shared)", "ranks_start_s": start_s,
+            "wall_s": time.perf_counter() - t0, **{k: v for k, v in http.items() if k != "inference_ms"},
+            "setup_s": [r["setup_s"] for r in reports],
+            "capture_ms": [[x["capture_ms"] for x in r["runners"]] for r in reports],
+            "handoff_ms_per_batch": r0["http"]["handoff_ms_per_batch"],
+            "in_process": {k: r0["in_process"][k] for k in ("first_batch_ms", "handoffs", "handoff_ms")},
+            "followed": r1["followed"], "batches_rank0": [r0["in_process"]["stats"]["batches"],
+                                                          r0["http"]["stats"]["batches"]],
+            "first_batch_steps": [r["first_batch_steps"] for r in reports],
+            "first_batch_launches": [r["first_batch_launches"] for r in reports],
+            "launches": [r["launches"] for r in reports]}
+    if r1["followed"] != line["batches_rank0"] or [r0["in_process"]["handoffs"], r0["http"]["handoffs"]] != r1["followed"]:
+        raise AssertionError(f"serving_mesh: rank 1 followed {r1['followed']} batches, rank 0 formed "
+                             f"{line['batches_rank0']} and handed over {r0['in_process']['handoffs']}, "
+                             f"{r0['http']['handoffs']}")
+    tokens = r0["in_process"]["tokens"]
+    for r, rep in enumerate(reports):
+        if rep["first_batch_launches"] != rep["first_batch_predicted"]:
+            raise AssertionError(f"serving_mesh rank {r}: first batch's launches {rep['first_batch_launches']} "
+                                 f"differ from the prediction {rep['first_batch_predicted']}")
+        if rep["missing"]:
+            raise AssertionError(f"serving_mesh rank {r}: kernels {rep['missing']} not launched ({rep['launches']})")
+        if [(x["kind"], x["batch"], x["capture_ms"] is None) for x in rep["runners"]] != [
+                ("GreedyRunner", BATCH // 2, False)]:
+            raise AssertionError(f"serving_mesh rank {r}: runners {rep['runners']}, not one captured greedy runner "
+                                 f"of batch {BATCH // 2}")
+        lo, hi = rep["one_rank"]["rows"]
+        if tokens[lo:hi] != rep["one_rank"]["tokens"] or \
+                r0["in_process"]["lang_tokens"][lo:hi] != rep["one_rank"]["lang_tokens"]:
+            raise AssertionError(f"serving_mesh rank {r}: rows {lo}:{hi} of the meshed batch differ from the "
+                                 "one-rank pipeline's at the per-rank batch")
+    line["rows_equal_one_rank"] = True
+    line["nccl_world1"] = serve_nccl_world1(tmp, gguf, tmp / "cli0.wav", reply)
+    return line
 
 
 # --------------------------------------------------------------------------
@@ -2749,20 +3009,28 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_ranks(mode: str, world: int, timeout: float, out: Path, env_extra=None) -> list[dict]:
+def start_ranks(mode: str, world: int, out: Path, env_extra=None) -> list[subprocess.Popen]:
     """``world`` processes of this script in rank mode ``mode``, each
-    writing ``out/rank<r>.json``; every one is stopped on the way out.
-    Returns their JSON, or raises with the failing rank's output."""
+    writing ``out/rank<r>.json`` and its output to ``out/rank<r>.log``."""
     port = free_port()
     env = dict(os.environ, **(env_extra or {}))
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank", mode, str(r), str(world),
-                               str(port), str(out)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for r in range(world)]
-    logs = [""] * world
+    procs = []
+    for r in range(world):
+        with open(out / f"rank{r}.log", "w") as log_file:
+            procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank", mode, str(r),
+                                           str(world), str(port), str(out)], env=env, stdout=log_file,
+                                          stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def finish_ranks(mode: str, procs: list, timeout: float, out: Path) -> list[dict]:
+    """Wait for the ranks of :func:`start_ranks`; every one still running
+    after ``timeout`` is stopped. Returns their JSON, or raises with the
+    failing rank's output."""
     try:
         deadline = time.perf_counter() + timeout
-        for r, p in enumerate(procs):
-            logs[r] = p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0]
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2770,8 +3038,14 @@ def run_ranks(mode: str, world: int, timeout: float, out: Path, env_extra=None) 
                 p.wait()
     for r, p in enumerate(procs):
         if p.returncode != 0:
-            raise AssertionError(f"{mode} rank {r} exited {p.returncode}:\n{logs[r][-6000:]}")
-    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+            raise AssertionError(f"{mode} rank {r} exited {p.returncode}:\n{(out / f'rank{r}.log').read_text()[-6000:]}")
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(len(procs))]
+
+
+def run_ranks(mode: str, world: int, timeout: float, out: Path, env_extra=None) -> list[dict]:
+    """``world`` processes of this script in rank mode ``mode``, run to
+    their end (:func:`start_ranks`, :func:`finish_ranks`)."""
+    return finish_ranks(mode, start_ranks(mode, world, out, env_extra), timeout, out)
 
 
 def beam_agreement(got: list, ref: list, scores: list, ref_scores: list) -> list[dict]:
@@ -3147,7 +3421,7 @@ def rank_main(argv: list) -> int:
     if mode == "duplicate":
         duplicate_rank(rank, world, port, out)
     else:
-        {"scaleout": scaleout_rank, "nccl": nccl_rank}[mode](rank, world, port, out)
+        {"scaleout": scaleout_rank, "nccl": nccl_rank, "serving_mesh": serving_mesh_rank}[mode](rank, world, port, out)
     return 0
 
 
@@ -3296,9 +3570,15 @@ def main() -> int:
         # phase 3c: the warm Turbo model served in process and over HTTP,
         # then the CLI on its checkpoint
         t0 = time.perf_counter()
-        serving_phase(Path(tmp), traw, tcfg, captured)
+        reply = serving_phase(Path(tmp), traw, tcfg, captured)
         phases["serving_s"] = time.perf_counter() - t0
         del traw
+        # phase 3d: serve over a mesh of two ranks sharing the card, then
+        # over NCCL at world 1, on the same checkpoint
+        t0 = time.perf_counter()
+        line = serving_mesh_phase(Path(tmp), Path(tmp) / "whisper-large-v3-turbo.gguf", tcfg, reply)
+        phases["serving_mesh_s"] = time.perf_counter() - t0
+        log({"phase": "serving_mesh", "seconds": phases["serving_mesh_s"], **line})
     # kernel I's second, unit-blocked copy of each decoder stack's FFN
     # weights (made at a runner's eager first step, kept while they live)
     copies = [u for _, _, u in _UNITS.values()]

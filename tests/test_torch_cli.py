@@ -9,10 +9,11 @@ and ``eval`` give the JAX CLI's text, token counts and WER in f32 on 16 kHz
 WAVs; ``parity`` records, passes, fails on a divergence, skips without
 weights and records its offline intake chain; ``config`` saves under
 ``XDG_CONFIG_HOME``; ``serve`` maps its options to the JAX CLI's compute
-and serves over HTTP until SIGINT; ``transcribe --tp 2`` under
-``torch.distributed.run`` gives the JAX CLI's mesh text, ``serve
---dp/--tp`` and meshes one rank cannot hold raise; without a card
-and without ``--device cpu`` the commands refuse. Every path is under a
+and serves over HTTP until SIGINT, on one rank and on two (``--dp 2``,
+rank 0 serving, rank 1 following); ``transcribe --tp 2`` under
+``torch.distributed.run`` gives the JAX CLI's mesh text; meshes one rank
+cannot hold raise; without a card and without ``--device cpu`` the
+commands refuse. Every path is under a
 temporary directory."""
 
 import json
@@ -21,6 +22,7 @@ import pathlib
 import signal
 import subprocess
 import sys
+import threading
 import urllib.request
 
 import numpy as np
@@ -348,17 +350,32 @@ def test_serve_compute_mapping_matches_jax(options, monkeypatch):
         assert name(getattr(ours, f)) == name(getattr(ref, f)), f
 
 
-def test_serve_answers_over_http_until_sigint(files, tmp_path):
-    """``python -m whisper_burn_tpu_torch.cli serve`` on port 0 in its own
-    process: /healthz, one POST of a WAV, then SIGINT: exit 0."""
+def _serve(files, tmp_path, ranks: int, *options) -> tuple[dict, list[str]]:
+    """``python -m whisper_burn_tpu_torch.cli serve`` on port 0 in ``ranks``
+    processes of its own (more than one: with torchrun's environment, set
+    here, and the mesh ``options``): /healthz, one POST of a WAV, then
+    SIGINT to every rank, as a terminal's Ctrl-C sends it; every rank must
+    exit 0. Returns the reply and each rank's stderr."""
+    tmp_path.mkdir(exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT), XDG_CONFIG_HOME=str(tmp_path / "xdg"))
-    proc = subprocess.Popen(
+    envs = [env]
+    if ranks > 1:
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        envs = [dict(env, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(ranks), LOCAL_WORLD_SIZE=str(ranks),
+                     MASTER_ADDR="localhost", MASTER_PORT=str(port)) for r in range(ranks)]
+    procs = [subprocess.Popen(
         [sys.executable, "-m", "whisper_burn_tpu_torch.cli", "serve", "--model", files["gguf"], "--device", "cpu",
-         "--port", "0", "--batch", "2", "--compute", "parity"],
-        cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+         "--port", "0", "--batch", "2", "--compute", "parity", *options],
+        cwd=tmp_path, env=e, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for e in envs]
+    watchdog = threading.Timer(240, lambda: [p.kill() for p in procs])  # a server that never answers
+    watchdog.start()
     try:
-        line = proc.stdout.readline()
-        assert line.startswith("serving on http://127.0.0.1:"), line + proc.stderr.read()
+        line = procs[0].stdout.readline()
+        assert line.startswith("serving on http://127.0.0.1:"), line + procs[0].stderr.read()
         base = line.split()[-1]
         with urllib.request.urlopen(f"{base}/healthz", timeout=60) as resp:
             assert json.loads(resp.read()) == {"status": "ok"}
@@ -366,26 +383,52 @@ def test_serve_answers_over_http_until_sigint(files, tmp_path):
                                      headers={"X-Language": "en"}, method="POST")
         with urllib.request.urlopen(req, timeout=300) as resp:
             body = json.loads(resp.read())
-        assert resp.status == 200 and body["lang_token"] == 50259 and body["text"] == ""
-        proc.send_signal(signal.SIGINT)
-        assert proc.wait(timeout=60) == 0
+        assert resp.status == 200
+        for p in procs:
+            p.send_signal(signal.SIGINT)
+        errs = [p.communicate(timeout=60)[1] for p in procs]
+        assert [p.returncode for p in procs] == [0] * ranks, errs
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        proc.stdout.close()
-        proc.stderr.close()
+        watchdog.cancel()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.stdout.close()
+            p.stderr.close()
+    return body, errs
+
+
+@pytest.fixture(scope="module")
+def one_rank_reply(files, tmp_path_factory):
+    return _serve(files, tmp_path_factory.mktemp("serve"), 1)[0]
+
+
+def test_serve_answers_over_http_until_sigint(one_rank_reply):
+    """``python -m whisper_burn_tpu_torch.cli serve`` on port 0 in its own
+    process: /healthz, one POST of a WAV, then SIGINT: exit 0."""
+    assert one_rank_reply["lang_token"] == 50259 and one_rank_reply["text"] == ""
+
+
+def test_serve_on_two_ranks_until_sigint(files, tmp_path, one_rank_reply):
+    """``serve --dp 2`` on two CPU ranks with torchrun's environment: rank 0
+    serves /healthz and the POST, rank 1 decodes its half of the batch; the
+    reply equals the one-rank server's; SIGINT to both ranks ends each
+    with exit 0 (rank 1 ignores it and leaves on rank 0's stop)."""
+    body, errs = _serve(files, tmp_path, 2, "--dp", "2")
+    assert {k: body[k] for k in ("text", "lang_token")} == {k: one_rank_reply[k] for k in ("text", "lang_token")}
+    assert "rank 0 of 2: mesh 2x1 over gloo" in errs[0]
+    assert "rank 1: followed 1 batches" in errs[1]
 
 
 @pytest.mark.parametrize("command", ["transcribe", "serve"])
 @pytest.mark.parametrize("mesh", [["--dp", "2"], ["--tp", "2"], ["--dp", "1", "--tp", "4"]])
 def test_mesh_options_raise(files, command, mesh):
-    """``serve --dp/--tp`` waits for its ROADMAP item; ``transcribe`` runs
-    a mesh, but one rank (no ``torch.distributed.run``) holds none of
-    these, and the shape is refused before any process group starts."""
+    """``transcribe`` and ``serve`` run a mesh, but one rank (no
+    ``torch.distributed.run``) holds none of these, and the shape is
+    refused before any process group starts."""
     argv = ["transcribe", files["wavs"][0]] if command == "transcribe" else ["serve"]
-    error, match = (ValueError, "ranks") if command == "transcribe" else (NotImplementedError, "Queue 1, item 6")
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match="ranks"):
         cli.main(argv + ["--model", files["gguf"], "--device", "cpu", *mesh])
     assert not torch.distributed.is_initialized()
 

@@ -13,6 +13,10 @@ addressable shard of device (d, m), the interleaved fused q/k/v, at
 (bf16, W8A8 with its row scale over the local K shard, the sums in bf16,
 int8 logits), the 2-beam tokens and
 scores, and the pipeline's tokens on a batch of 6 (padded to 8). The
+serving round: rank 0's batching transcriber over the (2, 2) pipeline,
+the other ranks following, against the JAX package's transcriber over
+its mesh, then rank 0's HTTP server (an unknown language 400 on rank 0
+alone); a killed follower ends the job non-zero. The
 W8A8 row-parallel linear on identical local inputs is held at 1e-5; the
 replication guard must raise when the sums are dropped; the collective
 counts must be the shapes' prediction. Kernels G and H at an odd head
@@ -20,11 +24,16 @@ count (a shard's) against K11 in interpret mode, and an int4 cross cache
 at an odd head count against K3; kernel I's plain version with fc2's bias
 left out (the sharded FFN's call) against a zero bias."""
 
+import io
 import json
 import os
 import socket
 import subprocess
 import sys
+import time
+import urllib.error
+import urllib.request
+import wave
 from pathlib import Path
 
 import numpy as np
@@ -48,6 +57,7 @@ from whisper_burn_tpu.parallel import shard_params_tp as j_shard
 from whisper_burn_tpu.parallel import sharded_beam_decode as j_sharded_beam
 from whisper_burn_tpu.parallel import sharded_greedy_decode as j_sharded_greedy
 from whisper_burn_tpu.parallel.sharding import param_pspecs as j_pspecs
+from whisper_burn_tpu.serving import BatchingTranscriber as JTranscriber
 from whisper_burn_tpu.transcribe import WhisperPipeline as JPipeline
 from whisper_burn_tpu.transcribe import prepare_params as j_prepare
 
@@ -90,7 +100,9 @@ def _inputs():
     lang = np.full((B,), CFG.lang_token_start, np.int32)
     audio = (np.random.default_rng(0).standard_normal((6, CFG.n_audio_ctx * 2 * 160)) * 0.1).astype(np.float32)
     w8a8_x = np.random.default_rng(2).standard_normal((5, CFG.n_audio_state)).astype(np.float32)
-    return mel, lang, audio, w8a8_x
+    t = np.arange(int(0.2 * 16000)) / 16000  # the five tones of tests/test_serving.py's mesh test
+    tones = np.stack([(0.3 * np.sin(2 * np.pi * (200 + 60 * i) * t)).astype(np.float32) for i in range(5)])
+    return mel, lang, audio, w8a8_x, tones
 
 
 @pytest.fixture(scope="module")
@@ -103,20 +115,16 @@ def ranks(jparams, tmp_path_factory):
     """Start the four ranks, compute the JAX side while they run, then
     collect both: ``(outputs by rank, infos by rank, JAX results)``."""
     tmp = tmp_path_factory.mktemp("parallel")
-    mel, lang, audio, w8a8_x = _inputs()
-    np.savez(tmp / "params.npz", **_flatten(jparams),
-             **{"input/mel": mel, "input/lang": lang, "input/audio": audio, "input/w8a8_x": w8a8_x})
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
-    env["PYTHONPATH"] = str(ROOT)
+    mel, lang, audio, w8a8_x, tones = _inputs()
+    np.savez(tmp / "params.npz", **_flatten(jparams), **{"input/mel": mel, "input/lang": lang, "input/audio": audio,
+                                                        "input/w8a8_x": w8a8_x, "input/tones": tones})
+    port, env = _free_port(), _worker_env()
     procs = [subprocess.Popen([sys.executable, str(ROOT / "tests" / "torch_parallel_worker.py"), str(r), str(WORLD),
                                str(port), str(tmp / "params.npz"), str(tmp)],
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(WORLD)]
     try:
-        jax_side = _jax_side(jparams, mel, lang, audio)
+        jax_side = _jax_side(jparams, mel, lang, audio, tones)
         logs = [p.communicate(timeout=240)[0] for p in procs]
     finally:
         for p in procs:
@@ -130,7 +138,19 @@ def ranks(jparams, tmp_path_factory):
     return outs, infos, jax_side
 
 
-def _jax_side(jparams, mel, lang, audio) -> dict:
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _worker_env() -> dict:
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
+    env["PYTHONPATH"] = str(ROOT)
+    return env
+
+
+def _jax_side(jparams, mel, lang, audio, tones) -> dict:
     """The JAX package's sharded results at (data 2, model 2)."""
     mesh = j_make_mesh(data=2, model=2)
     mel_j, lang_j = jnp.asarray(mel), jnp.asarray(lang)
@@ -144,6 +164,13 @@ def _jax_side(jparams, mel, lang, audio) -> dict:
             out["beam_tokens"], out["beam_scores"] = np.asarray(beam.tokens), np.asarray(beam.scores)
     pipe = JPipeline((JCFG, jparams), compute=J_PARITY, max_tokens=8, mesh=mesh)
     out["pipeline"] = [np.asarray(r.tokens) for r in pipe.transcribe_batch(list(audio), ["en"] * len(audio))]
+    server = JTranscriber(pipe, batch_size=3, max_wait_ms=100)
+    try:
+        reqs = [server.submit(t, "en") for t in tones]
+        out["serving"] = [np.asarray(r.wait(timeout=600).tokens) for r in reqs]
+        out["serving_batches"] = server.stats.snapshot()["batches"]
+    finally:
+        server.shutdown()
     return out
 
 
@@ -253,6 +280,89 @@ def test_pipeline_mesh_matches_jax(ranks):
         assert len([k for k in out if k.startswith("pipeline_")]) == 6
         for i, ref in enumerate(jax_side["pipeline"]):
             np.testing.assert_array_equal(out[f"pipeline_{i}"], ref)
+
+
+def test_serving_over_mesh_matches_jax(ranks):
+    """Rank 0's ``BatchingTranscriber`` (batch 3, 100 ms) over the (2, 2)
+    pipeline, the other three ranks following it: for the five tones of
+    tests/test_serving.py's mesh test, in drains of 3 and 2, the JAX
+    package's transcriber over its (2, 2) mesh, request for request."""
+    outs, infos, jax_side = ranks
+    serving = infos[0]["serving"]
+    assert serving["stats"]["completed"] == 5 and serving["stats"]["batches"] == serving["handoffs"] == 2
+    assert jax_side["serving_batches"] == 2 and serving["lang_tokens"] == [50259] * 5
+    for i, ref in enumerate(jax_side["serving"]):
+        np.testing.assert_array_equal(outs[0][f"serving_{i}"], ref)
+
+
+def test_serving_followers_follow_every_handoff(ranks):
+    """Over HTTP on rank 0 (batch 3): a POST in "en" 200; one in an unknown
+    language 400, on rank 0 alone (its batch fails before the hand-off);
+    the next 200. Each other rank decoded every batch handed over and no
+    other, skipped rank 0's keep-alives, and left each serving on rank
+    0's stop."""
+    _, infos, _ = ranks
+    http = infos[0]["http"]
+    (s0, b0), (s1, b1), (s2, b2) = http["replies"]
+    assert (s0, s1, s2) == (200, 400, 200), http["replies"]
+    assert b0["lang_token"] == b2["lang_token"] == 50259 and "xx" in b1["error"]
+    assert (http["handoffs"], http["stats"]["batches"], http["stats"]["failed"]) == (2, 3, 1)
+    sent = http["sent"]  # rank 0's messages of both rounds, keep-alives while idle (every 50 ms here) among them
+    assert (sent["_BATCH"], sent["_STOP"]) == (2 + 2, 1 + 1) and sent["_KEEPALIVE"] >= 1
+    for info in infos[1:]:
+        assert info["followed"] == [infos[0]["serving"]["handoffs"], http["handoffs"]] == [2, 2]
+
+
+def _wav(samples: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(np.round(samples * 32767).astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def test_killed_follower_ends_the_job(jparams, tmp_path):
+    """Two ranks serve at mesh (2, 1) with a 10 s control-group timeout
+    (``torch_parallel_worker.py ... fault``); rank 1 is killed while rank 0
+    serves. Rank 0's next request gets a 500 or its connection closes,
+    never a reply from rank 0 alone, and rank 0 exits non-zero: all within
+    60 s."""
+    end = time.monotonic() + 60
+    np.savez(tmp_path / "params.npz", **_flatten(jparams))
+    port, env = _free_port(), _worker_env()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "tests" / "torch_parallel_worker.py"), str(r), "2", str(port),
+                               str(tmp_path / "params.npz"), str(tmp_path), "fault"],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        while not ((tmp_path / "port").exists() and (tmp_path / "following").exists()):
+            assert all(p.poll() is None for p in procs), [p.communicate(timeout=10)[0][-3000:] for p in procs]
+            assert time.monotonic() < end - 30, "the ranks did not start serving"
+            time.sleep(0.05)
+        procs[1].kill()
+        procs[1].wait(timeout=10)
+        base = f"http://127.0.0.1:{(tmp_path / 'port').read_text()}"
+        req = urllib.request.Request(f"{base}/v1/transcribe", data=_wav(_inputs()[4][0]),
+                                     headers={"X-Language": "en"}, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=end - time.monotonic() - 10) as resp:
+                status = resp.status
+        except urllib.error.HTTPError as e:
+            status = e.code
+        except (urllib.error.URLError, ConnectionError) as e:  # the connection closed
+            status = type(e).__name__
+        log = procs[0].communicate(timeout=max(1.0, end - time.monotonic()))[0]
+        assert status in (500, "URLError", "RemoteDisconnected", "ConnectionResetError"), (status, log[-3000:])
+        assert procs[0].returncode not in (0, None), log[-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.stdout.close()
+    assert time.monotonic() < end
 
 
 def test_w8a8_row_parallel_linear_matches_jax(ranks, jparams):

@@ -9,8 +9,8 @@ CPU. ``transcribe --dp/--tp`` runs on a ``(data, model)`` mesh of ranks,
 one process each, started by ``torch.distributed.run`` (each rank on
 ``cuda:LOCAL_RANK`` with NCCL, or the CPU with gloo under ``--device
 cpu``; rank 0 alone prints); ``--dp 0`` takes every rank left after
-``--tp``. ``serve --dp/--tp`` raises: a server under SPMD needs rank 0 to
-hand each batch to the other ranks (ROADMAP Queue 1, item 6).
+``--tp``. ``serve --dp/--tp`` runs the same way: rank 0 serves HTTP and
+hands each batch to the other ranks, which follow it until it stops.
 
 Usage:
     python -m whisper_burn_tpu_torch.cli transcribe audio.wav \\
@@ -18,6 +18,8 @@ Usage:
     python -m torch.distributed.run --nproc-per-node 2 -m whisper_burn_tpu_torch.cli \\
         transcribe audio.wav --model model-q4.gguf --tp 2
     python -m whisper_burn_tpu_torch.cli serve --model model-q4.gguf --port 8000
+    python -m torch.distributed.run --nproc-per-node 2 -m whisper_burn_tpu_torch.cli \\
+        serve --model model-q4.gguf --dp 2
     python -m whisper_burn_tpu_torch.cli eval --model model-q4.gguf --manifest m.jsonl
     python -m whisper_burn_tpu_torch.cli info --model model-q4.gguf
     python -m whisper_burn_tpu_torch.cli convert --hf-model ./whisper-large-v3 \\
@@ -86,14 +88,15 @@ def build_pipeline(model_path: str, tokenizer_path: str | None, args: argparse.N
     model = load_whisper(model_path)  # repacked-cache-aware loader
     tokenizer = WhisperTokenizer.from_file(tokenizer_path) if tokenizer_path else None
     compute = Compute.fast() if getattr(args, "bf16", False) else Compute.parity()
+    mesh = _mesh(args)
     return WhisperPipeline(
         model, tokenizer, compute=compute,
         frontend=getattr(args, "frontend", "openai"),
         beam_width=getattr(args, "beam", 1),
         max_tokens=getattr(args, "max_tokens", 224),
         profile=getattr(args, "profile", False),
-        mesh=_mesh(args),
-        device=getattr(args, "device", None),
+        mesh=mesh,
+        device=getattr(args, "device", None) if mesh is None else None,  # a mesh's: cuda:LOCAL_RANK
     )
 
 
@@ -251,34 +254,52 @@ def serving_compute(args: argparse.Namespace):
 
 
 def _cmd_serve(args: argparse.Namespace) -> int:
-    if args.dp or args.tp:
-        raise NotImplementedError(
-            "serve --dp/--tp is not ported yet: under SPMD rank 0 must hand each batch to the other "
-            "ranks (ROADMAP Queue 1, item 6)"
-        )
     if _no_device(args):
         return 2
+    import torch.distributed as dist
+
+    mesh = _mesh(args)
+    try:
+        return _serve(args, mesh)
+    finally:
+        if mesh is not None and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _serve(args: argparse.Namespace, mesh) -> int:
+    """``serve`` on this rank: without a mesh, or on a mesh's rank 0, the
+    HTTP server until SIGINT (exit 1 if a rank failed); on every other rank
+    of the mesh, :func:`serving.follow_batches` until rank 0 stops."""
     from whisper_burn_tpu_torch.gguf.cache import load_whisper
-    from whisper_burn_tpu_torch.serving import serve_http
+    from whisper_burn_tpu_torch.serving import follow_batches, run_until_interrupted, serve_http
     from whisper_burn_tpu_torch.tokenizer import WhisperTokenizer
     from whisper_burn_tpu_torch.transcribe import WhisperPipeline
 
+    group, rank = None, 0
+    if mesh is not None:  # every rank makes it, right after the mesh's groups
+        import torch.distributed as dist
+
+        from whisper_burn_tpu_torch.parallel.multihost import control_group
+
+        group, rank = control_group(), dist.get_rank()
+        print(f"rank {rank} of {dist.get_world_size()}: mesh {mesh.data}x{mesh.model} over "
+              f"{dist.get_backend()}", file=sys.stderr, flush=True)
     model = load_whisper(args.model)
     tokenizer = WhisperTokenizer.from_file(args.tokenizer) if args.tokenizer else None
     pipe = WhisperPipeline(
-        model, tokenizer, compute=serving_compute(args), beam_width=args.beam, device=args.device
+        model, tokenizer, compute=serving_compute(args), beam_width=args.beam, mesh=mesh,
+        device=args.device if mesh is None else None,
     )
-    server, transcriber = serve_http(pipe, host=args.host, port=args.port, batch_size=args.batch)
+    if rank != 0:
+        n = follow_batches(pipe, group)
+        print(f"rank {rank}: followed {n} batches", file=sys.stderr, flush=True)
+        return 0
+    server, transcriber = serve_http(pipe, host=args.host, port=args.port, batch_size=args.batch, group=group)
     print(f"serving on http://{server.server_address[0]}:{server.server_address[1]}", flush=True)
-    try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
-    finally:
-        server.shutdown()
-        server.server_close()
-        transcriber.shutdown()
-    return 0
+    rc = run_until_interrupted(server, transcriber)
+    if rc:
+        print(f"error: serving stopped: {transcriber.fault!r}", file=sys.stderr)
+    return rc
 
 
 def _cmd_config(args: argparse.Namespace) -> int:
@@ -479,10 +500,9 @@ def _add_device(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda", help="torch device (cpu runs the plain PyTorch versions)")
 
 
-def _add_mesh(p: argparse.ArgumentParser, serve: bool = False) -> None:
-    later = " (serve: not ported yet, non-zero raises)" if serve else ""
-    p.add_argument("--dp", type=int, default=0, help="data-parallel mesh axis (0 = every rank after --tp)" + later)
-    p.add_argument("--tp", type=int, default=0, help="tensor-parallel mesh axis" + later)
+def _add_mesh(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--dp", type=int, default=0, help="data-parallel mesh axis (0 = every rank after --tp)")
+    p.add_argument("--tp", type=int, default=0, help="tensor-parallel mesh axis")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -546,7 +566,7 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--batch", type=int, default=8)
     sv.add_argument("--beam", type=int, default=1)
     sv.add_argument("--compute", choices=["parity", "fast", "fastest"], default="fastest")
-    _add_mesh(sv, serve=True)
+    _add_mesh(sv)
     sv.add_argument("--self-kv", choices=["int8", "int4"], default="int8",
                     help="self-KV cache precision (int4 = packed keys and values)")
     sv.add_argument("--w8a8", action="store_true", help="int8 x int8 encoder matmuls")

@@ -14,6 +14,7 @@ device on its own.
 
 from __future__ import annotations
 
+import datetime
 import os
 
 import torch
@@ -61,6 +62,25 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
         dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
                                 world_size=num_processes, rank=process_id)
     return dev
+
+
+# how long a rank waits on a message of the control group before it gives
+# up on the job; a server's rank 0 speaks every serving.KEEPALIVE_S while
+# it is idle
+CONTROL_TIMEOUT = datetime.timedelta(minutes=10)
+
+
+def control_group(timeout: datetime.timedelta = CONTROL_TIMEOUT):
+    """A gloo group over every rank of the job, for messages of host
+    arrays (NCCL, the default group's backend on the card, carries device
+    tensors only): a server's rank 0 hands each batch to the other ranks
+    through it (``serving.BatchingTranscriber``, ``serving.follow_batches``).
+    Every rank must call it, in the same order relative to its other
+    groups (``parallel/mesh.make_mesh``'s); a message not received within
+    ``timeout`` raises on the rank that waits."""
+    if not dist.is_initialized():
+        raise RuntimeError("control_group: no process group (parallel/multihost.initialize)")
+    return dist.new_group(backend="gloo", timeout=timeout)
 
 
 def make_global_mesh(model: int = 1, *, device: str | torch.device | None = None):

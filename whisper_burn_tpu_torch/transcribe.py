@@ -22,6 +22,9 @@ rank of it (SPMD): each rank holds its shard of the params on its own
 device, takes its data index's utterances of each batch and decodes them
 on its shard (``parallel/sharded.decode_rows``), and the results are
 gathered over the data ranks, so every rank returns the whole batch.
+``transcribe_batch`` is ``prepare_batch`` (the host work, on one rank
+where a server receives the requests) then ``decode_batch`` (on every
+rank, with the batch ``serving`` hands over).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -113,6 +116,17 @@ class TranscribeResult:
     inference_ms: float
     tokens: np.ndarray  # generated ids (EOT-trimmed)
     lang_token: int
+
+
+class PreparedBatch(NamedTuple):
+    """A batch after the host work of :meth:`WhisperPipeline.prepare_batch`,
+    ready for :meth:`WhisperPipeline.decode_batch` (and, in a server over a
+    mesh, for the other ranks: ``serving.BatchingTranscriber``)."""
+
+    samples: np.ndarray  # [padded B, window] float32 at 16 kHz
+    lang_tokens: np.ndarray  # [padded B] int32, -1 where the language is detected
+    detect: bool  # any row detects its language
+    n: int  # the real utterances: the first n rows
 
 
 def _norm_word(w: str) -> str:
@@ -285,6 +299,19 @@ class WhisperPipeline:
         languages: Sequence[str | None] | None = None,
     ) -> list[TranscribeResult]:
         """Transcribe a batch of utterances in one decode."""
+        return self.decode_batch(self.prepare_batch(audios, languages))
+
+    def prepare_batch(
+        self,
+        audios: Sequence[AudioBuffer | np.ndarray],
+        languages: Sequence[str | None] | None = None,
+    ) -> PreparedBatch:
+        """The host part of :meth:`transcribe_batch`: each utterance
+        resampled and padded or cut to one window, each language checked
+        and turned into its token (an unknown one raises here, before
+        anything reaches the device), and the batch padded with silence in
+        language 50259 to a power of two (with a mesh: the same power of
+        two on every data rank)."""
         stage = self.stage_timer.stage if self.profile else (lambda name: contextlib.nullcontext())
         if self.profile:
             self.throughput.begin()
@@ -308,12 +335,21 @@ class WhisperPipeline:
             pad = padded_b - b
             samples = np.concatenate([samples, np.zeros((pad,) + samples.shape[1:], samples.dtype)])
             lang_tokens = np.concatenate([lang_tokens, np.full(pad, 50259, np.int32)])
+        return PreparedBatch(samples, lang_tokens, detect, b)
 
+    def decode_batch(self, batch: PreparedBatch) -> list[TranscribeResult]:
+        """The device part of :meth:`transcribe_batch`: the decode (with a
+        mesh, on every rank with the same batch: each decodes its data
+        index's rows, and the results are gathered), then the first
+        ``batch.n`` rows detokenized. A rank that decodes only for the
+        gather passes ``n = 0`` and gets an empty list."""
+        stage = self.stage_timer.stage if self.profile else (lambda name: contextlib.nullcontext())
+        samples, b = batch.samples, batch.n
         start = time.perf_counter()
         with stage("device_step"):
-            result = self._decode(samples, lang_tokens, detect)
+            result = self._decode(samples, batch.lang_tokens, batch.detect)
             tokens = result.tokens.cpu().numpy()  # waits for the device
-        ms = (time.perf_counter() - start) * 1000.0 / b  # amortized per utterance
+        ms = (time.perf_counter() - start) * 1000.0 / max(b, 1)  # amortized per utterance
         n_gen = result.n_generated.cpu().numpy()
         langs = result.lang_tokens.cpu().numpy()
 
@@ -323,7 +359,7 @@ class WhisperPipeline:
                 ids = tokens[i, : n_gen[i]]
                 text = self.tokenizer.decode_transcription(ids) if self.tokenizer else ""
                 out.append(TranscribeResult(text, ms, ids, int(langs[i])))
-        if self.profile:
+        if self.profile and b:
             self.throughput.end(audio_seconds=b * samples.shape[1] / 16000.0, tokens=int(n_gen[:b].sum()))
         return out
 
