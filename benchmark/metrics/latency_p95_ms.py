@@ -1,0 +1,12 @@
+"""The 95th percentile (nearest rank) of result time minus due time over
+every request due in the window; a failed or refused request is
+infinitely late."""
+
+import math
+
+from benchmark.harness import percentile
+
+
+def read(record, ctx):
+    value = percentile(record["latencies_ms"], 0.95)
+    return value if math.isfinite(value) else None
