@@ -522,9 +522,12 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--max-tokens", type=int, default=224, help="decode cap")
     t.add_argument("--long", action="store_true", help="30s-chunked long audio")
     t.add_argument("--json", action="store_true")
-    t.add_argument("--profile", action="store_true", help="print per-stage timings + throughput to stderr")
+    t.add_argument("--profile", action="store_true",
+                   help="print each span's host ms (device ms where it has them) and the throughput to stderr; "
+                        "turns the launch log on for each call, adds no synchronize")
     t.add_argument("--trace", default=None, metavar="DIR",
-                   help="write a torch.profiler Chrome trace (Perfetto-viewable) into DIR")
+                   help="write a torch.profiler Chrome trace (Perfetto-viewable) into DIR, with the program's "
+                        "spans of every thread (category program_span); turns the launch log on")
     _add_mesh(t)
     _add_device(t)
     t.set_defaults(fn=_cmd_transcribe)

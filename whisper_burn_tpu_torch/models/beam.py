@@ -39,10 +39,11 @@ request and every later one; on the CPU the same body runs eagerly.
 Whether every utterance is done is read on the host once every
 ``DONE_CHECK_EVERY`` steps. Done utterances are frozen, so the steps run
 past the moment they were all done change nothing that the final
-selection reads. Stages run inside ``torch.profiler.record_function``
-ranges named ``beam_decode.<stage>`` (encode, cross_fill, prefill,
-decode), and each step's reorder of the live rows and self caches inside
-``beam_decode.reorder``.
+selection reads. Stages run inside the recorder's spans
+(``utils/profiling.py``) named ``beam_decode.<stage>`` (encode,
+cross_fill, prefill, decode; ``detect`` inside prefill), counted as
+greedy's are, and each step's reorder of the live rows and self caches
+inside ``beam_decode.reorder``.
 """
 
 from __future__ import annotations
@@ -51,7 +52,6 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from whisper_burn_tpu_torch.models.config import EOT, MAX_TOKENS, MIN_TOKENS, WhisperConfig
 from whisper_burn_tpu_torch.models.decoder import SELF_FIELDS, KVCache, decode_step, init_cache, init_self_cache
@@ -68,6 +68,7 @@ from whisper_burn_tpu_torch.models.whisper import (
 )
 from whisper_burn_tpu_torch.ops.cache import write_cache_slots_beam
 from whisper_burn_tpu_torch.ops.compute import Compute
+from whisper_burn_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e30
 
@@ -155,9 +156,9 @@ def start_beam_request(
     b, w = state.pool_scores.shape
     max_tokens = state.tokens.shape[1]
     encode_and_fill(params, cfg, mel, compute, max_tokens, "beam_decode", cache=state.prompt_cache)
-    with record_function("beam_decode.prefill"):
+    with span("beam_decode.prefill", device=mel.is_cuda):
         logits, lang_tokens = prompt_logits(
-            params, cfg, state.prompt_cache, lang_tokens, compute, detect=detect, task=task
+            params, cfg, state.prompt_cache, lang_tokens, compute, detect=detect, task=task, stage="beam_decode"
         )
         # the top-W first tokens seed the beams (EOT is suppressed at sample
         # #0, so no hypothesis finishes at the seed step)
@@ -242,7 +243,7 @@ def beam_step(params: dict, cfg: WhisperConfig, state: BeamState, compute: Compu
     state.pool_tokens.copy_(torch.where(frozen[..., None], state.pool_tokens, new_pool_rows))
     state.pool_ngen.copy_(torch.where(frozen, state.pool_ngen, new_pool_ng))
 
-    with record_function("beam_decode.reorder"):  # streams follow their parents
+    with span("beam_decode.reorder"):  # streams follow their parents
         src = (torch.arange(b, device=dev)[:, None] * w + new_parent).reshape(bw)
         tokens = state.tokens.index_select(0, src)
         tokens.index_copy_(1, state.k.reshape(1).long(), new_tok.reshape(bw, 1).to(torch.int32))
@@ -355,7 +356,7 @@ def beam_decode(
     with runner.lock:  # the runner's state serves one request at a time
         state = runner.state
         lang_tokens = start_beam_request(params, cfg, mel, lang_tokens, compute, state, detect=detect, task=task)
-        with record_function("beam_decode.decode"):
+        with span("beam_decode.decode", device=mel.is_cuda):
             for k in range(1, max_tokens):
                 if k % DONE_CHECK_EVERY == 0 and bool(state.done.all()):
                     break

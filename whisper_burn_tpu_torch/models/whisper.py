@@ -30,11 +30,16 @@ Whether every stream is done is read on the host once every
 ``DONE_CHECK_EVERY`` steps; finished streams emit EOT either way, so the
 tokens are the same as stopping at once.
 
-Each stage runs inside a ``torch.profiler.record_function`` range named
-``greedy_decode.<stage>`` (encode, cross_fill, prefill, decode), so a
-profiler trace of a request splits its time by stage on the host and on
-the device. :func:`encode_and_fill` and :func:`prompt_logits` are the
-stages that beam search (``models/beam.py``) shares.
+Each stage runs inside a span of the recorder (``utils/profiling.py``:
+a ``torch.profiler.record_function`` range, and while the launch log is
+on a span with device events) named ``greedy_decode.<stage>`` (encode,
+cross_fill, prefill, decode), so a profiler trace of a request splits its
+time by stage on the host and on the device; the language pass is the
+recorder's span ``greedy_decode.detect`` inside prefill. The encode span
+counts its ``rows``, and the decode span the loop's ``steps`` and, on the
+card, its graph ``replays`` and the host ns of their launches
+(``launch_ns``). :func:`encode_and_fill` and :func:`prompt_logits` are
+the stages that beam search (``models/beam.py``) shares.
 """
 
 from __future__ import annotations
@@ -46,7 +51,6 @@ import time
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from whisper_burn_tpu_torch.models.config import EOT, MAX_TOKENS, MIN_TOKENS, SOT, WhisperConfig
 from whisper_burn_tpu_torch.models.decoder import (
@@ -59,6 +63,7 @@ from whisper_burn_tpu_torch.models.decoder import (
 from whisper_burn_tpu_torch.models.encoder import encode
 from whisper_burn_tpu_torch.ops import _build
 from whisper_burn_tpu_torch.ops.compute import Compute, set_fp32_precision
+from whisper_burn_tpu_torch.utils.profiling import count, span
 
 PROMPT_LEN = 4
 DONE_CHECK_EVERY = 16
@@ -130,9 +135,10 @@ def encode_and_fill(
     the decode kernels read only keys below ``pos``, so the tokens are the
     same."""
     set_fp32_precision(compute)
-    with record_function(f"{stage}.encode"):
+    with span(f"{stage}.encode", device=mel.is_cuda):
+        count(rows=mel.shape[0])
         enc_out = encode(params, mel, cfg, compute)
-    with record_function(f"{stage}.cross_fill"):
+    with span(f"{stage}.cross_fill", device=mel.is_cuda):
         if cache is None:
             cache = init_cache(cfg, mel.shape[0], compute, self_cache_len(cfg, max_tokens), mel.device)
         fill_cross_cache(params, cfg, enc_out, cache, compute)
@@ -149,14 +155,16 @@ def prompt_tokens(cfg: WhisperConfig, lang_tokens: torch.Tensor, task: str = "tr
 
 def prompt_logits(
     params: dict, cfg: WhisperConfig, cache: KVCache, lang_tokens: torch.Tensor, compute: Compute,
-    *, detect: bool, task: str,
+    *, detect: bool, task: str, stage: str = "greedy_decode",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Prefill the prompt ``[SOT, lang, task, NO_TIMESTAMPS]`` into
     ``cache``; returns sample #0's logits (EOT suppressed) and the
-    language tokens (entries ``< 0`` auto-detected with ``detect``)."""
+    language tokens (entries ``< 0`` auto-detected with ``detect``, in the
+    span ``<stage>.detect``)."""
     lang_tokens = lang_tokens.to(device=cache.self_v.device, dtype=torch.int32)
     if detect:
-        detected = detect_language(params, cfg, cache, compute)
+        with span(f"{stage}.detect", profiler_range=False):
+            detected = detect_language(params, cfg, cache, compute)
         lang_tokens = torch.where(lang_tokens < 0, detected, lang_tokens)
     logits = prefill(params, cfg, prompt_tokens(cfg, lang_tokens, task), cache, compute)
     logits[:, EOT] = float("-inf")  # sample #0: EOT always suppressed
@@ -172,7 +180,7 @@ def start_request(
     the language tokens used."""
     max_tokens = state.tokens.shape[1]
     encode_and_fill(params, cfg, mel, compute, max_tokens, "greedy_decode", cache=state.cache)
-    with record_function("greedy_decode.prefill"):
+    with span("greedy_decode.prefill", device=mel.is_cuda):
         logits, lang_tokens = prompt_logits(params, cfg, state.cache, lang_tokens, compute, detect=detect, task=task)
         first = logits.argmax(dim=-1)
         state.k.fill_(1)
@@ -269,7 +277,9 @@ class GraphRunner:
         replay returns the graph's output tensor, rewritten by the next
         replay)."""
         if self.stream is None:
-            return self._body(variant)
+            out = self._body(variant)
+            count(steps=1)
+            return out
         if not self.graphs:
             main = torch.cuda.current_stream(self.stream.device)
             self.stream.wait_stream(main)
@@ -281,9 +291,15 @@ class GraphRunner:
             self.graphs = [capture_graph(lambda v=v: self._body(v), self.stream) for v in range(self.variants)]
             self.capture_s = time.perf_counter() - t0
             main.wait_stream(self.stream)
+            count(steps=1)
             return out
         graph, out, tally = self.graphs[variant]
-        graph.replay()
+        if _build.LAUNCH_LOG is None:
+            graph.replay()
+        else:  # recording: the host's launch of the replay
+            t0 = time.perf_counter_ns()
+            graph.replay()
+            count(steps=1, replays=1, launch_ns=time.perf_counter_ns() - t0)
         _build.add_launches(tally)
         return out
 
@@ -388,7 +404,7 @@ def greedy_decode(
     with runner.lock:  # the runner's state serves one request at a time
         state = runner.state
         lang_tokens = start_request(params, cfg, mel, lang_tokens, compute, state, detect=detect, task=task)
-        with record_function("greedy_decode.decode"):
+        with span("greedy_decode.decode", device=mel.is_cuda):
             for k in range(1, max_tokens):
                 if k % DONE_CHECK_EVERY == 0 and bool(state.done.all()):
                     break

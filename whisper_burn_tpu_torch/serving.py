@@ -27,12 +27,22 @@ batch it is handed for the gather and returns on rank 0's stop. A fault
 after the hand-off ends the job: the batch's requests fail (HTTP 500),
 rank 0 stops accepting, and the server stops (:func:`run_until_interrupted`
 returns 1); no rank serves on without the others.
+
+The worker's cycle runs inside the recorder's spans (``utils/profiling.py``;
+kept while the launch log is on): ``serving.wait`` (blocked for a batch's
+first request), ``serving.collect`` (from it to the batch's closing), the
+pipeline's ``pipeline.prepare``, ``serving.handoff`` (over a mesh),
+``pipeline.device_step`` and ``pipeline.detokenize``, then
+``serving.reply`` (results set, waiters woken); and for each request a
+``serving.queued`` span from its submit to its batch's closing, with the
+request's id and its batch's as ``parent``.
 """
 
 from __future__ import annotations
 
 import collections
 import io
+import itertools
 import json
 import queue
 import signal
@@ -47,6 +57,7 @@ import torch.distributed as dist
 
 from whisper_burn_tpu_torch.audio.io import AudioBuffer
 from whisper_burn_tpu_torch.transcribe import PreparedBatch, TranscribeResult, WhisperPipeline
+from whisper_burn_tpu_torch.utils.profiling import add_span, span
 
 # while its queue is empty, a meshed server's rank 0 tells the other ranks
 # it is alive this often (they give up after the control group's timeout)
@@ -183,6 +194,7 @@ class _Request:
     result: TranscribeResult | None = None
     error: Exception | None = None
     submitted_at: float = field(default_factory=time.perf_counter)
+    id: int = -1  # the transcriber's count of its requests
 
     def wait(self, timeout: float | None = None) -> TranscribeResult:
         if not self.event.wait(timeout):
@@ -236,6 +248,7 @@ class BatchingTranscriber:
         self.handoffs, self.handoff_s = 0, 0.0
         self._group = group if ranks > 1 else None  # at one rank nothing is sent
         self._queue: queue.Queue[_Request | None] = queue.Queue(maxsize=max_pending)
+        self._ids = itertools.count()
         self._lock = threading.Lock()  # orders submit against a fault's drain
         self._accepting = True
         self._worker = threading.Thread(target=self._run, daemon=True)
@@ -244,7 +257,7 @@ class BatchingTranscriber:
     # -- client side -------------------------------------------------------
 
     def submit(self, audio: AudioBuffer | np.ndarray, language: str | None = "auto") -> _Request:
-        req = _Request(audio=audio, language=language)
+        req = _Request(audio=audio, language=language, id=next(self._ids))
         with self._lock:
             if not self._accepting:
                 raise RuntimeError("transcriber is shutting down" if self.fault is None
@@ -281,21 +294,26 @@ class BatchingTranscriber:
             except queue.Empty:
                 _send(self._group, _KEEPALIVE)
 
-    def _drain(self) -> list[_Request] | None:
-        first = self._next()
+    def _drain(self, batch_id: int) -> list[_Request] | None:
+        with span("serving.wait", batch=batch_id, profiler_range=False):
+            first = self._next()
         if first is None:
             return None
         batch = [first]
         deadline = self.max_wait_ms / 1000.0
-        while len(batch) < self.batch_size:
-            try:
-                nxt = self._queue.get(timeout=deadline)
-            except queue.Empty:
-                break
-            if nxt is None:
-                self._queue.put(None)  # re-post the shutdown sentinel
-                break
-            batch.append(nxt)
+        with span("serving.collect", batch=batch_id, profiler_range=False) as collect:
+            while len(batch) < self.batch_size:
+                try:
+                    nxt = self._queue.get(timeout=deadline)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._queue.put(None)  # re-post the shutdown sentinel
+                    break
+                batch.append(nxt)
+        if collect is not None:
+            for req in batch:
+                add_span("serving.queued", int(req.submitted_at * 1e9), collect.end_ns, request=req.id, parent=batch_id)
         return batch
 
     def _fail(self, batch: list[_Request], error: Exception) -> None:
@@ -326,8 +344,8 @@ class BatchingTranscriber:
 
     def _serve(self) -> None:
         silence = np.zeros(16000, np.float32)
-        while True:
-            batch = self._drain()
+        for batch_id in itertools.count():
+            batch = self._drain(batch_id)
             if batch is None:
                 if self._group is not None:
                     _send(self._group, _STOP)
@@ -346,10 +364,11 @@ class BatchingTranscriber:
                 continue
             try:
                 if self._group is not None:
-                    t0 = time.perf_counter()
-                    _send(self._group, _BATCH, prepared)
-                    self.handoff_s += time.perf_counter() - t0
-                    self.handoffs += 1
+                    with span("serving.handoff", batch=batch_id, profiler_range=False):
+                        t0 = time.perf_counter()
+                        _send(self._group, _BATCH, prepared)
+                        self.handoff_s += time.perf_counter() - t0
+                        self.handoffs += 1
                 results = self.pipeline.decode_batch(prepared)
             except Exception as e:
                 if self._group is not None:  # fatal: the ranks no longer agree
@@ -357,11 +376,12 @@ class BatchingTranscriber:
                     raise
                 self._fail(batch, e)  # propagate to all waiters
                 continue
-            now = time.perf_counter()
-            for req, res in zip(batch, results):
-                req.result = res
-                self.stats.record_done(now - req.submitted_at, ok=True)
-                req.event.set()
+            with span("serving.reply", batch=batch_id, profiler_range=False):
+                now = time.perf_counter()
+                for req, res in zip(batch, results):
+                    req.result = res
+                    self.stats.record_done(now - req.submitted_at, ok=True)
+                    req.event.set()
 
 
 def _parse_wav_bytes(data: bytes) -> AudioBuffer:

@@ -30,6 +30,7 @@ rank, with the batch ``serving`` hands over).
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from dataclasses import dataclass
 from typing import NamedTuple, Sequence
@@ -48,7 +49,8 @@ from whisper_burn_tpu_torch.models.params import attach_w8a8, fuse_attention_par
 from whisper_burn_tpu_torch.models.whisper import greedy_decode
 from whisper_burn_tpu_torch.ops.compute import Compute, resolve_device
 from whisper_burn_tpu_torch.tokenizer import WhisperTokenizer
-from whisper_burn_tpu_torch.utils.profiling import StageTimer, ThroughputMeter
+from whisper_burn_tpu_torch.utils import profiling
+from whisper_burn_tpu_torch.utils.profiling import ThroughputMeter, span
 
 LOGIT_N_ALIGN = 512
 
@@ -204,8 +206,13 @@ class WhisperPipeline:
     model axis and sharded (``parallel/sharding.py``) on the mesh's device
     (``device`` must then be None or that device), and a batch is padded
     so that every data rank gets the same power-of-two count, as the JAX
-    pipeline does. ``profile`` keeps per-stage wall times (audio prep, device
-    step, detokenize) and throughput, read with :meth:`profile_report`.
+    pipeline does. Each call runs inside the recorder's spans
+    (``utils/profiling.py``): ``pipeline.prepare`` (holding
+    ``pipeline.audio_prep``), ``pipeline.device_step`` (holding
+    ``pipeline.mel``, the copy to the device and the log-mel, and the model
+    step's spans) and ``pipeline.detokenize``. ``profile`` turns the launch
+    log on for each call and keeps the call's spans and the throughput,
+    read with :meth:`profile_report`; it adds no synchronize.
     """
 
     def __init__(
@@ -259,16 +266,17 @@ class WhisperPipeline:
         # small test configs work too (frames = 2 * n_audio_ctx)
         self.chunk_samples = cfg.n_audio_ctx * 2 * WHISPER_HOP
         self.profile = profile
-        self.stage_timer = StageTimer(sync=True, device=self.device) if profile else None
         self.throughput = ThroughputMeter() if profile else None
+        self.profile_spans: list[profiling.Span] = []  # this pipeline's calls' spans (profile=True)
 
     def _decode(self, samples: np.ndarray, lang_tokens: np.ndarray, detect: bool):
         if self.mesh is not None:  # this rank's utterances; the mel is per utterance
             rows = self.mesh.rows(len(samples))
             samples, lang_tokens = samples[rows], lang_tokens[rows]
-        audio = torch.from_numpy(samples).to(self.device)
-        langs = torch.from_numpy(lang_tokens).to(self.device)
-        features = self.mel(audio)  # [B, n_mels, 2 * n_audio_ctx]
+        with span("pipeline.mel", device=self.device.type == "cuda", profiler_range=False):
+            audio = torch.from_numpy(samples).to(self.device)
+            langs = torch.from_numpy(lang_tokens).to(self.device)
+            features = self.mel(audio)  # [B, n_mels, 2 * n_audio_ctx]
         cfg, compute = self.config, self.compute
         if self.mesh is not None:
             from whisper_burn_tpu_torch.parallel.sharded import decode_rows
@@ -312,14 +320,16 @@ class WhisperPipeline:
         anything reaches the device), and the batch padded with silence in
         language 50259 to a power of two (with a mesh: the same power of
         two on every data rank)."""
-        stage = self.stage_timer.stage if self.profile else (lambda name: contextlib.nullcontext())
+        with self._profiled(), span("pipeline.prepare", profiler_range=False):
+            return self._prepare_batch(audios, languages)
+
+    def _prepare_batch(self, audios, languages) -> PreparedBatch:
         if self.profile:
             self.throughput.begin()
-
         b = len(audios)
         if languages is None:
             languages = ["auto"] * b
-        with stage("audio_prep"):
+        with span("pipeline.audio_prep", profiler_range=False):
             samples = np.stack([self._prep_audio(a) for a in audios])
         lang_tokens = np.array([self._lang_token(l) for l in languages], np.int32)
         detect = bool((lang_tokens < 0).any())
@@ -343,18 +353,22 @@ class WhisperPipeline:
         index's rows, and the results are gathered), then the first
         ``batch.n`` rows detokenized. A rank that decodes only for the
         gather passes ``n = 0`` and gets an empty list."""
-        stage = self.stage_timer.stage if self.profile else (lambda name: contextlib.nullcontext())
+        with self._profiled():
+            return self._decode_batch(batch)
+
+    def _decode_batch(self, batch: PreparedBatch) -> list[TranscribeResult]:
         samples, b = batch.samples, batch.n
         start = time.perf_counter()
-        with stage("device_step"):
+        with span("pipeline.device_step", device=self.device.type == "cuda", profiler_range=False):
             result = self._decode(samples, batch.lang_tokens, batch.detect)
             tokens = result.tokens.cpu().numpy()  # waits for the device
         ms = (time.perf_counter() - start) * 1000.0 / max(b, 1)  # amortized per utterance
-        n_gen = result.n_generated.cpu().numpy()
+        n_gen = result.n_generated.cpu().numpy()  # a read-back after every span's end event
         langs = result.lang_tokens.cpu().numpy()
+        profiling.resolve()
 
         out = []
-        with stage("detokenize"):
+        with span("pipeline.detokenize", profiler_range=False):
             for i in range(b):
                 ids = tokens[i, : n_gen[i]]
                 text = self.tokenizer.decode_transcription(ids) if self.tokenizer else ""
@@ -390,11 +404,38 @@ class WhisperPipeline:
             lang_token=results[0].lang_token,
         )
 
+    @contextlib.contextmanager
+    def _profiled(self):
+        """With ``profile``: the call recorded (the launch log on for it,
+        unless it is on already), and this thread's spans of it kept."""
+        if not self.profile:
+            yield
+            return
+        with profiling.record() as rec:
+            mark = len(rec.spans)
+            try:
+                yield
+            finally:
+                me = threading.get_native_id()
+                self.profile_spans += [s for s in rec.spans[mark:] if s.thread == me]
+
     def profile_report(self) -> str:
-        """Per-stage timings + throughput counters (requires profile=True)."""
+        """Host ms a span name over this pipeline's calls, with device ms
+        where the span has device events, and the throughput counters
+        (requires profile=True)."""
         if not self.profile:
             return "profiling disabled (construct with profile=True)"
-        lines = [self.stage_timer.report()]
+        totals: dict[str, list] = {}
+        for s in self.profile_spans:
+            t = totals.setdefault(s.name, [0.0, 0, None])
+            t[0] += s.ms
+            t[1] += 1
+            if s.device_ms is not None:
+                t[2] = (t[2] or 0.0) + s.device_ms
+        lines = [
+            f"{name}: {host:.1f} ms total, {host / n:.1f} ms avg x{n}" + ("" if dev is None else f", device {dev:.1f} ms")
+            for name, (host, n, dev) in sorted(totals.items(), key=lambda kv: -kv[1][0])
+        ]
         lines.append(
             f"throughput: {self.throughput.audio_s_per_s:.1f} audio-s/s, "
             f"{self.throughput.tokens_per_s:.1f} tok/s over "
