@@ -201,6 +201,11 @@ Phases, each timed and each fatal on failure:
    at Large-V3's per-rank shapes for tp = 2 (its rows' launches from rank
    0's (1, 2) runs) and tp = 4 (off every path here, launches 0).
 
+Last, kernel J (the LayerNorm) at the encoder's B x 1536 rows (B = 32,
+off every path here, and 8), the prompt's 32 and the beam step's 40 rows,
+with and without the residual, against its plain chain (kernel rows with
+``equal_share`` and ``gap_of_allowance``, at most 1).
+
 It prints ``{"kernels": [...]}`` and the card line before its last line,
 and last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the
 repository beside it, and exits non-zero without a result otherwise.
@@ -301,16 +306,16 @@ def signature(e: dict) -> tuple[str, str]:
     return e["name"], str(e.get("args", {}).get("grid"))
 
 
-def device_ms(fn, iters: int, warmup: int = 3, ours: bool = False):
+def device_ms(fn, iters: int, warmup: int = 3, ours: bool = False, pattern: re.Pattern = OURS):
     """Device milliseconds per call of ``fn`` from a trace of ``iters``
     calls: the summed durations of what it runs on the card, host dispatch
     excluded. With ``ours``, the mean duration of the hand-written kernel's
-    launches and their signatures. The trace may lose launch records (the
-    first of a session most often; kernel A's short cluster launches lost
-    12 of 64), so two calls run in the session before the timed window,
-    ``ours`` averages the records it got, at least half of them, and a
-    trace that lost the window's device range or more records is taken
-    again, up to ``TRACE_ATTEMPTS`` times."""
+    launches (named as ``pattern`` matches) and their signatures. The
+    trace may lose launch records (the first of a session most often;
+    kernel A's short cluster launches lost 12 of 64), so two calls run in
+    the session before the timed window, ``ours`` averages the records it
+    got, at least half of them, and a trace that lost the window's device
+    range or more records is taken again, up to ``TRACE_ATTEMPTS`` times."""
     from torch.profiler import record_function
 
     for _ in range(warmup):
@@ -333,7 +338,7 @@ def device_ms(fn, iters: int, warmup: int = 3, ours: bool = False):
         dev = [e for e in dev if lo <= e["ts"] <= hi]
         if not ours:
             return sum(e["dur"] for e in dev) / iters / 1e3
-        mine = [e for e in dev if OURS.search(e["name"])]
+        mine = [e for e in dev if pattern.search(e["name"])]
         if iters // 2 <= len(mine) <= iters:
             return sum(e["dur"] for e in mine) / len(mine) / 1e3, {signature(e) for e in mine}
         problem = f"{len(mine)} kernel launches traced for {iters} calls"
@@ -825,6 +830,56 @@ def isolated_row(name, path, source, replaces, shape_key, kern, plain, lib, err,
         bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1], library_ms=device_ms(lib, 64),
         library_call=library_call, tol=tol, shape=shape, **extra,
     )
+
+
+LN_KERNEL = re.compile(r"\blayer_norm_kernel[<(]")
+
+
+def layer_norm_rows(gen, counts: dict) -> list[dict]:
+    """Kernel J at the encoder's rows (B x 1536 at B = 32, the offline
+    benchmark's, off every path here, and at the paths' B = 8), the
+    prompt's 8 x 4 and the beam step's 40, each with and without the
+    residual: its isolated device time against its bytes bound and the
+    eleven-launch plain chain's (with the add before it for the residual
+    form), every output within ``gap_allowance`` of the chain's, 99.9%
+    equal, and the sum equal to PyTorch's add."""
+    from whisper_burn_tpu_torch.ops.layer_norm import NAME, gap_allowance, layer_norm, layer_norm_plain
+
+    d, rows = 1280, []
+    for site, m, path in (("encoder B=32", 32 * 1536, None), ("encoder", BATCH * 1536, "greedy"),
+                          ("prefill", 4 * BATCH, "greedy"), ("beam_decode", STREAMS, "beam")):
+        for residual in (False, True):
+            x = (torch.randn((m, d), generator=gen, device="cuda") * 3 + 0.5).to(torch.bfloat16)
+            r = torch.randn((m, d), generator=gen, device="cuda").to(torch.bfloat16) if residual else None
+            g = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+            b = 0.1 * torch.randn(d, generator=gen, device="cuda")
+            kern = lambda: layer_norm(x, g, b, residual=r)
+            plain = (lambda: layer_norm_plain(x + r, g, b)) if residual else (lambda: layer_norm_plain(x, g, b))
+            out = kern()
+            s, y = out if residual else (x, out)
+            if residual and not torch.equal(s, x + r):
+                raise AssertionError(f"layer_norm {site} {m}: the sum differs from PyTorch's add")
+            want = layer_norm_plain(s, g, b)
+            gap = (y.float() - want.float()).abs()
+            over = float((gap / gap_allowance(s, g, want)).max())  # at most 1
+            equal = float((y == want).float().mean())
+            if over > 1.0 or equal < 0.999:
+                raise AssertionError(f"layer_norm {site} {m}: {over} of the allowed gap, {equal} equal")
+            ms, _ = device_ms(kern, 64, ours=True, pattern=LN_KERNEL)
+            key = json.dumps([NAME, [m, d, 2, int(residual)]])
+            launches = counts[path].get(key, 0) if path else 0
+            rows.append(dict(
+                name=f"layer_norm {site} {m}x{d}" + (" +residual" if residual else ""), route="cuda",
+                source="whisper_burn_tpu_torch/csrc/layer_norm.cu", path=path or "offline benchmark, B = 32",
+                replaces="none (the JAX package leaves LayerNorm to XLA)", isolated_ms=ms, ms=ms,
+                ms_source="isolated", plain_ms=device_ms(plain, 16), bound_ms=bound(m * d * 2 * (4 if residual else 2), 0)[0],
+                bound_by="bytes", max_abs_err=float(gap.max()), gap_of_allowance=over, equal_share=equal,
+                launches=launches, off_path=path is None, shape=[m, d]))
+            if path and not launches:
+                raise AssertionError(f"layer_norm {site} ({key}) was not launched on the {path} path")
+            del x, r, out, s, y, want, gap
+    torch.cuda.empty_cache()
+    return rows
 
 
 def mode_kernel_checks(fast_params, cfg, gen) -> list[dict]:
@@ -2264,11 +2319,15 @@ def predicted_launches(cfg, compute, batch: int, steps: int, beam: bool, detect:
     below LARGE_M. One self- and one cross-attention launch per layer and
     step (C over int4, C' over int8 or float caches); one launch of F a
     step: its beam form on a beam path, else its slot form where the row
-    is not stored by kernel B; D once per encoder layer."""
+    is not stored by kernel B; D once per encoder layer. Kernel J (the
+    LayerNorm) twice per encoder layer and once after the last, and three
+    times per decoder layer and once before the logits in the prompt, in
+    each step and in the detection pass."""
     from whisper_burn_tpu_torch.ops.cache import BEAM_FN as SLOT_BEAM
     from whisper_burn_tpu_torch.ops.cache import FN as SLOT
     from whisper_burn_tpu_torch.ops.decode_attention import CROSS, CROSS_U, SELF
     from whisper_burn_tpu_torch.ops.ffn_kernel import NAME as FFN
+    from whisper_burn_tpu_torch.ops.layer_norm import NAME as LN
     from whisper_burn_tpu_torch.ops.q4_matmul import LARGE_M
 
     L, La = cfg.n_text_layer, cfg.n_audio_layer
@@ -2281,7 +2340,7 @@ def predicted_launches(cfg, compute, batch: int, steps: int, beam: bool, detect:
         ffn += La * enc
     self_fn = self_kernel(compute, beam)
     want = {"q4_matmul": a, FFN: ffn, self_fn: L * steps, CROSS if compute.kv_packed else CROSS_U: L * steps,
-            "encoder_attention": La}
+            "encoder_attention": La, LN: 2 * La + 1 + (3 * L + 1) * (1 + steps + detect)}
     if beam:
         want[SLOT_BEAM] = steps
     elif self_fn != SELF:
@@ -3712,6 +3771,7 @@ def main() -> int:
     phases["total_s"] = time.perf_counter() - t_all
     log({"phases": phases})
 
+    rows += layer_norm_rows(gen, counts)
     log({"kernels": rows})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

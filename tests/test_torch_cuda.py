@@ -47,6 +47,7 @@ from whisper_burn_tpu_torch.ops.encoder_attention import (
     encoder_attention_plain,
 )
 from whisper_burn_tpu_torch.ops.ffn_kernel import fused_ffn, fused_ffn_plain
+from whisper_burn_tpu_torch.ops.layer_norm import gap_allowance, layer_norm, layer_norm_plain
 from whisper_burn_tpu_torch.ops.q4_kernel import q4_matmul, q4_matmul_plain, regime
 
 pytestmark = pytest.mark.cuda
@@ -1260,3 +1261,83 @@ def test_int4_self_attention_kernels_odd_heads(gen, fmt, pos, dtype, d, h):
     assert _build.LAUNCHES["decode_attention_layer_int4"] == 1
     _close_parts(out, decode_attention_layer_int4_plain(q, k, v, sc, 1, _at(pos), h))
     _bitwise_twice(call, out)
+
+
+# Kernel J (the LayerNorm) at its paths' rows: the encoder's B x 1536 at
+# B = 32 and 8, the decode step's 32 and 40 (beam) streams, Whisper
+# Medium's D 1024, and f32; each with and without the residual, and the
+# encoder's final norm over a strided x[:, :1500].
+LN_CASES = {  # id: (shape, dtype, strided)
+    "enc_b32": ((49152, 1280), torch.bfloat16, False),
+    "enc_b8": ((12288, 1280), torch.bfloat16, False),
+    "step_32": ((32, 1, 1280), torch.bfloat16, False),
+    "step_40": ((40, 1, 1280), torch.bfloat16, False),
+    "medium": ((8, 1024), torch.bfloat16, False),
+    "f32": ((40, 1, 1280), torch.float32, False),
+    "enc_tail": ((4, 1500, 1280), torch.bfloat16, True),
+}
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize("case", sorted(LN_CASES))
+def test_layer_norm_kernel(gen, case, residual):
+    """The sum bit for bit PyTorch's add; LN(s) within ``gap_allowance`` of
+    the plain version (one step of the dtype, and a sliver of the row's
+    terms where the output cancels to near zero: only the two row sums'
+    order differs) and bf16 equal in 99.9% of elements; two calls bitwise
+    equal."""
+    shape, dtype, strided = LN_CASES[case]
+    d = shape[-1]
+    if strided:
+        x = (torch.randn((shape[0], 1536, d), generator=gen, device="cuda") * 3 + 0.5).to(dtype)[:, : shape[1]]
+    else:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 0.5).to(dtype)
+    r = torch.randn(shape, generator=gen, device="cuda").to(dtype) if residual else None
+    g = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    call = lambda: layer_norm(x, g, b, residual=r)
+    _build.reset_launches()
+    out = call()
+    assert dict(_build.LAUNCHES) == {"layer_norm": 1}
+    torch.cuda.synchronize()
+    if residual:
+        s, y = out
+        assert s.dtype == dtype and torch.equal(s, x + r)
+    else:
+        s, y = x, out
+    want = layer_norm_plain(s, g, b)
+    assert y.shape == x.shape and y.dtype == dtype and y.is_contiguous()
+    gap = (y.float() - want.float()).abs()
+    assert bool((gap <= gap_allowance(s, g, want)).all()), float(gap.max())
+    if dtype == torch.bfloat16:
+        assert float((y == want).float().mean()) >= 0.999
+    _bitwise_twice(call, out)
+
+
+def test_layer_norm_kernel_in_a_graph(gen):
+    """Captured into a CUDA graph and replayed twice: the eager call's bits."""
+    x = torch.randn((40, 1, 1280), generator=gen, device="cuda").to(torch.bfloat16)
+    r = torch.randn((40, 1, 1280), generator=gen, device="cuda").to(torch.bfloat16)
+    g, b = torch.randn(1280, generator=gen, device="cuda"), torch.randn(1280, generator=gen, device="cuda")
+    first = layer_norm(x, g, b, residual=r)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        captured = layer_norm(x, g, b, residual=r)
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(first, captured))
+
+
+def test_layer_norm_kernel_refuses(gen):
+    g, b = torch.ones(1284, device="cuda"), torch.zeros(1284, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        layer_norm(torch.randn((4, 1284), device="cuda"), g, b)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        layer_norm(torch.randn((4, 1280), device="cuda").half(), g[:1280], b[:1280])
+    with pytest.raises(ValueError, match="residual"):
+        x = torch.randn((4, 1280), device="cuda")
+        layer_norm(x.bfloat16(), g[:1280], b[:1280], residual=x)

@@ -358,15 +358,15 @@ def prefill(
         h = layer_norm(x, *_ln(blocks, "attn_ln", layer))
         q, k, v = qkv_proj(blocks, h, compute, layer=layer)
         a = attention(q, k, v, n_heads, mask=mask, compute=compute)
-        x = x + apply_reduce_linear(blocks["attn_o"], a, compute, layer=layer)
+        o = apply_reduce_linear(blocks["attn_o"], a, compute, layer=layer)
 
         ck, cv = _cross_layer(cache, layer, compute.dtype)
-        h = layer_norm(x, *_ln(blocks, "xattn_ln", layer))
+        x, h = layer_norm(x, *_ln(blocks, "xattn_ln", layer), residual=o)
         qx = apply_linear(blocks["xattn_q"], h, compute, layer=layer)
         a = attention_kt(qx, ck, cv, n_heads, mask=cross_mask, compute=compute)
-        x = x + apply_reduce_linear(blocks["xattn_o"], a, compute, layer=layer)
+        o = apply_reduce_linear(blocks["xattn_o"], a, compute, layer=layer)
 
-        h = layer_norm(x, *_ln(blocks, "mlp_ln", layer))
+        x, h = layer_norm(x, *_ln(blocks, "mlp_ln", layer), residual=o)
         x = x + apply_ffn(blocks, h, cfg.gelu, compute, layer=layer)
         new_kv.append((k, v))
 
@@ -428,9 +428,8 @@ def decode_step(
         if not store_in_kernel:
             new_k.append(k_new)
             new_v.append(v_new)
-        x = x + apply_reduce_linear(blocks["attn_o"], a.to(compute.dtype), compute, layer=layer)
-
-        h = layer_norm(x, *_ln(blocks, "xattn_ln", layer))
+        o = apply_reduce_linear(blocks["attn_o"], a.to(compute.dtype), compute, layer=layer)
+        x, h = layer_norm(x, *_ln(blocks, "xattn_ln", layer), residual=o)
         qx = apply_linear(blocks["xattn_q"], h, compute, layer=layer)
         if cache.cross_k_scale is not None:
             qx = qx * cache.cross_k_scale[layer].to(qx.dtype)
@@ -439,9 +438,8 @@ def decode_step(
         )
         if cache.cross_v_scale is not None:
             a = a * cache.cross_v_scale[layer]
-        x = x + apply_reduce_linear(blocks["xattn_o"], a.to(compute.dtype), compute, layer=layer)
-
-        h = layer_norm(x, *_ln(blocks, "mlp_ln", layer))
+        o = apply_reduce_linear(blocks["xattn_o"], a.to(compute.dtype), compute, layer=layer)
+        x, h = layer_norm(x, *_ln(blocks, "mlp_ln", layer), residual=o)
         x = x + apply_ffn(blocks, h, cfg.gelu, compute, layer=layer, bias_after_round=b <= K4_MAX_ROWS)
     rows = None
     if new_k:  # one slot across all layers: [L, B, 1, D(/2)] rows, [L, B, 1, kw + vw] scales

@@ -32,8 +32,8 @@ def encoder_block(
     h = layer_norm(x, *ln("attn_ln"))
     q, k, v = qkv_proj(blocks, h, compute, layer=layer)
     a = encoder_attention(q, k, v, cfg.n_audio_head // compute.tp, valid=valid)
-    x = x + apply_reduce_linear(blocks["attn_o"], a, compute, layer=layer)
-    h = layer_norm(x, *ln("mlp_ln"))
+    # the projection is a temporary: held past the norm, it would stay alive through the FFN's peak
+    x, h = layer_norm(x, *ln("mlp_ln"), residual=apply_reduce_linear(blocks["attn_o"], a, compute, layer=layer))
     return x + apply_ffn(blocks, h, cfg.gelu, compute, layer=layer)
 
 

@@ -1,7 +1,8 @@
 """Basic layers: LayerNorm, GELU, Conv1D (port of models/layers.py).
 
 * LayerNorm: eps=1e-5 inside the sqrt, biased variance over the last dim,
-  computed in float32 whatever the activation dtype
+  computed in float32 whatever the activation dtype; kernel J on the card
+  (``ops/layer_norm.py``), which folds in the residual add before it
 * GELU: ``tanh`` approximation or the exact ``erf`` form
 * Conv1D: ``F.conv1d`` in the compute dtype
 """
@@ -14,19 +15,9 @@ import torch
 import torch.nn.functional as F
 
 from whisper_burn_tpu_torch.ops.compute import Compute
+from whisper_burn_tpu_torch.ops.layer_norm import layer_norm  # noqa: F401  (kernel J on the card)
 
-LN_EPS = 1e-5
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
-
-
-def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(x - mean) / sqrt(var + eps) * g + b over the last axis, in f32."""
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    centered = x32 - mean
-    var = (centered * centered).mean(dim=-1, keepdim=True)
-    normed = centered * torch.rsqrt(var + LN_EPS)
-    return (normed * g.float() + b.float()).to(x.dtype)
 
 
 def gelu(x: torch.Tensor, kind: str = "tanh") -> torch.Tensor:

@@ -16,6 +16,10 @@ launches nothing: inside :func:`recording_launches` the wrappers' calls
 are recorded instead of counted, and each replay of the graph adds the
 recording with :func:`add_launches`, so the counts stay exact.
 
+Launches of the kernels in ``UNLOGGED`` are counted but never logged:
+the benchmark's roofline reckoning matches every logged launch to a
+bound of its own (``benchmark/kernels/``), and these have none yet.
+
 The collectives of tensor and data parallelism (``ops/collectives.py``)
 are counted the same way, by kind in ``COLLECTIVES``: a capture records
 them beside the launches and each replay adds them.
@@ -38,7 +42,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("q4_matmul", "ffn", "decode_attention", "encoder_attention", "cache_slot")
+SOURCES = ("q4_matmul", "ffn", "decode_attention", "encoder_attention", "cache_slot", "layer_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,6 +53,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
 LAUNCH_LOG: list | None = None
 COLLECTIVES: collections.Counter = collections.Counter()
+UNLOGGED = frozenset({"layer_norm"})  # counted, kept out of LAUNCH_LOG
 COLLECTIVE = "collective"  # a recorded collective's name; its kind stands where a launch has its shape
 # a capture's launches, in order, per thread: a capture records only the
 # launches of the thread that captures, the other threads' are counted
@@ -72,7 +77,7 @@ def count_launch(name: str, shape: tuple) -> None:
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
         LAUNCH_SHAPES[(name, shape)] += 1
-        if LAUNCH_LOG is not None:
+        if LAUNCH_LOG is not None and name not in UNLOGGED:
             LAUNCH_LOG.append((name, shape))
 
 
@@ -105,9 +110,10 @@ class LaunchTally:
     replay adds it in a few dictionary updates."""
 
     def __init__(self, recorded: list):
-        self.log = [e for e in recorded if e[0] != COLLECTIVE]
-        self.names = collections.Counter(name for name, _ in self.log)
-        self.shapes = collections.Counter(self.log)
+        launches = [e for e in recorded if e[0] != COLLECTIVE]
+        self.log = [e for e in launches if e[0] not in UNLOGGED]
+        self.names = collections.Counter(name for name, _ in launches)
+        self.shapes = collections.Counter(launches)
         self.collectives = collections.Counter(kind for name, kind in recorded if name == COLLECTIVE)
 
 
