@@ -10,12 +10,12 @@ the imports shared, one JSON line a run: the numbers the check compares
 (``readings``), ``correct`` and the end-to-end metrics. A mode runs the
 program (``{}``), a control (``"control": true``, the configuration
 file's; or a dict of the change, as a configuration's ``control`` is
-written) or the program with a fault planted (``"fault"``, one of
-``benchmark/faults.py``). ``--rates`` runs an open-loop cell at each rate
-in turn, to find the highest it sustains: a rate is sustained when no
-more than one batch waits at the window's close (``unanswered_at_close``
-at most two batches, one of them in flight). The benchmark's own runs
-never run this.
+written) or the program with a fault planted (``"fault"``, one that the
+configuration's family names, planted by ``benchmark/faults.py``).
+``--rates`` runs an open-loop cell at each rate in turn, to find the
+highest it sustains: a rate is sustained when no more than one batch
+waits at the window's close (``unanswered_at_close`` at most two batches,
+one of them in flight). The benchmark's own runs never run this.
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ def main(argv=None) -> int:
 
     run._cache_dirs()
     base = harness.load_workload(args.workload)
+    family = harness.family_module(harness.load_config(base["config"])["family"])
     width = base["traffic"]["beam_width"]
     rates = [float(r) for r in args.rates.split(",") if r] or [None]
     for mode in json.loads(args.modes):
@@ -60,7 +61,7 @@ def main(argv=None) -> int:
                 workload = copy.deepcopy(base)
                 if rate is not None:
                     workload["traffic"]["rate"] = rate
-                with faults.planted(mode.get("fault"), width):
+                with faults.planted(family, mode.get("fault"), width):
                     out = run.run_cell(args.workload, seed, args.seconds, False, "cuda", workload=workload,
                                        control=mode.get("control", False), judged=args.judged or None, keep=True)
                 rec = out["record"]

@@ -13,8 +13,6 @@ from __future__ import annotations
 
 from benchmark.model_config import PROMPT_LEN, ModelShape
 
-BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 (chip_smoke.py:228)
-
 
 def encoder_flops(s: ModelShape) -> float:
     t, d, f = s.n_audio_ctx, s.d_model, s.ffn_dim

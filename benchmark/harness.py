@@ -2,9 +2,10 @@
 built from the benchmark's inputs, the check of its outputs against the
 reference, and the result line.
 
-Only ``build_program`` (and what the traffic modules drive) touches the
-program, ``whisper_burn_tpu_torch``; it is imported inside the functions
-that use it, so that the reference and the counts load without it.
+It knows no model. Everything of one it reaches through the module of
+the configuration's family (``families/<family>.py``, found by the
+configuration file's ``family`` key): the shapes, the program's build and
+release, and the reference's readings.
 """
 
 from __future__ import annotations
@@ -21,9 +22,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-from benchmark import model_config
-from benchmark.model_config import ModelShape
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -45,7 +43,8 @@ class Context:
 
     workload: dict
     config: dict
-    shape: ModelShape
+    family: object  # the configuration's family module (``families/<family>.py``)
+    shape: object  # the family's shapes of the configuration
     seed: int
     seconds: float
     trace: bool
@@ -66,93 +65,76 @@ class Context:
         self.setup_s = self._age0 + time.perf_counter() - self.setup_t0
 
 
-def load_workload(name: str) -> dict:
-    return json.loads((HERE / "workloads" / f"{name}.json").read_text())
+def load_workload(name: str, bench_dir: Path = HERE) -> dict:
+    return json.loads((bench_dir / "workloads" / f"{name}.json").read_text())
+
+
+def load_config(name: str, bench_dir: Path = HERE) -> dict:
+    return json.loads((bench_dir / "configs" / f"{name}.json").read_text())
+
+
+def family_module(name: str, bench_dir: Path = HERE):
+    """The model family ``name`` (a configuration file's ``family``):
+    ``families/<name>.py`` under ``bench_dir``, the benchmark's own
+    directory by default. It is held in ``sys.modules`` as
+    ``benchmark.families.<name>``, so that it loads once."""
+    path = (bench_dir / "families" / f"{name}.py").resolve()
+    key = f"benchmark.families.{name}"
+    mod = sys.modules.get(key)
+    if mod is not None and Path(mod.__file__).resolve() == path:
+        return mod
+    if not path.exists():
+        raise FileNotFoundError(f"no module for model family {name!r}: add {path}")
+    spec = importlib.util.spec_from_file_location(key, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[key] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def make_context(workload_name: str, seed: int, seconds: float, trace: bool, device, *, workload: dict | None = None,
-                 shape: ModelShape | None = None, control: bool | dict = False) -> Context:
+                 shape=None, control: bool | dict = False, bench_dir: Path = HERE) -> Context:
     """``control``: True runs the configuration file's control in place of
-    the program; a dict runs that change instead (``calibrate.py``)."""
-    workload = workload or load_workload(workload_name)
-    config = model_config.load_config(workload["config"])
+    the program; a dict runs that change instead (``calibrate.py``).
+    ``bench_dir`` holds the ``workloads/``, ``configs/`` and ``families/``
+    the run reads."""
+    workload = workload or load_workload(workload_name, bench_dir)
+    config = load_config(workload["config"], bench_dir)
+    family = family_module(config["family"], bench_dir)
     control = config["control"] if control is True else control or None
-    return Context(workload, config, shape or model_config.model_shape(config), seed, seconds, trace,
+    return Context(workload, config, family, shape or family.shape(config), seed, seconds, trace,
                    torch.device(device), control)
 
 
-def program_compute(ctx: Context):
-    """The configuration's compute as the port's ``Compute`` (with a
-    calibration's change to it, where ``ctx.control`` names ``Compute``
-    fields)."""
-    from whisper_burn_tpu_torch.ops.compute import Compute
-
-    c = ctx.config["compute"]
-    if c["preset"] != "fastest":
-        raise ValueError(f"unknown compute preset {c['preset']!r}")
-    compute = Compute.fastest(kv_bits=c["kv_bits"]).replace(quantized_logits=c["quantized_logits"], w8a8=c["w8a8"])
-    change = {k: v for k, v in (ctx.control or {}).items() if k not in ("logits", "reference")}
-    return compute.replace(**change) if change else compute
-
-
-def lower_logits(ctx: Context, pipe) -> None:
-    """A lower step that ``calibrate.py`` can run in the program itself
-    (``{"logits": ...}``; no configuration's control): the program's
-    logits product one precision step below the configuration's, in place
-    in the pipeline's prepared tables before its first batch. ``"int4"`` (below int8 logits): kernel A's logits
-    table requantized to codes in [-7, 7] with absmax/7 scales a 32-row
-    block; ``"float8_e4m3fn"`` (below bf16 logits): the tied embedding
-    rounded to float8 a row."""
-    kind = (ctx.control or {}).get("logits")
-    if kind is None:
-        return
-    dec = pipe.params["decoder"]
-    if kind == "int4":
-        q = dec["tok_emb_q"]
-        w = (q["qw"].float().reshape(-1, 32, q["qw"].shape[1]) * q["scales"][:, None, :])
-        s4 = torch.clamp_min(w.abs().amax(dim=1), 1e-12) / 7.0
-        q["qw"].copy_(torch.clamp(torch.round(w / s4[:, None, :]), -7, 7).to(torch.int8).reshape(q["qw"].shape))
-        q["scales"].copy_(s4)
-    elif kind == "float8_e4m3fn":
-        from benchmark.reference import to_float8
-
-        dec["tok_emb"].copy_(to_float8(dec["tok_emb"].float()).to(dec["tok_emb"].dtype))
-    else:
-        raise ValueError(f"unknown logits control {kind!r}")
-
-
-def build_program(ctx: Context, beam_width: int, max_tokens: int):
-    """The port's ``WhisperPipeline`` over the benchmark's weights (drawn
-    on the device from the seed), its kernels built or loaded."""
-    from whisper_burn_tpu_torch.models.config import WhisperConfig
-    from whisper_burn_tpu_torch.transcribe import WhisperPipeline
-
-    if ctx.device.type == "cuda":
-        from whisper_burn_tpu_torch.ops import _build
-
-        _build.build_all()
-    from benchmark.weights import make_weights
-
-    s = ctx.shape
-    cfg = WhisperConfig(n_mels=s.n_mels, n_audio_ctx=s.n_audio_ctx, n_audio_state=s.d_model, n_audio_head=s.heads,
-                        n_audio_layer=s.encoder_layers, n_text_ctx=s.n_text_ctx, n_text_state=s.d_model,
-                        n_text_head=s.heads, n_text_layer=s.decoder_layers, n_vocab=s.n_vocab, n_lang=s.n_lang)
-    weights = make_weights(s, ctx.seed, ctx.device)
-    pipe = WhisperPipeline((cfg, weights), compute=program_compute(ctx), max_tokens=max_tokens,
-                           beam_width=beam_width, device=ctx.device)
-    lower_logits(ctx, pipe)
-    return pipe
-
-
-def free_program() -> None:
-    """Drop the program's runners, caches and graphs."""
-    from whisper_burn_tpu_torch.models.whisper import clear_runners
-
-    clear_runners()
+def release(ctx: Context) -> None:
+    """Drop the program's state: the family's (its runners, caches and
+    graphs), then what the collector and the card's allocator hold."""
+    ctx.family.free()
     gc.collect()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+
+
+# -- adapters: the call shapes of scripts/torch_recorder_cost.py -----------
+
+_ADAPTED: list = []  # the contexts ``build_program`` built for, which ``free_program`` releases
+
+
+def build_program(ctx: Context, beam_width: int, max_tokens: int):
+    """Adapter: ``ctx.family.build(ctx)``, for a caller that still passes
+    the traffic's beam width and token cap (the family reads both from
+    ``ctx.params``; a caller whose differ is refused)."""
+    if (beam_width, max_tokens) != (ctx.params["beam_width"], ctx.params["max_tokens"]):
+        raise ValueError(f"beam width {beam_width} and token cap {max_tokens} are not the traffic's")
+    _ADAPTED.append(ctx)
+    return ctx.family.build(ctx)
+
+
+def free_program() -> None:
+    """Adapter: ``release`` of each context ``build_program`` built for."""
+    while _ADAPTED:
+        release(_ADAPTED.pop())
 
 
 def memory_peak_bytes(device: torch.device) -> int:
@@ -182,25 +164,18 @@ def sample_served(served: list, seed: int, n: int = SAMPLE_REQUESTS) -> list:
 
 
 def check(ctx: Context, served: list, n: int = SAMPLE_REQUESTS, keep: bool = False) -> dict:
-    """The reference's judgement of ``n`` of the served requests, each
-    compared number beside the cell's limit. Runs after the program is
-    freed, over the weights drawn again from the seed. Where the run's
-    control is the reference's (``{"reference": "float8_e4m3fn"}``: the
-    reference computed a precision step below the configuration), the
-    numbers compared are the control's, read over the same requests."""
-    from benchmark.reference import Numerics, Reference, judge
-    from benchmark.weights import make_weights
-
+    """The reference's judgement of ``n`` of the served requests (the
+    family's ``judge``, which runs after the program is freed), each
+    compared number beside the cell's limit. Where the run's control is
+    the reference's (a ``control`` that names a ``reference``: the
+    reference computed a precision step below the configuration, put in
+    the program's place), the numbers compared are the control's, read
+    over the same requests and reported under ``control_``."""
     sample = sample_served(served, ctx.seed, n)
     if not sample:
         return {"correct": False, "compared": {}, "why": "no request was served in the window"}
-    weights, numerics = make_weights(ctx.shape, ctx.seed, ctx.device), Numerics.of(ctx.config["compute"])
-    lowered = (ctx.control or {}).get("reference")
-    if lowered not in (None, "float8_e4m3fn"):
-        raise ValueError(f"unknown reference control {lowered!r}")
-    control = Reference(ctx.shape, weights, numerics, lowered=True) if lowered else None
-    readings = judge(Reference(ctx.shape, weights, numerics), sample, ctx.device, keep, control)
-    side = "control_" if control is not None else ""
+    readings = ctx.family.judge(ctx, sample, keep)
+    side = "control_" if (ctx.control or {}).get("reference") else ""
     limits = ctx.workload["correct_limits"]
     finite = lambda v: v if v is not None and math.isfinite(v) else None  # inf or NaN prints as null: not correct
     compared = {name: {"value": finite(readings[side + name]), "limit": limit} for name, limit in limits.items()}

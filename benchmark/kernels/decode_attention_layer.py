@@ -7,7 +7,7 @@ accumulator and its max and sum a head. As chip_smoke.py:360-365
 POSITION = "layer"
 
 
-def bound(shape, pos, s):
+def bound(shape, pos, dims):
     b, _, d = shape
-    nbytes = b * (d * 2 + 2 * pos * d + pos * 8 + d * 4 + 2 * s.heads * 4)
+    nbytes = b * (d * 2 + 2 * pos * d + pos * 8 + d * 4 + 2 * dims["heads"] * 4)
     return nbytes, 4.0 * b * pos * d

@@ -6,8 +6,8 @@ read once, f32 out."""
 POSITION = None
 
 
-def bound(shape, pos, s):
+def bound(shape, pos, dims):
     b, _, d, groups = shape
-    entries, valid = b // groups, s.n_audio_ctx
+    entries, valid = b // groups, dims["audio_ctx"]
     nbytes = b * d * 2 + entries * (d // 2) * valid + entries * (valid // 2) * d + b * d * 4
     return nbytes, 4.0 * b * valid * d

@@ -7,7 +7,7 @@ scales, the step's raw k/v (bf16), their int8 codes and scales stored at
 POSITION = "layer"  # one launch a layer a step
 
 
-def bound(shape, pos, s):
+def bound(shape, pos, dims):
     b, _, d = shape
     nbytes = b * (d * 2 + 2 * pos * d + pos * 8 + 2 * d * 2 + 2 * d + 8 + d * 4 + 2 * d + 8)
     return nbytes, 4.0 * b * (pos + 1) * d

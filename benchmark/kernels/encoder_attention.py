@@ -6,7 +6,7 @@ scores and value products only."""
 POSITION = None
 
 
-def bound(shape, pos, s):
+def bound(shape, pos, dims):
     b, _, d = shape
-    valid = s.n_audio_ctx
+    valid = dims["audio_ctx"]
     return 4 * b * valid * d * 2, 4.0 * b * valid * valid * d

@@ -6,7 +6,7 @@ the chip in the ideal."""
 POSITION = None
 
 
-def bound(shape, pos, s):
+def bound(shape, pos, dims):
     m, d, f, _ = shape
     weights = 2 * d * f + (d // 32) * f * 4 + (f // 32) * d * 4 + f * 4 + d * 4
     return 2 * m * d * 2 + weights, 4.0 * m * d * f

@@ -7,8 +7,8 @@ chip_smoke.py:478 (q4_rows)."""
 POSITION = None
 
 
-def bound(shape, pos, s):
+def bound(shape, pos, dims):
     m, k, n, epi = shape
-    out_bytes = 4 if n == -(-s.n_vocab // 512) * 512 else 2
+    out_bytes = 4 if n == dims["logits_n"] else 2
     nbytes = m * k * 2 + k * n + (k // 32) * n * 4 + (n * 4 if epi else 0) + m * n * out_bytes
     return nbytes, 2.0 * m * k * n

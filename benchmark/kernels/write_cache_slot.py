@@ -5,6 +5,6 @@ layer read once and written at ``pos``."""
 POSITION = None
 
 
-def bound(shape, pos, s):
+def bound(shape, pos, dims):
     layers, streams, _, *row_bytes = shape
     return 2 * layers * streams * sum(row_bytes), 0.0

@@ -7,7 +7,7 @@ one stream were every stream's parent (the least the gather can read)."""
 POSITION = "step"  # one launch a step, all layers
 
 
-def bound(shape, pos, s):
+def bound(shape, pos, dims):
     layers, streams, _, *row_bytes = shape
     per_row = sum(row_bytes)
     return layers * per_row * (streams * (pos + 1) + streams + pos), 0.0

@@ -1,9 +1,10 @@
-"""The model operations of the real requests in the traced batches
-(``benchmark/flops.py``, padding rows counting for nothing) over the
-model steps' device walls (each ``decode_batch``'s device span) times the
-H100's dense bf16 peak, in percent."""
+"""The model operations of the real requests in the traced batches (the
+family's ``request_flops``, Whisper's in ``benchmark/flops.py``; padding
+rows count for nothing) over the model steps' device walls (each
+``decode_batch``'s device span) times the H100's dense bf16 peak
+(``benchmark/chip.py``), in percent."""
 
-from benchmark.flops import BF16_FLOP_PER_S
+from benchmark.chip import BF16_FLOP_PER_S
 
 
 def read(record, ctx):

@@ -5,10 +5,6 @@ program."""
 from __future__ import annotations
 
 import dataclasses
-import json
-from pathlib import Path
-
-CONFIGS = Path(__file__).resolve().parent / "configs"
 
 # Whisper's token ids (openai/whisper tokenizer; the same in every
 # multilingual checkpoint)
@@ -45,10 +41,6 @@ class ModelShape:
     @property
     def no_timestamps_token(self) -> int:
         return self.transcribe_token + 4
-
-
-def load_config(name: str) -> dict:
-    return json.loads((CONFIGS / f"{name}.json").read_text())
 
 
 def model_shape(config: dict) -> ModelShape:

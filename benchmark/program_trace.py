@@ -4,10 +4,14 @@ numbers the per-layer readers take (``benchmark/metrics/``).
 
 The benchmark's spans are ranges around calls into the program's layers:
 ``bench.traced_window`` around the traced part and ``bench.decode_batch``
-around each ``WhisperPipeline.decode_batch`` (the model step of a batch);
-the program's own ranges (``greedy_decode.*``, ``beam_decode.*``) and its
-launch log (``ops/_build.LAUNCH_LOG``: each hand-written launch with its
-shape, graph replays included) are read as they are.
+around each of the program's ``decode_batch`` calls (the model step of a
+batch); the program's own ranges (``<entry>.encode``, ``.cross_fill``,
+``.decode``, where the family's ``entry`` names the model step: Whisper's
+``greedy_decode`` or ``beam_decode``) and its launch log
+(``ops/_build.LAUNCH_LOG``: each hand-written launch with its shape, graph
+replays included) are read as they are. The model's operations, the
+sizes and cache positions the kernels' bounds read, and its decode
+loop's steps are the family's to count.
 """
 
 from __future__ import annotations
@@ -19,29 +23,14 @@ import time
 import torch
 from torch.profiler import record_function
 
-from benchmark import flops, trace
-from benchmark.model_config import MIN_TOKENS
+from benchmark import trace
 
-DONE_CHECK_EVERY = 16  # the decode loops read "all done" every 16 steps (models/whisper.py)
 STAGES = ("encode", "cross_fill")
 
 
 def samples_of(tokens, max_tokens: int) -> int:
     """Samples a stream took: its served tokens and the EOT that ended it early."""
     return len(tokens) + (1 if len(tokens) < max_tokens else 0)
-
-
-def decode_steps(samples: list[int], max_tokens: int) -> int:
-    """Steps the decode loop ran for a batch whose streams took ``samples``:
-    one a sample after the first, until every stream is done, read every
-    ``DONE_CHECK_EVERY`` steps, or the cap."""
-    done_at = max(max(samples), MIN_TOKENS)
-    steps = 0
-    for k in range(1, max_tokens):
-        if k % DONE_CHECK_EVERY == 0 and k >= done_at:
-            break
-        steps += 1
-    return steps
 
 
 class Tracer:
@@ -97,17 +86,19 @@ def summarize(ctx, raw: dict, batches: list, beam_width: int, max_tokens: int, w
     spans = trace.batch_spans(raw, [b["host"] for b in batches], window_at)
     if len(spans) != len(batches):
         raise AssertionError(f"{len(spans)} device spans of {trace.BATCH} for {len(batches)} traced batches")
-    entry = "beam_decode" if beam_width > 1 else "greedy_decode"
+    family = ctx.family
+    entry = family.entry(beam_width)
     stage_ms = collections.Counter()
     for stage in STAGES + ("decode",):
         for a, b in trace.device_spans(raw, f"{entry}.{stage}"):
             if any(s <= a < e for s, e in spans):
                 stage_ms[stage] += (b - a) / 1e3
     shape = ctx.shape
-    model_flops = sum(flops.request_flops(shape, n, beam_width, b["detect"]) for b in batches for n in b["samples"])
+    model_flops = sum(family.request_flops(shape, n, beam_width, b["detect"]) for b in batches for n in b["samples"])
     for b, span in zip(batches, spans):
         b["span"] = span
-    roof = trace.kernel_roofline(raw, batches, shape)
+    roof = trace.kernel_roofline(raw, batches, family.kernel_dims(shape),
+                                 lambda log, position: family.positions(shape, log, position))
     busy = trace.busy_us(raw["device"], lo, hi)
     ops = collections.Counter()
     for e in raw["device"]:
@@ -121,7 +112,7 @@ def summarize(ctx, raw: dict, batches: list, beam_width: int, max_tokens: int, w
         "rows": sum(b["rows"] for b in batches),
         "real": sum(len(b["samples"]) for b in batches),
         "stage_ms": dict(stage_ms),
-        "decode_steps": sum(decode_steps(b["samples"], max_tokens) for b in batches),
+        "decode_steps": sum(family.decode_steps(b["samples"], max_tokens) for b in batches),
         "model_flops": model_flops,
         "step_s": sum(e - s for s, e in spans) / 1e6,
         "roofline": roof,

@@ -3,12 +3,13 @@
     python3 benchmark/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 Run from the root of a checkout on a machine with the cards the cell asks
-for. It makes the cell's inputs and weights from ``--seed``, builds or
-loads the port's kernels (``build/kernels/`` in the checkout), builds the
-port's ``WhisperPipeline`` on the card, warms up the cell's own shape,
-measures for ``--seconds``, then judges a sample of what the timed path
-served, and what the program said of it (``benchmark/observe.py``),
-against the plain reference (``benchmark/reference.py``). The last
+for. It makes the cell's inputs and weights from ``--seed``, builds the
+program under test on the card through the configuration's model family
+(``families/<family>.py``; Whisper's builds or loads the port's kernels
+into ``build/kernels/`` in the checkout and builds its
+``WhisperPipeline``), warms up the cell's own shape, measures for
+``--seconds``, then judges a sample of what the timed path served, and
+what the program said of it, against the family's plain reference. The last
 line of standard output is one JSON object: ``correct``, ``attempted``,
 ``failed``, ``metrics`` (the cell's end-to-end metrics of
 ``BENCHMARK.json``, or with ``--trace 1`` its per-layer ones), ``device``,
@@ -37,27 +38,29 @@ def _cache_dirs() -> None:
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str, *, workload: dict | None = None,
-             shape=None, control: bool | dict = False, judged: int | None = None, keep: bool = False) -> dict:
+             shape=None, control: bool | dict = False, judged: int | None = None, keep: bool = False,
+             bench_dir: Path | None = None) -> dict:
     """One run of cell ``name``: the result object (and, under ``record``,
-    what the run measured)."""
+    what the run measured). ``bench_dir`` holds the cell's workload,
+    configuration and family files (``benchmark/`` where None)."""
     import torch
 
     from benchmark import harness
-    from benchmark.observe import Observer
 
-    ctx = harness.make_context(name, seed, seconds, trace, device, workload=workload, shape=shape, control=control)
+    ctx = harness.make_context(name, seed, seconds, trace, device, workload=workload, shape=shape, control=control,
+                               bench_dir=bench_dir or harness.HERE)
     p = ctx.params
     traffic = importlib.import_module(f"benchmark.traffic.{p['kind']}")
-    pipe = harness.build_program(ctx, p["beam_width"], p["max_tokens"])
-    observer = Observer(pipe, p["max_tokens"])
+    program = ctx.family.build(ctx)
+    observer = ctx.family.observe(program, p)
     try:
-        record = traffic.run(ctx, pipe)
+        record = traffic.run(ctx, program)
     finally:
         observer.close()
     peak = harness.memory_peak_bytes(ctx.device)
     metrics = harness.read_metrics(ctx, record, name)
-    del pipe
-    harness.free_program()
+    del program
+    harness.release(ctx)
     verdict = harness.check(ctx, record["served"], judged or harness.SAMPLE_REQUESTS, keep)
     dev = {"platform": "gpu" if ctx.device.type == "cuda" else "cpu",
            "kind": torch.cuda.get_device_name(ctx.device) if ctx.device.type == "cuda" else "cpu",

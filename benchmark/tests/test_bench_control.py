@@ -44,7 +44,8 @@ def test_the_lowered_logits_tables(kind):
     from whisper_burn_tpu_torch.transcribe import quantize_logit_embedding
 
     dec = {"tok_emb": emb.clone().bfloat16(), "tok_emb_q": quantize_logit_embedding(emb)}
-    harness.lower_logits(SimpleNamespace(control={"logits": kind}), SimpleNamespace(params={"decoder": dec}))
+    whisper = harness.family_module("whisper")
+    whisper.lower(SimpleNamespace(control={"logits": kind}), SimpleNamespace(params={"decoder": dec}))
     if kind == "int4":
         assert dec["tok_emb_q"]["qw"].abs().max() <= 7 and dec["tok_emb_q"]["qw"].dtype == torch.int8
         w = dec["tok_emb_q"]["qw"].float().reshape(2, 32, -1) * dec["tok_emb_q"]["scales"][:, None, :]

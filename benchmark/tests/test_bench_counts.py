@@ -4,9 +4,10 @@ port's ``tiny_test()`` sizes (d 64, 2 heads, FFN 256, 12 audio frames,
 
 import pytest
 
-from benchmark import flops, model_config, trace
+from benchmark import flops, harness, model_config, trace
 
 S = model_config.tiny_shape()
+WHISPER = harness.family_module("whisper")
 
 
 def test_encoder_operations_by_hand():
@@ -46,13 +47,14 @@ def test_request_operations_by_hand():
     ("write_cache_slot_beam", (2, 10, 64, 64, 64, 8), 5, (2 * 136 * (10 * 6 + 10 + 5), 0)),
 ])
 def test_kernel_bytes_and_operations_by_hand(kernel, shape, pos, want):
-    assert trace.bound_module(kernel).bound(shape, pos, S) == want
+    assert trace.bound_module(kernel).bound(shape, pos, WHISPER.kernel_dims(S)) == want
 
 
 def test_positions_follow_the_launch_order():
-    assert trace.positions(list(range(6)), 2, "layer") == [4, 4, 5, 5, 6, 6]
-    assert trace.positions(list(range(3)), 2, "step") == [4, 5, 6]
-    assert trace.positions(list(range(2)), 2, None) == [None, None]
+    assert S.decoder_layers == 2
+    assert WHISPER.positions(S, list(range(6)), "layer") == [4, 4, 5, 5, 6, 6]
+    assert WHISPER.positions(S, list(range(3)), "step") == [4, 5, 6]
+    assert WHISPER.positions(S, list(range(2)), None) == [None, None]
 
 
 def test_lost_records_are_walked_past():

@@ -5,7 +5,7 @@ comes out correct."""
 
 import pytest
 
-from benchmark import faults
+from benchmark import faults, harness
 from benchmark.tests.bench_tiny import tiny_run
 
 SEED = 2**31 + 901
@@ -22,6 +22,6 @@ def test_an_unbroken_run_is_correct(cell):
 @pytest.mark.parametrize("cell,fault", CASES)
 def test_a_broken_run_is_not_correct(cell, fault):
     width = 5 if "beam" in cell else 1
-    with faults.planted(fault, width):
+    with faults.planted(harness.family_module("whisper"), fault, width):
         out = tiny_run(cell, SEED)
     assert not out["result"]["correct"], out["readings"]

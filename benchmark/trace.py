@@ -20,6 +20,8 @@ import sys
 import tempfile
 from pathlib import Path
 
+from benchmark.chip import BF16_FLOP_PER_S, HBM_BYTES_PER_S
+
 KERNELS = Path(__file__).resolve().parent / "kernels"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the hand-written kernels as the trace names them, by launch-counter name
@@ -155,15 +157,6 @@ def bound_module(kernel: str):
     return mod
 
 
-def positions(log: list, layers: int, position: str | None) -> list:
-    """The cache position of each launch of one kernel in one batch's
-    decode, from its order: step k (from 1) writes at PROMPT_LEN + k - 1."""
-    if position is None:
-        return [None] * len(log)
-    per_step = layers if position == "layer" else 1
-    return [3 + i // per_step + 1 for i in range(len(log))]
-
-
 def match_launches(events: list, logged: list) -> tuple[list, int, bool]:
     """Each logged launch's device µs (None where the trace lost its
     record), walking the kernel's traced launches in time order beside the
@@ -182,13 +175,13 @@ def match_launches(events: list, logged: list) -> tuple[list, int, bool]:
     return durations, durations.count(None), j == len(events)
 
 
-def kernel_roofline(trace: dict, batches: list, shape) -> dict:
+def kernel_roofline(trace: dict, batches: list, dims: dict, positions) -> dict:
     """The hand-written kernels' share of their roofline over the traced
     batches: the sum of each launch's bound over the sum of its device
-    time. A lost record counts at the mean of its kernel and shape."""
-    from benchmark.flops import BF16_FLOP_PER_S
-
-    hbm = 3.35e12  # H100 SXM HBM3 (chip_smoke.py:227)
+    time. A lost record counts at the mean of its kernel and shape.
+    From the family: ``dims``, the model's sizes that the bounds read
+    (``kernel_dims``); ``positions(log, position)``, the cache position of
+    each of a kernel's launches in one batch."""
     bound_s = time_us = 0.0
     lost = collections.Counter()
     for batch in batches:
@@ -214,9 +207,9 @@ def kernel_roofline(trace: dict, batches: list, shape) -> dict:
                 if d is not None:
                     means[key].append(d)
             fallback = max((sum(v) / len(v) for v in means.values()), default=0.0)
-            for key, d, pos in zip(logged, durs, positions(logged, shape.decoder_layers, mod.POSITION)):
-                nbytes, flops = mod.bound(key, pos, shape)
-                bound_s += max(nbytes / hbm, flops / BF16_FLOP_PER_S)
+            for key, d, pos in zip(logged, durs, positions(logged, mod.POSITION)):
+                nbytes, flops = mod.bound(key, pos, dims)
+                bound_s += max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
                 if d is None:
                     d = sum(means[key]) / len(means[key]) if means[key] else fallback
                 time_us += d

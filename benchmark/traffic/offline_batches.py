@@ -1,4 +1,4 @@
-"""Closed-loop offline batches through ``WhisperPipeline.transcribe_batch``.
+"""Closed-loop offline batches through the program's ``transcribe_batch``.
 
 Parameters (the workload file's ``traffic``): ``batch`` utterances a
 call, ``clip_seconds`` each, ``language``, ``beam_width``, ``max_tokens``,
@@ -18,7 +18,6 @@ import time
 import numpy as np
 
 from benchmark import audio, program_trace
-from benchmark.reference import Served
 
 
 def make_pool(p: dict, seed: int) -> list:
@@ -39,7 +38,6 @@ def run(ctx, pipe) -> dict:
     p = ctx.params
     pool = make_pool(p, ctx.seed)
     langs = [p["language"]] * p["batch"]
-    detect = p["language"] == "auto"
     feed = batches(pool, p["batch"])
     pipe.transcribe_batch([c.samples for c in next(feed)], langs)  # warm-up: builds, captures, fills every cache
 
@@ -48,8 +46,7 @@ def run(ctx, pipe) -> dict:
     while time.perf_counter() - t0 < ctx.seconds:
         clips = next(feed)
         results = pipe.transcribe_batch([c.samples for c in clips], langs)
-        served += [Served(c.samples, c.rate, r.lang_token, detect, r.tokens.tolist(), p["max_tokens"], r.observed)
-                   for c, r in zip(clips, results)]
+        served += [ctx.family.served(c, r, p) for c, r in zip(clips, results)]
     window_s = time.perf_counter() - t0
     record = {
         "window_s": window_s,

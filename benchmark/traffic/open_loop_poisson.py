@@ -27,7 +27,6 @@ import time
 import numpy as np
 
 from benchmark import audio, program_trace
-from benchmark.reference import Served
 
 LEAD_S = 0.05  # between the window's start and its first arrival
 LATE_S = 60.0  # how long past the window's close an answer is waited for
@@ -174,8 +173,7 @@ def run(ctx, pipe) -> dict:
         waiter.join()
     window = [e for e in waiter.done if e["in_window"]]
     latencies = [(e["answered"] - e["due"]) * 1e3 if e["result"] is not None else float("inf") for e in window]
-    served = [Served(e["clip"].samples, e["clip"].rate, e["result"].lang_token, p["language"] == "auto",
-                     e["result"].tokens.tolist(), p["max_tokens"], e["result"].observed) for e in window if e["result"] is not None]
+    served = [ctx.family.served(e["clip"], e["result"], p) for e in window if e["result"] is not None]
     (b0, r0), (b1, r1) = counters["start"], counters["end"]
     return {
         "window_s": ctx.seconds,
